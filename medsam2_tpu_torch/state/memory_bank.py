@@ -1,0 +1,206 @@
+"""Fixed-shape temporal memory bank (counterpart of
+``medsam2_tpu/state/memory_bank.py``), same dict keys and shapes.
+
+Conditioning memories sit in append-once slots [B, Mc, P, D]; non-conditioning
+memories in a ring of the last R frames (slot = t % R); object pointers in cond
+slots plus a ring of the last (max_obj_ptrs - 1) frames. The roped-key cache
+``kcache`` [B, Mc + R, L, P, C] holds the slots in storage order, and
+attention consumes it as stored (:func:`kv_storage_layout`).
+
+Unlike the JAX package, :func:`write_bank` updates the bank in place (the
+cache is ~67 MB at 1024 px for one object; copying it every frame buys
+nothing in eager PyTorch) and returns it for call-site symmetry. Frame indices
+are host integers; slot choice for a cond write happens on the device, so no
+write synchronises with the host.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from medsam2_tpu_torch.configs import SAM2Config
+
+
+@dataclasses.dataclass(frozen=True)
+class BankSpec:
+    """Static geometry of the memory bank (``memory_bank.BankSpec``)."""
+
+    num_maskmem: int          # frames attended (1 current-adjacent + 6 past)
+    max_cond_frames: int      # cap on conditioning (prompted) frames
+    mem_spatial: int          # P: tokens per memory frame
+    mem_dim: int              # D: memory channels (64)
+    hidden_dim: int           # C: object-pointer width (256)
+    max_obj_ptrs: int         # pointers in cross-attention (16)
+    temporal_stride: int = 1  # the eval stride r
+
+    @classmethod
+    def from_config(cls, cfg: SAM2Config, max_cond_frames: int = 8):
+        if cfg.max_cond_frames_in_attn >= 0:
+            max_cond_frames = max(1, min(max_cond_frames, cfg.max_cond_frames_in_attn))
+        s = cfg.image_size // cfg.backbone_stride
+        return cls(num_maskmem=cfg.num_maskmem, max_cond_frames=max_cond_frames,
+                   mem_spatial=s * s, mem_dim=cfg.mem_dim, hidden_dim=cfg.hidden_dim,
+                   max_obj_ptrs=cfg.max_obj_ptrs_in_encoder,
+                   temporal_stride=cfg.memory_temporal_stride_for_eval)
+
+    @property
+    def noncond_ring(self) -> int:
+        # every frame the stride-r selection reaches back to, plus t-1
+        return max((self.num_maskmem - 2) * self.temporal_stride + 2, self.num_maskmem - 1)
+
+    @property
+    def ptr_ring(self) -> int:
+        return max(self.max_obj_ptrs - 1, 1)
+
+    @property
+    def tokens_per_ptr(self) -> int:
+        return self.hidden_dim // self.mem_dim
+
+    @property
+    def num_ptr_slots(self) -> int:
+        return self.max_cond_frames + self.max_obj_ptrs - 1
+
+    @property
+    def num_ptr_tokens(self) -> int:
+        return self.num_ptr_slots * self.tokens_per_ptr
+
+
+def init_bank(spec: BankSpec, batch: int, device,
+              kcache_shape: Tuple[int, int] = (0, 0), kcache_dtype=torch.bfloat16):
+    """Empty bank for ``batch`` objects; with ``kcache_shape`` = (layers,
+    d_model) non-zero it also carries the roped-key cache."""
+    B = batch
+
+    def zeros(*shape, dt=torch.float32):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    def neg(*shape):
+        return torch.full(shape, -1, dtype=torch.int32, device=device)
+
+    bank = {
+        "cond_feats": zeros(B, spec.max_cond_frames, spec.mem_spatial, spec.mem_dim),
+        "cond_frame_idx": neg(B, spec.max_cond_frames),
+        "cond_obj_ptr": zeros(B, spec.max_cond_frames, spec.hidden_dim),
+        "cond_count": zeros(B, dt=torch.int32),
+        "noncond_feats": zeros(B, spec.noncond_ring, spec.mem_spatial, spec.mem_dim),
+        "noncond_frame_idx": neg(B, spec.noncond_ring),
+        "ptr_ring": zeros(B, spec.ptr_ring, spec.hidden_dim),
+        "ptr_frame_idx": neg(B, spec.ptr_ring),
+    }
+    L, C = kcache_shape
+    if L > 0:
+        bank["kcache"] = zeros(B, spec.max_cond_frames + spec.noncond_ring, L,
+                               spec.mem_spatial, C, dt=kcache_dtype)
+    return bank
+
+
+def write_bank(spec: BankSpec, bank, frame_idx: int, maskmem_feats, obj_ptr,
+               is_cond: bool, kcache=None):
+    """Store one frame's memory in place. maskmem_feats [B, P, D]; obj_ptr
+    [B, C]; kcache [B, L, P, d_model], required iff the bank carries one."""
+    if ("kcache" in bank) != (kcache is not None):
+        raise ValueError("bank kcache presence and write kcache argument disagree")
+    frame_idx = int(frame_idx)
+    if is_cond:
+        # re-prompting a stored frame overwrites its slot; else the first
+        # empty slot; else evict the slot farthest from the new frame
+        stored = bank["cond_frame_idx"][0].long()
+        big = torch.iinfo(torch.int32).max
+        key = torch.where(stored == frame_idx, big,
+                          torch.where(stored < 0, big - 1, (stored - frame_idx).abs()))
+        slot = key.argmax().reshape(1)
+        bank["cond_feats"].index_copy_(1, slot, maskmem_feats[:, None].to(bank["cond_feats"].dtype))
+        bank["cond_frame_idx"].index_fill_(1, slot, frame_idx)
+        bank["cond_obj_ptr"].index_copy_(1, slot, obj_ptr[:, None].to(bank["cond_obj_ptr"].dtype))
+        bank["cond_count"].add_(1).clamp_(max=spec.max_cond_frames)
+        if kcache is not None:
+            bank["kcache"].index_copy_(1, slot, kcache[:, None].to(bank["kcache"].dtype))
+    else:
+        slot = frame_idx % spec.noncond_ring
+        bank["noncond_feats"][:, slot] = maskmem_feats.to(bank["noncond_feats"].dtype)
+        if kcache is not None:
+            bank["kcache"][:, spec.max_cond_frames + slot] = kcache.to(bank["kcache"].dtype)
+        bank["noncond_frame_idx"][:, slot] = frame_idx
+        pslot = frame_idx % spec.ptr_ring
+        bank["ptr_ring"][:, pslot] = obj_ptr.to(bank["ptr_ring"].dtype)
+        bank["ptr_frame_idx"][:, pslot] = frame_idx
+    return bank
+
+
+def _noncond_target_frames(spec: BankSpec, frame_idx: int) -> np.ndarray:
+    """Stride-r previous-frame arithmetic (``sam2_base.py:535-558``), forward
+    tracking, t_pos = 1..num_maskmem-1."""
+    r = spec.temporal_stride
+    t_pos = np.arange(1, spec.num_maskmem, dtype=np.int64)
+    t_rel = spec.num_maskmem - t_pos
+    strided = ((frame_idx - 2) // r) * r - (t_rel - 2) * r
+    return np.where(t_rel == 1, frame_idx - 1, strided).astype(np.int64)
+
+
+def kv_storage_layout(spec: BankSpec, bank, frame_idx: int):
+    """Per storage slot: which positional row it carries and whether it is
+    attended. Returns (row_of_slot [Mc + R] int32, slot_valid [B, Mc + R]
+    bool); a ring slot is valid iff its stored frame is one of the stride-r
+    targets."""
+    dev = bank["noncond_frame_idx"].device
+    Mc = spec.max_cond_frames
+    targets = torch.from_numpy(_noncond_target_frames(spec, frame_idx)).to(dev)
+    stored = bank["noncond_frame_idx"].long()                               # [B, R]
+    eq = (stored[:, :, None] == targets[None, None, :]) & (targets >= 0)[None, None, :]
+    ring_valid = eq.any(dim=-1)
+    ring_row = Mc + eq[0].int().argmax(dim=-1).int()      # invalid slots: masked
+    cond_valid = bank["cond_frame_idx"] >= 0
+    row_of_slot = torch.cat([torch.arange(Mc, dtype=torch.int32, device=dev), ring_row])
+    return row_of_slot, torch.cat([cond_valid, ring_valid], dim=1)
+
+
+def pos_kcache_rows(spec: BankSpec, maskmem_tpos_enc, spatial_pos):
+    """Per read-order slot positional rows [Fa, P, mem_dim]: spatial sine pos
+    plus the slot's temporal embedding (cond slots take index num_maskmem-1,
+    non-cond position j takes num_maskmem - j - 2)."""
+    D = spec.mem_dim
+    cond_tpos = maskmem_tpos_enc[spec.num_maskmem - 1]
+    tpos_idx = spec.num_maskmem - torch.arange(1, spec.num_maskmem) - 1
+    nc_tpos = maskmem_tpos_enc[tpos_idx.to(maskmem_tpos_enc.device)]
+    tpos = torch.cat([cond_tpos[None].expand(spec.max_cond_frames, D), nc_tpos], dim=0)
+    return spatial_pos[None, :, :] + tpos[:, None, :]
+
+
+def read_ptrs(spec: BankSpec, bank, frame_idx: int, obj_ptrs_in_past_only: bool = False,
+              num_frames: int = 2 ** 30):
+    """Object-pointer readout (``sam2_base.py:583-635``), forward tracking:
+    all cond pointers plus up to min(num_frames, max_obj_ptrs) - 1 recent
+    non-cond pointers, split into mem_dim tokens. Returns (ptr_tokens
+    [B, Nt, D], ptr_token_valid [B, Nt] bool, ptr_tdiff [B, num_ptr_slots])."""
+    B = bank["cond_obj_ptr"].shape[0]
+    D = spec.mem_dim
+    dev = bank["cond_obj_ptr"].device
+    cond_idx = bank["cond_frame_idx"]
+    cond_valid = cond_idx >= 0
+    if obj_ptrs_in_past_only:
+        cond_valid = cond_valid & (cond_idx <= frame_idx)
+    eff_max = min(int(num_frames), spec.max_obj_ptrs)
+    t_diff = np.arange(1, spec.max_obj_ptrs, dtype=np.int64)
+    targets = frame_idx - t_diff
+    in_range = (targets >= 0) & (targets < num_frames) & (t_diff < eff_max)
+    pslots = torch.from_numpy(np.remainder(np.clip(targets, 0, None), spec.ptr_ring)).to(dev)
+    ring_ptrs = bank["ptr_ring"].index_select(1, pslots)
+    ring_stored = bank["ptr_frame_idx"].index_select(1, pslots)
+    ring_valid = ((ring_stored == torch.from_numpy(targets).to(dev)[None])
+                  & torch.from_numpy(in_range).to(dev)[None])
+    # a frame both cond and in the pointer window contributes its cond pointer
+    dup = (ring_stored[:, :, None] == cond_idx[:, None, :]) & cond_valid[:, None, :]
+    ring_valid = ring_valid & ~dup.any(dim=-1)
+
+    all_ptrs = torch.cat([bank["cond_obj_ptr"], ring_ptrs], dim=1)
+    all_valid = torch.cat([cond_valid, ring_valid], dim=1)
+    all_t = torch.cat([cond_idx, ring_stored], dim=1)
+    ptr_tdiff = torch.where(all_valid, (all_t - frame_idx).abs(), torch.zeros_like(all_t))
+    tok = spec.tokens_per_ptr
+    ptr_tokens = all_ptrs.reshape(B, spec.num_ptr_slots * tok, D)
+    ptr_valid = all_valid.repeat_interleave(tok, dim=1)
+    return ptr_tokens, ptr_valid, ptr_tdiff

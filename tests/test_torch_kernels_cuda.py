@@ -1,0 +1,146 @@
+"""The port's CUDA kernels against their plain PyTorch twins, on the card.
+
+Marked ``cuda``: each test skips when no CUDA device is present. On a GPU
+host run them without the JAX-configuring conftest:
+
+    python -m pytest --noconftest -q -m cuda tests/test_torch_kernels_cuda.py
+
+Inputs are drawn at unit scale, so logits are O(1) and the softmax is far
+from uniform: a kernel that dropped or mis-indexed keys would miss by much
+more than the tolerance. Tolerances: fp32 inputs (TF32 off) agree with the
+twin to 1e-4 absolute (sums taken in another order); bf16 inputs are held
+against the twin run on the same values upcast to fp32, to 1e-2 of the
+largest |output|. The kernel rounds probabilities and the output to bf16, so
+its error scales with the output: measured on an H100 over these cases,
+max_abs_err / max|output| stays under 3.2e-3, about one bf16 ulp.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from medsam2_tpu_torch.ops import attention as A
+
+pytestmark = pytest.mark.cuda
+torch.set_num_threads(2)
+
+TOL_F32 = 1e-4
+TOL_BF16_REL = 1e-2
+
+
+def _tol(want, dtype):
+    if dtype == torch.bfloat16:
+        return TOL_BF16_REL * want.abs().max().item()
+    return TOL_F32
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _t(rng, shape, dev, dtype, scale=1.0):
+    return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)).to(dev, dtype)
+
+
+FLASH_CASES = [
+    # (B, H, Nq, Nk, D, Dv, mask)
+    (1, 2, 128, 300, 64, 64, "random"),
+    (2, 1, 100, 77, 96, 96, "row0_dead"),     # ragged lengths, batch 0 fully masked
+    (1, 1, 130, 200, 256, 64, "random"),      # Dv != D (low-rank values)
+    (1, 3, 64, 64, 128, 256, None),
+    (1, 4, 4096, 4096, 96, 96, None),         # Hiera global attention @1024
+    (1, 1, 4096, 4096, 256, 256, None),       # memory self-attention @1024
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", FLASH_CASES, ids=lambda c: "x".join(map(str, c[:6])))
+def test_flash_kernel_matches_twin(dev, dtype, case):
+    B, H, Nq, Nk, D, Dv, mask_kind = case
+    rng = np.random.default_rng(0)
+    q = _t(rng, (B, H, Nq, D), dev, dtype)
+    k = _t(rng, (B, H, Nk, D), dev, dtype)
+    v = _t(rng, (B, H, Nk, Dv), dev, dtype)
+    mask = None
+    if mask_kind is not None:
+        m = rng.random((B, Nk)) > 0.3
+        if mask_kind == "row0_dead":
+            m[0] = False
+        mask = torch.from_numpy(m).to(dev)
+    before = A.flash_attention.launches
+    got = A.flash_attention(q, k, v, kv_mask=mask)
+    torch.cuda.synchronize()
+    assert A.flash_attention.launches == before + 1
+    want = A.flash_attention_plain(q.float(), k.float(), v.float(), kv_mask=mask)
+    err = (got.float() - want).abs().max().item()
+    assert got.shape == (B, H, Nq, Dv) and got.dtype == dtype
+    assert err <= _tol(want, dtype), err
+    if mask_kind == "row0_dead":
+        assert got[0].abs().max().item() == 0.0
+
+
+KV_CASES = [
+    # (B, Nq, F, L, P, Nptr, Rr); C = 256, Dv = 64, the only widths built
+    (2, 64, 4, 2, 64, 8, 5),
+    (1, 100, 3, 1, 72, 100, 4),                # ragged P, Nptr > one tile
+    (2, 130, 8, 4, 256, 64, 8),
+    (1, 4096, 8, 4, 4096, 64, 8),              # memory cross-attention @1024
+]
+C, DV = A.KV_CACHED_WIDTHS
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", KV_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_kv_cached_kernel_matches_twin(dev, dtype, case):
+    B, Nq, F, L, P, Nptr, Rr = case
+    rng = np.random.default_rng(1)
+    q = _t(rng, (B, Nq, C), dev, dtype)
+    kcache = _t(rng, (B, F, L, P, C), dev, dtype)
+    pos_rows = _t(rng, (Rr, L, P, C), dev, dtype)
+    # a slot -> row map that is not the identity: each slot has its own row
+    perm = rng.permutation(Rr)[:F]
+    if (perm == np.arange(F)).all():
+        perm = np.roll(perm, 1)
+    rows = torch.from_numpy(perm.astype(np.int32)).to(dev)
+    ptr_k = _t(rng, (B, Nptr, C), dev, dtype)
+    v_slots = _t(rng, (B, F, P, DV), dev, dtype)
+    ptr_v = _t(rng, (B, Nptr, DV), dev, dtype)
+    m = np.ones((B, F * P + Nptr), bool)
+    m[0, P:2 * P] = False                      # a stale slot: every tile skipped
+    m[0, F * P + Nptr // 2:] = False           # pointer padding
+    if B > 1:
+        m[1, 3:5] = False
+        m[1, F * P:] = False                   # every pointer masked
+    mask = torch.from_numpy(m).to(dev)
+    for layer in range(L):
+        before = A.kv_cached_attention.launches
+        got = A.kv_cached_attention(q, kcache, pos_rows, rows, ptr_k, v_slots,
+                                    ptr_v, mask, layer)
+        torch.cuda.synchronize()
+        assert A.kv_cached_attention.launches == before + 1
+        # the twin sums kcache + pos in the cache dtype, as the kernel does
+        want = A.kv_cached_attention_plain(q.float(), kcache, pos_rows, rows, ptr_k,
+                                           v_slots.float(), ptr_v.float(), mask, layer)
+        err = (got.float() - want).abs().max().item()
+        assert got.shape == (B, Nq, DV) and got.dtype == dtype
+        assert err <= _tol(want, dtype), (layer, err)
+
+
+@pytest.mark.parametrize("widths", [(128, 64), (256, 96), (64, 64)],
+                         ids=lambda w: "x".join(map(str, w)))
+def test_kv_cached_kernel_rejects_unbuilt_widths(dev, widths):
+    c, dv = widths
+    B, Nq, F, L, P, Nptr = 1, 16, 2, 1, 16, 4
+    z = lambda *shape: torch.zeros(shape, device=dev)  # noqa: E731
+    mask = torch.ones(B, F * P + Nptr, dtype=torch.bool, device=dev)
+    rows = torch.arange(F, dtype=torch.int32, device=dev)
+    before = A.kv_cached_attention.launches
+    with pytest.raises(ValueError, match="kernel built for"):
+        A.kv_cached_attention(z(B, Nq, c), z(B, F, L, P, c), z(F, L, P, c), rows,
+                              z(B, Nptr, c), z(B, F, P, dv), z(B, Nptr, dv), mask, 0)
+    assert A.kv_cached_attention.launches == before

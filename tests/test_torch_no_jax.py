@@ -1,0 +1,49 @@
+"""The PyTorch port imports neither JAX nor the JAX package, and never uses a
+library attention kernel or ``torch.compile``."""
+
+import pkgutil
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+import medsam2_tpu_torch
+
+torch.set_num_threads(2)
+
+PKG = Path(medsam2_tpu_torch.__file__).parent
+ROOT = PKG.parent
+# the port's own entry points beside the package
+SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_port_propagation.py"]
+JAX_IMPORT = re.compile(r"^\s*(from|import)\s+(jax|medsam2_tpu)\b", re.MULTILINE)
+
+
+def _modules():
+    return sorted(m.name for m in pkgutil.walk_packages([str(PKG)], "medsam2_tpu_torch."))
+
+
+def test_importing_every_module_leaves_jax_unloaded():
+    mods = _modules()
+    assert "medsam2_tpu_torch.api.video_predictor" in mods
+    code = ("import sys\n"
+            + "".join(f"import {m}\n" for m in mods)
+            + "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'medsam2_tpu'))\n"
+            + "print(','.join(bad))\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "", f"JAX or JAX-package modules loaded: {res.stdout.strip()}"
+
+
+def test_sources_have_no_jax_import_library_attention_or_compile():
+    banned = ("scaled_dot_product_attention", "torch.compile")
+    files = [p for p in PKG.rglob("*") if p.suffix in (".py", ".cu", ".cuh")]
+    assert files
+    for path in files + SCRIPTS:
+        text = path.read_text()
+        match = JAX_IMPORT.search(text)
+        assert match is None, f"{path.relative_to(ROOT)} imports {match.group(2)}"
+        for word in banned:
+            assert word not in text, f"{path.relative_to(ROOT)} contains {word!r}"

@@ -1,0 +1,120 @@
+"""The whole slice, JAX package against the PyTorch port, on CPU at TINY:
+``init_state`` -> prompts on frame 0 -> ``propagate_in_video_batch`` over a
+10-frame moving-square video (the 7-slot non-conditioning ring wraps), and
+the video-resolution masks of ``propagate_in_video``. Per-frame low-res logits
+agree to atol 1e-3 / rtol 1e-3."""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from medsam2_tpu.api.video_predictor import SAM2VideoPredictor as JaxPredictor
+from medsam2_tpu.core.sam2_model import sam2_init
+from medsam2_tpu_torch.api.video_predictor import (SAM2VideoPredictor,
+                                                   propagate_volumes_batched)
+from medsam2_tpu_torch.checkpoint.convert import (load_reference_state_dict,
+                                                  state_dict_from_jax)
+from medsam2_tpu_torch.core.sam2_model import SAM2Model
+from tests.test_predictors import TINY, moving_square_video
+
+torch.set_num_threads(2)
+TOL = dict(atol=1e-3, rtol=1e-3)
+
+
+@pytest.fixture(scope="module")
+def models():
+    params = sam2_init(jax.random.PRNGKey(0), TINY)
+    model = SAM2Model(TINY, seed=1)
+    load_reference_state_dict(
+        model, state_dict_from_jax(jax.tree_util.tree_map(np.asarray, params), TINY))
+    return params, model
+
+
+def _both(models, video, **kw):
+    params, model = models
+    jp = JaxPredictor(params, TINY, max_cond_frames=2, **kw)
+    tp = SAM2VideoPredictor(model, max_cond_frames=2, **kw)
+    return jp, jp.init_state(images=video), tp, tp.init_state(images=video)
+
+
+def test_single_object_propagation_matches_jax(models):
+    video, _ = moving_square_video(T=10)
+    jp, js, tp, ts = _both(models, video)
+    np.testing.assert_allclose(ts["images"].numpy(), np.asarray(js["images"]), atol=1e-6)
+    pts, lab = np.array([[16.0, 28.0]]), np.array([1])
+    jf, jids, jprev = jp.add_new_points(js, 0, 1, pts, lab)
+    tf, tids, tprev = tp.add_new_points(ts, 0, 1, pts, lab)
+    assert (tf, tids) == (jf, jids)
+    np.testing.assert_allclose(tprev.numpy(), np.asarray(jprev), **TOL)
+
+    jframes, jmasks = jp.propagate_in_video_batch(js)
+    tframes, tmasks = tp.propagate_in_video_batch(ts)
+    assert tframes == jframes == list(range(10))
+    assert tuple(tmasks.shape) == jmasks.shape == (10, 1, 1, 16, 16)
+    for i in range(10):
+        np.testing.assert_allclose(tmasks[i].numpy(), np.asarray(jmasks[i]), **TOL,
+                                   err_msg=f"frame {i}")
+
+    jvid = list(jp.propagate_in_video(js))
+    tvid = list(tp.propagate_in_video(ts))
+    assert len(tvid) == len(jvid) == 10
+    for (f, ids, m), (jf_, jids_, jm) in zip(tvid, jvid):
+        assert (f, ids) == (jf_, jids_)
+        assert tuple(m.shape) == (1, 1, 64, 64)
+        np.testing.assert_allclose(m.numpy(), np.asarray(jm), **TOL)
+
+
+def test_two_objects_second_cond_frame_match_jax(models):
+    """Box + points on frame 0, a second conditioning frame where only
+    object 1 is prompted (object 2 takes the empty-mask path), 80-px video
+    resized to the 64-px model and back, with the cross-object non-overlap
+    constraint on the video-resolution masks."""
+    video, _ = moving_square_video(T=10, size=80)
+    jp, js, tp, ts = _both(models, video, non_overlap_masks=True)
+    for p, s in ((jp, js), (tp, ts)):
+        p.add_new_bbox(s, 0, obj_id=1, bbox=np.array([[10, 25], [30, 45]]))
+        p.add_new_points(s, 0, obj_id=2, points=np.array([[60.0, 10.0], [50.0, 70.0]]),
+                         labels=np.array([1, 0]))
+        p.add_new_points(s, 4, obj_id=1, points=np.array([[35.0, 35.0]]),
+                         labels=np.array([1]))
+    jframes, jmasks = jp.propagate_in_video_batch(js)
+    tframes, tmasks = tp.propagate_in_video_batch(ts)
+    assert tframes == jframes
+    assert tuple(tmasks.shape) == jmasks.shape == (10, 2, 1, 16, 16)
+    for i in range(10):
+        np.testing.assert_allclose(tmasks[i].numpy(), np.asarray(jmasks[i]), **TOL,
+                                   err_msg=f"frame {i}")
+    for (f, ids, m), (_, jids, jm) in zip(tp.propagate_in_video(ts),
+                                          jp.propagate_in_video(js)):
+        assert ids == jids == [1, 2]
+        assert tuple(m.shape) == (2, 1, 80, 80)
+        np.testing.assert_allclose(m.numpy(), np.asarray(jm), **TOL, err_msg=f"frame {f}")
+
+
+def test_out_of_scope_paths_raise(models):
+    _, model = models
+    video, gt = moving_square_video(T=6)
+    for kw in (dict(fill_hole_area=8), dict(clear_non_cond_mem_around_input=True),
+               dict(use_kcache=False)):
+        with pytest.raises(NotImplementedError):
+            SAM2VideoPredictor(model, **kw)
+    tp = SAM2VideoPredictor(model, max_cond_frames=2)
+    with pytest.raises(NotImplementedError):
+        tp.init_state(video_path="frames/")
+    with pytest.raises(NotImplementedError):
+        tp.init_state(images=video, offload_video_to_cpu=True)
+    state = tp.init_state(images=video)
+    with pytest.raises(NotImplementedError):
+        tp.add_new_mask(state, 0, 1, gt[0])
+    tp.add_new_points(state, 0, 1, np.array([[16.0, 28.0]]), np.array([1]))
+    with pytest.raises(NotImplementedError):
+        tp.propagate_in_video_batch(state, reverse=True)
+    frames, masks = tp.propagate_in_video_batch(state)
+    assert frames == list(range(6)) and torch.isfinite(masks).all()
+    with pytest.raises(NotImplementedError):      # a correction on a tracked frame
+        tp.add_new_points(state, 3, 1, np.array([[20.0, 28.0]]), np.array([1]))
+    with pytest.raises(NotImplementedError):      # resume past tracked frames
+        tp.propagate_in_video_batch(state, start_frame_idx=3)
+    with pytest.raises(NotImplementedError):
+        propagate_volumes_batched(model, TINY)
