@@ -1,19 +1,34 @@
-"""Drive the PyTorch port's 3D volume propagation on one NVIDIA GPU.
+"""Drive the PyTorch port's 3D propagation and 3D training on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Phases, each printing its own line:
   1. device: the card's name and power limit (nvidia-smi);
   2. build: compile the CUDA kernels from ``medsam2_tpu_torch/csrc``;
-  3. each kernel against its plain PyTorch twin at the propagation path's
-     shapes, bf16 and fp32, with CUDA-event times of both;
+  3. the propagation kernels (flash forward, kv-cached) against their plain
+     PyTorch twins at the propagation path's shapes, bf16 and fp32, with
+     CUDA-event times of kernel, twin and the library call;
+  3b. the training kernels (flash forward with LSE, the dK/dV and dQ backward
+     passes) against their twins at the training path's shapes, bf16 and
+     fp32, with a kv mask holding stale frames, a ragged Nk and a batch whose
+     keys are all masked; times of kernel, twin and
+     ``F.scaled_dot_product_attention`` forward and backward;
   4. sam2_hiera_t @512 fp32 propagation on the card (kernels) against the same
      seeded model on the CPU (plain twins), low-res logits to 1e-3;
   5. sam2_hiera_t @1024 bf16, 8 frames, 1 object: init_state -> add_new_points
      -> propagate_in_video_batch, exact kernel launch counts, ms per tracked
-     frame and peak memory.
-Then one JSON line of per-kernel results and, last, the device line. Any
-failure raises and exits non-zero; without a CUDA device nothing runs.
+     frame and peak memory;
+  6. sam2_hiera_t @512 fp32 (TF32 off), 4 frames, 1 object: one train step
+     on the card (kernels) against the same seeded model and batch on the CPU
+     (plain path): both losses and every trainable gradient;
+  7. sam2_hiera_t @512 bf16, 8 frames, 2 objects (the JAX package's
+     ``bench.py`` train_3d default): a warm-up step and 3 timed steps, finite
+     losses, both groups updated, frozen tensors bit-identical, exact launch
+     counts of the three training kernels, seconds per step, frames per
+     second, peak memory.
+Then one JSON line of per-kernel results, the card's name and power limit,
+and, last, the device line. Any failure raises and exits non-zero; without a
+CUDA device nothing runs.
 """
 
 import json
@@ -28,11 +43,14 @@ import torch
 if not torch.cuda.is_available():
     sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
 
+import torch.nn.functional as F  # noqa: E402
+
 from medsam2_tpu_torch.api.video_predictor import SAM2VideoPredictor  # noqa: E402
 from medsam2_tpu_torch.configs import sam2_hiera_t  # noqa: E402
-from medsam2_tpu_torch.core.sam2_model import SAM2Model  # noqa: E402
+from medsam2_tpu_torch.core.sam2_model import TRAINABLE_GROUPS, SAM2Model  # noqa: E402
 from medsam2_tpu_torch.ops import _build  # noqa: E402
 from medsam2_tpu_torch.ops import attention as A  # noqa: E402
+from medsam2_tpu_torch.train import recipe_3d  # noqa: E402
 
 DEV = torch.device("cuda")
 # fp32 (TF32 off): absolute. bf16: relative to the largest |output|, since
@@ -41,18 +59,45 @@ DEV = torch.device("cuda")
 # kernel that drops the pointer tiles misses by 2.8e-2.
 TOL_F32 = 1e-4
 TOL_BF16_REL = 1e-2
+# gradients, relative to the largest |gradient| of each: fp32 as the JAX
+# package's grad test (5e-5); bf16 against the twin run on the same bf16
+# values with the same roundings of P and dS
+TOL_GRAD_F32 = 5e-5
+TOL_GRAD_BF16 = 1e-2
+# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, fp32 without
+# tensor cores (the fp32 kernels use plain FMA), HBM3
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+HBM_BYTES_PER_S = 3.35e12
+
+KERNELS = {
+    "flash_attention": dict(source="medsam2_tpu_torch/csrc/flash_attention.cu",
+                            replaces="medsam2_tpu/ops/attention.py:49"),
+    "flash_attention_bwd_dkv": dict(source="medsam2_tpu_torch/csrc/flash_attention_bwd.cu",
+                                    replaces="medsam2_tpu/ops/attention.py:227"),
+    "flash_attention_bwd_dq": dict(source="medsam2_tpu_torch/csrc/flash_attention_bwd.cu",
+                                   replaces="medsam2_tpu/ops/attention.py:271"),
+    "kv_cached_attention": dict(source="medsam2_tpu_torch/csrc/kv_cached_attention.cu",
+                                replaces="medsam2_tpu/ops/attention.py:454"),
+}
 
 
 def tolerance(want: torch.Tensor, dtype) -> float:
     if dtype == torch.bfloat16:
         return TOL_BF16_REL * want.abs().max().item()
     return TOL_F32
-KERNELS = {
-    "flash_attention": dict(source="medsam2_tpu_torch/csrc/flash_attention.cu",
-                            replaces="medsam2_tpu/ops/attention.py:49"),
-    "kv_cached_attention": dict(source="medsam2_tpu_torch/csrc/kv_cached_attention.cu",
-                                replaces="medsam2_tpu/ops/attention.py:454"),
-}
+
+
+def rel_err(got, want) -> float:
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max().clamp_min(1e-12)).item()
+
+
+def bound(flops: float, nbytes: float, dtype):
+    """(least ms the card could take, what bounds it): the larger of the
+    operations over the peak rate of their type and the bytes over HBM."""
+    t_ops = flops / PEAK_FLOPS[dtype]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def set_tf32(enabled: bool) -> None:
@@ -99,9 +144,18 @@ def phase_build() -> None:
           f"(max {max(spilled, default=0)} bytes)")
 
 
+def flash_work(B, H, Nq, Nk, D, Dv, mask, itemsize):
+    """(flops of the forward over the keys this mask leaves, bytes of q, k, v
+    and out)."""
+    keys = float(Nk * B) if mask is None else float(mask.sum().item())
+    flops = 2.0 * H * Nq * keys * (D + Dv)
+    nbytes = itemsize * B * H * (Nq * D + Nk * D + Nk * Dv + Nq * Dv)
+    return keys, flops, nbytes
+
+
 def phase_kernels():
-    """Kernel vs twin at the slice's shapes. Returns the bf16 main-shape
-    results per kernel for the JSON line."""
+    """Propagation kernels vs twins at the slice's shapes. Returns the bf16
+    main-shape results per kernel for the JSON line."""
     rng = np.random.default_rng(0)
     best = {}
     flash_cases = [("hiera global attention @1024", (1, 4, 4096, 96)),
@@ -116,35 +170,41 @@ def phase_kernels():
             tol = tolerance(want, dtype)
             ms = cuda_ms(lambda: A.flash_attention(q, k, v), reps=10)
             plain_ms = cuda_ms(lambda: A.flash_attention_plain(q, k, v), reps=5)
+            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), reps=10)
+            _, flops, nbytes = flash_work(B, H, N, N, D, D, None, q.element_size())
+            bound_ms, bound_by = bound(flops, nbytes, dtype)
             ok = err <= tol
             print(f"[3 kernel] flash_attention {label} {[B, H, N, D]} {dtype} "
                   f"max_abs_err {err:.3e} (tol {tol:.3e}) kernel {ms:.3f} ms "
-                  f"plain {plain_ms:.3f} ms {'ok' if ok else 'FAIL'}")
+                  f"plain {plain_ms:.3f} ms sdpa {lib_ms:.3f} ms bound {bound_ms:.4f} ms "
+                  f"({bound_by}) {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"flash_attention {label} {dtype}: err {err}")
             if dtype == torch.bfloat16 and H == 4:
-                best["flash_attention"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+                best["flash_attention"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                               bound_ms=bound_ms, bound_by=bound_by,
+                                               library_ms=lib_ms)
         # memory cross-attention @1024: 1 cond slot + 7-slot ring, P = 64*64,
         # 4 layers, C = 256, 64-wide values, 64 pointer tokens
-        F, L, P, C, Dv, Nptr, Nq = 8, 4, 4096, 256, 64, 64, 4096
+        F_, L, P, C, Dv, Nptr, Nq = 8, 4, 4096, 256, 64, 64, 4096
         # Unit-scale inputs keep the logits O(1), so the softmax is far from
         # uniform and a kernel that dropped keys, skipped pos_rows or read the
         # wrong row fails the tolerance; slot f reads its own row perm[f].
         perm = np.array([3, 0, 6, 1, 7, 2, 5, 4], np.int32)
         for B in (1, 2):
             q = rand(rng, (B, Nq, C), dtype)
-            kc = rand(rng, (B, F, L, P, C), dtype)
-            pos = rand(rng, (F, L, P, C), dtype)
+            kc = rand(rng, (B, F_, L, P, C), dtype)
+            pos = rand(rng, (F_, L, P, C), dtype)
             rows = torch.from_numpy(perm).to(DEV)
             pk = rand(rng, (B, Nptr, C), dtype)
-            vs = rand(rng, (B, F, P, Dv), dtype)
+            vs = rand(rng, (B, F_, P, Dv), dtype)
             pv = rand(rng, (B, Nptr, Dv), dtype)
-            m = np.ones((B, F * P + Nptr), bool)
+            m = np.ones((B, F_ * P + Nptr), bool)
             m[:, 5 * P:] = False                   # three stale ring slots
-            m[0, F * P:] = True                    # sixteen object pointers, the most kept
+            m[0, F_ * P:] = True                   # sixteen object pointers, the most kept
             if B > 1:
                 m[1, 2 * P:3 * P] = False          # another stale slot
-                m[1, F * P:F * P + 32] = True      # eight object pointers
+                m[1, F_ * P:F_ * P + 32] = True    # eight object pointers
             mask = torch.from_numpy(m).to(DEV)
             args = (q, kc, pos, rows, pk, vs, pv, mask, 2)
             got = A.kv_cached_attention(*args)
@@ -155,16 +215,143 @@ def phase_kernels():
             tol = tolerance(want, dtype)
             ms = cuda_ms(lambda: A.kv_cached_attention(*args), reps=10)
             plain_ms = cuda_ms(lambda: A.kv_cached_attention_plain(*args), reps=3)
+            # the library call over k/v materialised outside the timing (the
+            # gather is the kernel's own work and is not counted for SDPA)
+            k_mat = torch.cat([(kc[:, :, 2] + pos[rows.long(), 2][None]).reshape(B, F_ * P, C),
+                               pk], dim=1)[:, None]
+            v_mat = torch.cat([vs.reshape(B, F_ * P, Dv), pv], dim=1)[:, None]
+            bias = mask[:, None, None, :]
+            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q[:, None], k_mat, v_mat, attn_mask=bias), reps=10)
+            keys = float(m.sum())
+            flops = 2.0 * Nq * keys * (C + Dv)
+            nbytes = q.element_size() * (B * Nq * C + B * F_ * P * C + F_ * P * C
+                                         + B * Nptr * C + B * F_ * P * Dv + B * Nptr * Dv
+                                         + B * Nq * Dv) + m.size
+            bound_ms, bound_by = bound(flops, nbytes, dtype)
             ok = err <= tol
             print(f"[3 kernel] kv_cached_attention memory cross-attention @1024 B={B} "
-                  f"{[B, Nq, F, L, P, C, Dv, Nptr]} {dtype} max_abs_err {err:.3e} "
+                  f"{[B, Nq, F_, L, P, C, Dv, Nptr]} {dtype} max_abs_err {err:.3e} "
                   f"(tol {tol:.3e}) kernel {ms:.3f} ms plain {plain_ms:.3f} ms "
+                  f"sdpa {lib_ms:.3f} ms bound {bound_ms:.4f} ms ({bound_by}) "
                   f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"kv_cached_attention B={B} {dtype}: err {err}")
             if dtype == torch.bfloat16 and B == 1:
-                best["kv_cached_attention"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
-            del q, kc, pos, pk, vs, pv, got, want
+                best["kv_cached_attention"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                                   bound_ms=bound_ms, bound_by=bound_by,
+                                                   library_ms=lib_ms)
+            del q, kc, pos, pk, vs, pv, got, want, k_mat, v_mat
+    torch.cuda.empty_cache()
+    return best
+
+
+# (label, B, H, Nq, Nk, D, Dv, mask kind): the training path's flash calls at
+# @512 (memory self-attention, and the cross-attention over 4 cond frames,
+# the 6-slot ring and 76 pointer tokens: Nk = 10 * 1024 + 76, ragged), and a
+# small case whose batch 0 has every key masked
+TRAIN_CASES = [
+    ("memory self-attention @512", 2, 1, 1024, 1024, 256, 256, None),
+    ("memory cross-attention @512", 2, 1, 1024, 10316, 256, 64, "stale"),
+    ("dead batch, ragged", 2, 1, 100, 77, 256, 64, "dead"),
+]
+
+
+def train_mask(kind, B, Nk):
+    if kind is None:
+        return None
+    m = np.ones((B, Nk), bool)
+    if kind == "stale":
+        m[:, 6 * 1024:8 * 1024] = False   # two ring slots not yet written
+        m[0, 10 * 1024 + 40:] = False     # pointer slots without a pointer
+        m[1, 10 * 1024 + 56:] = False
+    else:
+        m[0] = False
+        m[1, 30:50] = False
+    return torch.from_numpy(m).to(DEV)
+
+
+def phase_train_kernels():
+    """Phase 3b: B1 with LSE, B3 and B4 against their twins at the training
+    shapes. Returns the bf16 cross-attention results per kernel."""
+    rng = np.random.default_rng(5)
+    best = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        set_tf32(False)
+        tol_grad = TOL_GRAD_BF16 if dtype == torch.bfloat16 else TOL_GRAD_F32
+        for label, B, H, Nq, Nk, D, Dv, kind in TRAIN_CASES:
+            q, k = rand(rng, (B, H, Nq, D), dtype), rand(rng, (B, H, Nk, D), dtype)
+            v, do = rand(rng, (B, H, Nk, Dv), dtype), rand(rng, (B, H, Nq, Dv), dtype)
+            mask = train_mask(kind, B, Nk)
+            scale = 1.0 / D ** 0.5
+            # forward with LSE
+            out, lse = A._flash_forward(q, k, v, mask, scale, with_lse=True)
+            want_out, want_lse = A.flash_attention_lse_plain(q.float(), k.float(), v.float(),
+                                                             mask)
+            err_out = (out.float() - want_out).abs().max().item()
+            err_lse = (lse - want_lse).abs().max().item()
+            ok = err_out <= tolerance(want_out, dtype) and err_lse <= 1e-3
+            # backward pair against the twin on the same inputs, O and LSE
+            o = want_out.to(dtype)
+            dvec = (do.float() * o.float()).sum(-1)
+            dk, dv = A.flash_attention_bwd_dkv(q, k, v, mask, do, want_lse, dvec)
+            dq = A.flash_attention_bwd_dq(q, k, v, mask, do, want_lse, dvec)
+            wq, wk, wv = A.flash_attention_bwd_plain(q, k, v, mask, o, want_lse, do)
+            errs = {n: rel_err(g, w) for n, g, w in (("dq", dq, wq), ("dk", dk, wk),
+                                                      ("dv", dv, wv))}
+            abs_dkv = max((dk.float() - wk.float()).abs().max().item(),
+                          (dv.float() - wv.float()).abs().max().item())
+            abs_dq = (dq.float() - wq.float()).abs().max().item()
+            ok = ok and max(errs.values()) <= tol_grad
+            if kind == "dead":
+                ok = ok and dq[0].abs().max().item() == 0 and dk[0].abs().max().item() == 0
+            # times: kernels, twins, and the library call forward and backward
+            ms_fwd = cuda_ms(lambda: A._flash_forward(q, k, v, mask, scale, True), reps=10)
+            ms_dkv = cuda_ms(lambda: A.flash_attention_bwd_dkv(q, k, v, mask, do, want_lse,
+                                                               dvec), reps=10)
+            ms_dq = cuda_ms(lambda: A.flash_attention_bwd_dq(q, k, v, mask, do, want_lse,
+                                                             dvec), reps=10)
+            plain_fwd = cuda_ms(lambda: A.flash_attention_lse_plain(q, k, v, mask), reps=3)
+            plain_bwd = cuda_ms(lambda: A.flash_attention_bwd_plain(q, k, v, mask, o, want_lse,
+                                                                    do), reps=3)
+            bias = None if mask is None else mask[:, None, None, :]
+            lib_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias),
+                              reps=10)
+            qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+            lib_out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=bias)
+            lib_bwd = cuda_ms(lambda: torch.autograd.grad(lib_out, (qg, kg, vg), do,
+                                                          retain_graph=True), reps=10)
+            keys, flops_fwd, bytes_fwd = flash_work(B, H, Nq, Nk, D, Dv, mask, q.element_size())
+            it = q.element_size()
+            rows = 8.0 * B * H * Nq                              # lse and dvec, fp32
+            mbytes = 0 if mask is None else B * Nk
+            b_fwd = bound(flops_fwd, bytes_fwd + 4.0 * B * H * Nq + mbytes, dtype)
+            b_dkv = bound(2.0 * H * Nq * keys * (2 * D + 2 * Dv),
+                          it * B * H * (Nq * D + 2 * Nk * D + 2 * Nk * Dv + Nq * Dv)
+                          + rows + mbytes, dtype)
+            b_dq = bound(2.0 * H * Nq * keys * (2 * D + Dv),
+                         it * B * H * (2 * Nq * D + Nk * D + Nk * Dv + Nq * Dv) + rows + mbytes,
+                         dtype)
+            print(f"[3b train kernel] {label} {[B, H, Nq, Nk, D, Dv]} {dtype} | "
+                  f"fwd+lse err {err_out:.3e} lse err {err_lse:.3e} | grad err rel max|grad| "
+                  f"dq {errs['dq']:.3e} dk {errs['dk']:.3e} dv {errs['dv']:.3e} "
+                  f"(tol {tol_grad:.0e}) | kernel fwd+lse {ms_fwd:.3f} dkv {ms_dkv:.3f} "
+                  f"dq {ms_dq:.3f} ms | plain fwd {plain_fwd:.3f} bwd {plain_bwd:.3f} ms | "
+                  f"sdpa fwd {lib_fwd:.3f} bwd {lib_bwd:.3f} ms | bound fwd {b_fwd[0]:.4f} "
+                  f"dkv {b_dkv[0]:.4f} dq {b_dq[0]:.4f} ms ({b_dkv[1]}) "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"train kernels {label} {dtype}: out {err_out} "
+                                     f"lse {err_lse} grads {errs}")
+            if dtype == torch.bfloat16 and kind == "stale":
+                best["flash_attention_bwd_dkv"] = dict(
+                    max_abs_err=abs_dkv, ms=ms_dkv, plain_ms=plain_bwd, bound_ms=b_dkv[0],
+                    bound_by=b_dkv[1], library_ms=lib_bwd)
+                best["flash_attention_bwd_dq"] = dict(
+                    max_abs_err=abs_dq, ms=ms_dq, plain_ms=plain_bwd, bound_ms=b_dq[0],
+                    bound_by=b_dq[1], library_ms=lib_bwd)
+            del q, k, v, do, out, lse, want_out, want_lse, o, dk, dv, dq, wq, wk, wv
+            del qg, kg, vg, lib_out
     torch.cuda.empty_cache()
     return best
 
@@ -207,7 +394,8 @@ def phase_e2e_parity():
     t_cpu = time.perf_counter() - t0
     err = (cuda_masks.cpu() - cpu_masks).abs().max().item()
     scale = cpu_masks.abs().max().item()
-    ok = err <= 1e-3 and all(counts.values()) and torch.isfinite(cuda_masks).all()
+    ok = (err <= 1e-3 and counts["flash_attention"] and counts["kv_cached_attention"]
+          and torch.isfinite(cuda_masks).all())
     print(f"[4 e2e parity] sam2_hiera_t @512 fp32 TF32 off, 4 frames, 1 object: cuda "
           f"(kernels, launches {counts}) vs cpu (plain): low-res logits max_abs_err {err:.3e} "
           f"(tol 1e-3, |logits| max {scale:.2f}) | cuda {t_cuda:.1f} s cpu {t_cpu:.1f} s "
@@ -245,6 +433,7 @@ def phase_full_width(power_line: str):
     n_global = len(cfg.trunk.global_att_blocks)
     n_layers = cfg.memory_attention.num_layers
     want = {"flash_attention": n_global * encoded + n_layers * tracked,
+            "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0,
             "kv_cached_attention": n_layers * tracked}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     finite = bool(torch.isfinite(masks).all())
@@ -261,15 +450,159 @@ def phase_full_width(power_line: str):
     return counts
 
 
+def train_batch(T: int, O: int, S: int, n_prompt: int, P: int = 8, seed: int = 0):
+    """The JAX package's ``bench.py`` train_3d batch: random images in [0, 1],
+    one square per object as ground truth and its box as the prompt on every
+    prompt frame."""
+    rng = np.random.default_rng(seed)
+    gt = np.zeros((1, T, O, S, S), np.float32)
+    gt[:, :, :, S // 4: S // 2, S // 4: S // 2] = 1.0
+    coords = np.zeros((1, n_prompt, O, P, 2), np.float32)
+    labels = -np.ones((1, n_prompt, O, P), np.int32)
+    coords[:, :, :, 0] = [S // 4, S // 4]
+    coords[:, :, :, 1] = [S // 2, S // 2]
+    labels[:, :, :, 0] = 2
+    labels[:, :, :, 1] = 3
+    return {"images": rng.random((1, T, S, S, 3)).astype(np.float32), "gt_masks": gt,
+            "prompt_coords": coords, "prompt_labels": labels,
+            "prompt_use_mask": np.zeros((1, n_prompt, O), bool),
+            "obj_valid": np.ones((1, O), bool)}
+
+
+def train_launches(cfg, rcfg) -> dict:
+    """Kernel launches of one train step, from the config. Every frame is
+    encoded once (its global-attention blocks take the forward kernel, no
+    LSE); each tracked frame runs L memory-attention layers of self- and
+    cross-attention (forward with LSE). The mem pull d(non_prompt)/d(mem)
+    runs the backward of all 2L of them; the sam pull
+    d(prompt + non_prompt)/d(sam) reaches the decoder's parameters through the
+    memory (earlier decoders wrote it) but not through a tracked frame's first
+    self-attention, whose input is the frozen encoder's output: 2L - 1."""
+    T = rcfg.video_length
+    tracked = T - len(rcfg.prompt_frames)
+    L = cfg.memory_attention.num_layers
+    bwd = tracked * 2 * L + tracked * (2 * L - 1)
+    return {"flash_attention": len(cfg.trunk.global_att_blocks) * T + tracked * 2 * L,
+            "flash_attention_bwd_dkv": bwd, "flash_attention_bwd_dq": bwd,
+            "kv_cached_attention": 0}
+
+
+def train_grads(model):
+    return {n: p.grad.detach().float().cpu() for n, p in model.named_parameters()
+            if p.requires_grad}
+
+
+def phase_train_parity():
+    """Phase 6: one train step on the card (kernels) and on the CPU (plain
+    path), same seed and batch, fp32 with TF32 off."""
+    cfg = sam2_hiera_t(image_size=512, compute_dtype="float32")
+    rcfg = recipe_3d.Recipe3DConfig(video_length=4, prompt_freq=2, num_objects=1,
+                                    max_cond_frames=2)
+    batch = train_batch(4, 1, cfg.image_size, len(rcfg.prompt_frames), seed=3)
+    set_tf32(False)
+    runs = []
+    for dev in (DEV, torch.device("cpu")):
+        model = SAM2Model(cfg, seed=0, device=dev)
+        step = recipe_3d.make_train_step(model, rcfg, recipe_3d.make_optimizers(model, rcfg))
+        A.reset_launch_counts()
+        t0 = time.perf_counter()
+        metrics = step(batch)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        runs.append(({k: float(v) for k, v in metrics.items()}, train_grads(model),
+                     A.launch_counts(), time.perf_counter() - t0))
+        del model, step
+    (mc, gc, counts, tc), (mp, gp, _, tp) = runs
+    loss_err = max(abs(mc[k] - mp[k]) / abs(mp[k]) for k in ("prompt_loss", "non_prompt_loss"))
+    largest = max(g.abs().max().item() for g in gp.values())
+    worst, worst_name, zero_ok = 0.0, "", True
+    for name, want in gp.items():
+        got = gc[name]
+        if name.startswith("sam_mask_decoder.") and name.endswith("k_proj.bias"):
+            # zero in exact arithmetic (softmax is shift-invariant and the
+            # decoder's attention has no RoPE): round-off on both sides
+            zero_ok &= max(got.abs().max().item(), want.abs().max().item()) <= 1e-6 * largest
+            continue
+        if want.abs().max().item() == 0:
+            zero_ok &= got.abs().max().item() == 0   # not reached (no empty-mask prompt)
+            continue
+        err = rel_err(got, want)
+        if err > worst:
+            worst, worst_name = err, name
+    want_counts = train_launches(cfg, rcfg)
+    ok = loss_err <= 1e-4 and worst <= 1e-3 and zero_ok and counts == want_counts
+    print(f"[6 train parity] sam2_hiera_t @512 fp32 TF32 off, 4 frames, 1 object, one step: "
+          f"cuda (kernels, launches {counts}, expected {want_counts}) vs cpu (plain): losses "
+          f"{mc['prompt_loss']:.6f}/{mc['non_prompt_loss']:.6f} vs {mp['prompt_loss']:.6f}/"
+          f"{mp['non_prompt_loss']:.6f} rel err {loss_err:.2e} (tol 1e-4) | {len(gp)} "
+          f"trainable leaves, worst grad err rel max|grad| {worst:.2e} at {worst_name} "
+          f"(tol 1e-3), zero-gradient leaves at round-off {zero_ok} | cuda {tc:.1f} s cpu "
+          f"{tp:.1f} s {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"train parity: losses {loss_err}, grads {worst} at {worst_name}, "
+                             f"launches {counts} vs {want_counts}")
+
+
+def phase_train_full_width(power_line: str):
+    """Phase 7: three bf16 train steps of sam2_hiera_t @512, 8 frames, 2
+    objects (BASELINE config 3)."""
+    cfg = sam2_hiera_t(image_size=512)
+    rcfg = recipe_3d.Recipe3DConfig(video_length=8, prompt_freq=2, num_objects=2,
+                                    max_cond_frames=4)
+    batch = train_batch(8, 2, cfg.image_size, len(rcfg.prompt_frames), seed=0)
+    set_tf32(False)
+    model = SAM2Model(cfg, seed=0, device=DEV)
+    step = recipe_3d.make_train_step(model, rcfg, recipe_3d.make_optimizers(model, rcfg))
+    before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    gen = torch.Generator(device=DEV).manual_seed(0)   # training dropout on, as the CLI
+    losses = [step(batch, gen)]                          # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    A.reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        losses.append(step(batch, gen))
+    torch.cuda.synchronize()
+    secs = (time.perf_counter() - t0) / 3
+    counts = A.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    after = model.state_dict()
+    group_of = {m: g for g, mods in TRAINABLE_GROUPS.items() for m in mods}
+    changed = {g: any(not torch.equal(before[k], after[k]) for k in before
+                      if group_of.get(k.split(".")[0]) == g) for g in TRAINABLE_GROUPS}
+    frozen_same = all(torch.equal(before[k], after[k]) for k in before
+                      if k.split(".")[0] not in group_of)
+    finite = all(np.isfinite(float(m[k])) for m in losses for k in m)
+    want = {k: 3 * n for k, n in train_launches(cfg, rcfg).items()}
+    ok = finite and all(changed.values()) and frozen_same and counts == want
+    loss_txt = ", ".join(f"{float(m['loss']):.4f}" for m in losses)
+    print(f"[7 train full width] sam2_hiera_t @512 bf16, 8 frames, 2 objects, max_cond_frames 4, "
+          f"prompt_freq 2 | losses (warm-up, 3 timed) {loss_txt} finite {finite} | groups "
+          f"changed {changed} frozen identical {frozen_same} | launches over 3 steps {counts} "
+          f"expected {want} | {secs:.3f} s per step, {8 / secs:.2f} frames/s | peak memory "
+          f"{peak:.2f} GiB | {power_line} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"train full width: finite {finite}, changed {changed}, frozen "
+                             f"{frozen_same}, launches {counts} vs {want}")
+    return counts
+
+
 def main() -> None:
     power_line = phase_device()
     phase_build()
     best = phase_kernels()
+    best.update(phase_train_kernels())
     phase_e2e_parity()
-    counts = phase_full_width(power_line)
-    print(json.dumps({"kernels": [
-        dict(name=name, route="cuda", **KERNELS[name], launches=counts[name], **best[name])
-        for name in KERNELS]}))
+    paths = {"propagation": phase_full_width(power_line)}
+    phase_train_parity()
+    paths["training"] = phase_train_full_width(power_line)
+    rows = []
+    for name in KERNELS:
+        by_path = {p: c[name] for p, c in paths.items() if c[name]}
+        rows.append(dict(name=name, route="cuda", **KERNELS[name],
+                         launches=sum(by_path.values()), launches_by_path=by_path,
+                         **best[name]))
+    print(json.dumps({"kernels": rows}))
     print(power_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -10,14 +10,18 @@ embedding and the positional half of the roped-key cache computed once per
 propagation. Several conditioning frames split the frame order into runs, and
 the stored prompt-frame outputs are spliced between them.
 
-Ported: ``init_state(images=...)``, ``add_new_points``, ``add_new_bbox`` (each
-with its memoryless preview), ``propagate_in_video_batch`` and
+Ported: ``init_state(images=...)``, ``val_init_state``, ``reset_state``,
+``add_new_points``, ``add_new_bbox`` and ``add_new_mask`` on conditioning
+frames (each with its memoryless preview), ``propagate_in_video_batch`` and
 ``propagate_in_video`` forward from the first conditioning frame. Not ported
 yet, and raising ``NotImplementedError``: corrections on tracked frames,
-``reverse=True``, resuming past tracked frames, ``add_new_mask``, hole filling,
+``reverse=True``, resuming past tracked frames, hole filling,
 ``clear_non_cond_mem_around_input``, frame loading from a directory, the
-offload and async-loading flags, the read-order readout and
+offload and async-loading flags, propagation without the roped-key cache and
 ``propagate_volumes_batched``.
+
+:func:`_prompt_step` is also the 3D training recipe's prompt-frame step: with
+grad enabled it is differentiable and returns ``pred_masks_high_res``.
 """
 
 from __future__ import annotations
@@ -86,11 +90,26 @@ class SAM2VideoPredictor:
             "obj_id_to_idx": {},
             "obj_ids": [],
             "point_inputs_per_obj": {},      # {obj_idx: {frame: (coords, labels)}}
+            "mask_inputs_per_obj": {},       # {obj_idx: {frame: [S, S] 0/1 mask}}
             "cond_frame_idx": set(),
             "frames_tracked": set(),
             "tracked": False,
             "is_eval": True,
         }
+
+    def val_init_state(self, imgs_tensor) -> Dict:
+        """Session from a [T, 3, S, S] or [T, S, S, 3] array
+        (``val_init_state``, ``sam2_video_predictor.py:107``)."""
+        arr = np.asarray(imgs_tensor, np.float32)
+        if arr.ndim == 4 and arr.shape[1] == 3:
+            arr = arr.transpose(0, 2, 3, 1)
+        return self.init_state(images=arr)
+
+    def reset_state(self, state: Dict) -> None:
+        """Forget every object and prompt; keep the session's frames."""
+        state.update(obj_id_to_idx={}, obj_ids=[], point_inputs_per_obj={},
+                     mask_inputs_per_obj={}, cond_frame_idx=set(), frames_tracked=set(),
+                     tracked=False)
 
     # ------------------------------------------------------------------
     # Prompts
@@ -104,16 +123,20 @@ class SAM2VideoPredictor:
             state["obj_id_to_idx"][obj_id] = len(state["obj_ids"])
             state["obj_ids"].append(obj_id)
             state["point_inputs_per_obj"][state["obj_id_to_idx"][obj_id]] = {}
+            state["mask_inputs_per_obj"][state["obj_id_to_idx"][obj_id]] = {}
         return state["obj_id_to_idx"][obj_id]
+
+    def _check_cond_frame(self, state, frame_idx: int) -> None:
+        if (frame_idx in state["frames_tracked"] and frame_idx not in state["cond_frame_idx"]
+                and not self.cfg.add_all_frames_to_correct_as_cond):
+            raise NotImplementedError("corrections on tracked frames are not ported")
 
     def add_new_points(self, state, frame_idx: int, obj_id, points, labels,
                        clear_old_points: bool = True, normalize_coords: bool = True):
         """Record click prompts (video-resolution pixels unless
         ``normalize_coords=False``); returns (frame_idx, obj_ids, low-res mask
         logits preview [B, 1, h4, w4])."""
-        if (frame_idx in state["frames_tracked"] and frame_idx not in state["cond_frame_idx"]
-                and not self.cfg.add_all_frames_to_correct_as_cond):
-            raise NotImplementedError("corrections on tracked frames are not ported")
+        self._check_cond_frame(state, frame_idx)
         obj_idx = self._obj_idx(state, obj_id)
         points = np.asarray(points, np.float32).reshape(-1, 2)
         labels = np.asarray(labels, np.int32).reshape(-1)
@@ -126,6 +149,7 @@ class SAM2VideoPredictor:
             points = np.concatenate([old_c, points], 0)
             labels = np.concatenate([old_l, labels], 0)
         store[frame_idx] = (points, labels)
+        state["mask_inputs_per_obj"][obj_idx].pop(frame_idx, None)
         state["cond_frame_idx"].add(frame_idx)
         return self._preview(state, frame_idx)
 
@@ -138,8 +162,23 @@ class SAM2VideoPredictor:
                                    normalize_coords=normalize_coords)
 
     def add_new_mask(self, state, frame_idx: int, obj_id, mask):
-        raise NotImplementedError("mask prompts are not ported")
+        """Binary mask prompt [H, W] at video or model resolution, resized
+        bilinearly to the model and re-binarised at 0.5
+        (``video_predictor.add_new_mask``); the object takes the
+        mask-as-output path on this frame."""
+        self._check_cond_frame(state, frame_idx)
+        obj_idx = self._obj_idx(state, obj_id)
+        S = self.cfg.image_size
+        m = torch.as_tensor(np.asarray(mask, np.float32))
+        if tuple(m.shape) != (S, S):
+            m = (layers.interpolate(m[None, :, :, None], (S, S), method="bilinear")[0, :, :, 0]
+                 > 0.5).float()
+        state["mask_inputs_per_obj"][obj_idx][frame_idx] = m.numpy()
+        state["point_inputs_per_obj"][obj_idx].pop(frame_idx, None)
+        state["cond_frame_idx"].add(frame_idx)
+        return self._preview(state, frame_idx)
 
+    @torch.no_grad()
     def _preview(self, state, frame_idx: int):
         """Memoryless prompt step for this frame only."""
         spec = self._session_spec(state)
@@ -149,8 +188,9 @@ class SAM2VideoPredictor:
 
     def _run_prompt_frame(self, state, bank, frame_idx: int, spec: mb.BankSpec):
         """Assemble per-object prompts (padded to the frame's max point count
-        with label -1) and run the prompt step. An object without a prompt on
-        this conditioning frame takes the empty-mask path."""
+        with label -1) and run the prompt step. An object with a mask prompt,
+        or without a prompt on this conditioning frame (an empty mask), takes
+        the mask-as-output path."""
         B = len(state["obj_ids"])
         S = self.cfg.image_size
         P = max(1, min(self.cfg.max_prompt_points, max(
@@ -159,11 +199,15 @@ class SAM2VideoPredictor:
         coords = np.zeros((B, P, 2), np.float32)
         labels = -np.ones((B, P), np.int32)
         use_mask = np.zeros((B,), bool)
+        mask_inputs = np.zeros((B, S, S, 1), np.float32)
         max_pts = 0
         for o in range(B):
             pts = state["point_inputs_per_obj"][o].get(frame_idx)
             if pts is None:
                 use_mask[o] = True
+                msk = state["mask_inputs_per_obj"][o].get(frame_idx)
+                if msk is not None:
+                    mask_inputs[o, :, :, 0] = msk
                 continue
             c, l = pts
             n = min(len(l), P)
@@ -174,7 +218,7 @@ class SAM2VideoPredictor:
         return _prompt_step(
             self.model, state["images"], bank, frame_idx,
             torch.from_numpy(coords).to(dev), torch.from_numpy(labels).to(dev),
-            torch.zeros(B, S, S, 1, device=dev), use_mask, spec=spec,
+            torch.from_numpy(mask_inputs).to(dev), use_mask, spec=spec,
             multimask_output=use_multimask(self.cfg, True, max_pts),
             is_eval=state["is_eval"], num_frames=state["num_frames"])
 
@@ -259,7 +303,8 @@ def propagate_volumes_batched(*args, **kwargs):
 
 
 def _encode_frame(model: SAM2Model, frame, trunk_pos_embed=None):
-    """frame [1, S, S, 3] -> (feats, pos) lists, highest-res first."""
+    """frame [1, S, S, 3] -> (feats, pos) lists, highest-res first (a frozen
+    trunk runs without autograd, :meth:`SAM2Model.forward_image`)."""
     out = model.forward_image(frame.to(compute_dtype(model.cfg)),
                               trunk_pos_embed=trunk_pos_embed)
     return model.prepare_backbone_features(out)
@@ -269,13 +314,16 @@ def _expand(xs, B: int):
     return [x.expand(B, *x.shape[1:]) for x in xs]
 
 
-@torch.no_grad()
 def _prompt_step(model: SAM2Model, images, bank, frame_idx: int, coords, labels,
                  mask_inputs, use_mask: np.ndarray, *, spec: mb.BankSpec,
                  multimask_output: bool, is_eval: bool, num_frames: int):
-    """Conditioning-frame step: encode, run the point path and/or the
-    mask-as-output path per object, encode and write the cond memory. A path
-    no object takes is skipped (its outputs would be selected away)."""
+    """Conditioning-frame step (``video_predictor._prompt_step``): encode,
+    run the point path and/or the mask-as-output path per object, encode and
+    write the cond memory. A path no object takes is skipped (its outputs
+    would be selected away, and so would its gradients). Differentiable when
+    grad is enabled (the 3D recipe's prompt frames); the bank is then a new
+    dict. Returns (outputs with ``pred_masks``, ``pred_masks_high_res``,
+    ``obj_ptr``, ``object_score_logits``, ``maskmem_features``; bank)."""
     cfg = model.cfg
     B = coords.shape[0]
     feats, pos = _encode_frame(model, images[frame_idx:frame_idx + 1])
@@ -296,6 +344,7 @@ def _prompt_step(model: SAM2Model, images, bank, frame_idx: int, coords, labels,
     if len(results) == 1:
         sam = results[0]
         low_res, high_res_masks, obj_ptr = sam.low_res_masks, sam.high_res_masks, sam.obj_ptr
+        obj_score = sam.object_score_logits
     else:
         point_out, mask_out = results
         sel = torch.from_numpy(use_mask).to(pix.device)
@@ -306,6 +355,7 @@ def _prompt_step(model: SAM2Model, images, bank, frame_idx: int, coords, labels,
         low_res = pick(point_out.low_res_masks, mask_out.low_res_masks)
         high_res_masks = pick(point_out.high_res_masks, mask_out.high_res_masks)
         obj_ptr = pick(point_out.obj_ptr, mask_out.obj_ptr)
+        obj_score = pick(point_out.object_score_logits, mask_out.object_score_logits)
     maskmem, _ = model.encode_new_memory(
         feats[-1], high_res_masks,
         is_mask_from_pts=torch.from_numpy(~use_mask).to(pix.device), binarize=is_eval,
@@ -314,7 +364,8 @@ def _prompt_step(model: SAM2Model, images, bank, frame_idx: int, coords, labels,
               if "kcache" in bank else None)
     bank = mb.write_bank(spec, bank, frame_idx, maskmem, obj_ptr, is_cond=True,
                          kcache=kcache)
-    return {"pred_masks": low_res, "obj_ptr": obj_ptr, "maskmem_features": maskmem}, bank
+    return {"pred_masks": low_res, "pred_masks_high_res": high_res_masks, "obj_ptr": obj_ptr,
+            "object_score_logits": obj_score, "maskmem_features": maskmem}, bank
 
 
 def _track_run(model: SAM2Model, images, bank, frames: List[int], *, spec: mb.BankSpec,

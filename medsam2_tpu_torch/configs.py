@@ -207,3 +207,54 @@ def sam2_hiera_t(**overrides) -> SAM2Config:
     """sam2_hiera_t preset (``sam2_train/sam2_hiera_t.yaml:9-15``)."""
     trunk = HieraConfig(stages=(1, 2, 7, 2), global_att_blocks=(5, 7, 9))
     return SAM2Config(trunk=trunk, **overrides)
+
+
+def sam2_hiera_s(**overrides) -> SAM2Config:
+    """sam2_hiera_s preset (``sam2_train/sam2_hiera_s.yaml:9-15``)."""
+    trunk = HieraConfig(stages=(1, 2, 11, 2), global_att_blocks=(7, 10, 13))
+    return SAM2Config(trunk=trunk, **overrides)
+
+
+def sam2_hiera_b_plus(**overrides) -> SAM2Config:
+    """sam2_hiera_b+ preset (upstream SAM2 family; embed_dim 112, heads 2)."""
+    trunk = HieraConfig(
+        embed_dim=112, num_heads=2, stages=(2, 3, 16, 3), global_att_blocks=(12, 16, 20)
+    )
+    neck = FpnNeckConfig(backbone_channel_list=(896, 448, 224, 112))
+    return SAM2Config(trunk=trunk, neck=neck, **overrides)
+
+
+def sam2_hiera_l(**overrides) -> SAM2Config:
+    """sam2_hiera_l preset (upstream SAM2 family; embed_dim 144, heads 2)."""
+    trunk = HieraConfig(
+        embed_dim=144,
+        num_heads=2,
+        stages=(2, 6, 36, 4),
+        global_att_blocks=(23, 33, 43),
+        window_spec=(8, 4, 16, 8),
+    )
+    neck = FpnNeckConfig(backbone_channel_list=(1152, 576, 288, 144))
+    return SAM2Config(trunk=trunk, neck=neck, **overrides)
+
+
+def nuclei_256(**overrides) -> SAM2Config:
+    """The fork's 256-px nuclei-crop recipe: 256 input, dense embeds forced to 16x16
+    (``sam2_base.py:159-160``, ``prompt_encoder.py:190``, ``func_2d/function.py:44``)."""
+    cfg = dict(image_size=256, dense_embed_size=16)
+    cfg.update(overrides)
+    return sam2_hiera_s(**cfg)
+
+
+PRESETS = {
+    "sam2_hiera_t": sam2_hiera_t,
+    "sam2_hiera_s": sam2_hiera_s,
+    "sam2_hiera_b+": sam2_hiera_b_plus,
+    "sam2_hiera_l": sam2_hiera_l,
+    "nuclei_256": nuclei_256,
+}
+
+
+def get_config(name: str, **overrides) -> SAM2Config:
+    if name not in PRESETS:
+        raise KeyError(f"unknown preset {name!r}; available: {sorted(PRESETS)}")
+    return PRESETS[name](**overrides)

@@ -1,11 +1,15 @@
 """Memory attention + memory encoder (counterpart of
-``medsam2_tpu/core/memory.py``), inference only: no dropout.
+``medsam2_tpu/core/memory.py``).
 
 Memory attention: per layer, RoPE self-attention over the current frame's
-tokens (flash kernel at full size), storage-order cross-attention over the
-bank's roped-key cache (kv-cached kernel), FFN. The bank's k cache is written
-once per frame (:func:`precompute_memory_kcache`) plus a session-static
-positional half (:func:`precompute_pos_kcache`).
+tokens, cross-attention to the memory, FFN. The cross-attention reads the
+memory either in storage order over the bank's roped-key cache (kv-cached
+kernel, inference; the k cache is written once per frame by
+:func:`precompute_memory_kcache` plus a session-static positional half from
+:func:`precompute_pos_kcache`) or in read order over raw memory tokens with a
+validity mask (flash kernel, differentiable: the training path). Residual and
+FFN dropout (rate ``cfg.dropout``) is active only when a ``torch.Generator``
+is passed, as the JAX package's only when a dropout key is.
 
 Memory encoder: mask -> strided-conv downsampler (16x) + projected pixel
 features -> 2 ConvNeXt blocks -> 1x1 projection 256 -> 64.
@@ -14,7 +18,7 @@ features -> 2 ConvNeXt blocks -> 1x1 projection 256 -> 64.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -27,6 +31,16 @@ from medsam2_tpu_torch.core.transformer import (Attention, rope_attn_apply,
                                                 rope_attn_storage, roped_k_for_tokens)
 
 _ACTIVATIONS = {"relu": F.relu, "gelu": layers.gelu}
+
+
+def dropout(x, rate: float, generator: Optional[torch.Generator]):
+    """Inverted dropout drawing its keep mask from ``generator`` (on x's
+    device); the identity without a generator (``memory._dropout``)."""
+    if generator is None or rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 class MemoryAttentionLayer(nn.Module):
@@ -43,21 +57,35 @@ class MemoryAttentionLayer(nn.Module):
         self.norm2 = layers.LayerNorm(d)
         self.norm3 = layers.LayerNorm(d)
 
-    def forward(self, tgt, query_pos, q_hw: Tuple[int, int], kv_bundle: dict, layer: int):
-        """``memory_attention.py:58-104`` in eval mode, cross-attention in
-        storage order."""
+    def forward(self, tgt, query_pos, q_hw: Tuple[int, int], *, memory=None,
+                memory_pos=None, num_obj_ptr_tokens: int = 0, kv_mask=None,
+                kv_bundle: Optional[dict] = None, layer: int = 0,
+                generator: Optional[torch.Generator] = None):
+        """``memory_attention.py:58-104``: cross-attention over the
+        storage-order ``kv_bundle`` when given, else over ``memory`` in read
+        order (the last ``num_obj_ptr_tokens`` tokens skip RoPE)."""
         cfg = self.cfg
+        rate = cfg.dropout
         tgt2 = self.norm1(tgt)
         q = tgt2 + query_pos if cfg.pos_enc_at_attn else tgt2
-        tgt = tgt + rope_attn_apply(self.self_attn, q, q, tgt2, q_hw=q_hw,
-                                    rope_theta=cfg.rope_theta)
+        tgt2 = rope_attn_apply(self.self_attn, q, q, tgt2, q_hw=q_hw,
+                               rope_theta=cfg.rope_theta)
+        tgt = tgt + dropout(tgt2, rate, generator)
         tgt2 = self.norm2(tgt)
         q = tgt2 + query_pos if cfg.pos_enc_at_cross_attn_queries else tgt2
-        tgt = tgt + rope_attn_storage(self.cross_attn_image, q, kv_bundle, layer,
-                                      q_hw=q_hw, rope_theta=cfg.rope_theta)
+        if kv_bundle is not None:
+            tgt2 = rope_attn_storage(self.cross_attn_image, q, kv_bundle, layer,
+                                     q_hw=q_hw, rope_theta=cfg.rope_theta)
+        else:
+            k = memory + memory_pos if cfg.pos_enc_at_cross_attn_keys else memory
+            tgt2 = rope_attn_apply(self.cross_attn_image, q, k, memory, q_hw=q_hw,
+                                   rope_theta=cfg.rope_theta, rope_k_repeat=True,
+                                   num_k_exclude_rope=num_obj_ptr_tokens, kv_mask=kv_mask)
+        tgt = tgt + dropout(tgt2, rate, generator)
         tgt2 = self.norm3(tgt)
-        tgt2 = self.linear2(_ACTIVATIONS[cfg.activation](self.linear1(tgt2)))
-        return tgt + tgt2
+        tgt2 = self.linear2(dropout(_ACTIVATIONS[cfg.activation](self.linear1(tgt2)),
+                                    rate, generator))
+        return tgt + dropout(tgt2, rate, generator)
 
 
 class MemoryAttention(nn.Module):
@@ -68,15 +96,22 @@ class MemoryAttention(nn.Module):
                                     for _ in range(cfg.num_layers))
         self.norm = layers.LayerNorm(cfg.d_model)
 
-    def forward(self, curr, curr_pos, q_hw: Tuple[int, int], kv_bundle: dict):
-        """``MemoryAttention.forward`` (``memory_attention.py:119-169``) over
-        the storage-order bundle (see :func:`rope_attn_storage`).
-        curr/curr_pos [B, Nq, C] -> [B, Nq, C]."""
+    def forward(self, curr, curr_pos, q_hw: Tuple[int, int], *, memory=None,
+                memory_pos=None, num_obj_ptr_tokens: int = 0, kv_mask=None,
+                kv_bundle: Optional[dict] = None,
+                generator: Optional[torch.Generator] = None):
+        """``MemoryAttention.forward`` (``memory_attention.py:119-169``).
+        curr/curr_pos [B, Nq, C] -> [B, Nq, C]. The memory is either the
+        storage-order ``kv_bundle`` (see :func:`rope_attn_storage`) or raw
+        tokens ``memory``/``memory_pos`` [B, Nk, mem_dim] with ``kv_mask``
+        [B, Nk] (True = attend)."""
         out = curr
         if self.cfg.pos_enc_at_input and curr_pos is not None:
             out = out + 0.1 * curr_pos
         for li, layer in enumerate(self.layers):
-            out = layer(out, curr_pos, q_hw, kv_bundle, li)
+            out = layer(out, curr_pos, q_hw, memory=memory, memory_pos=memory_pos,
+                        num_obj_ptr_tokens=num_obj_ptr_tokens, kv_mask=kv_mask,
+                        kv_bundle=kv_bundle, layer=li, generator=generator)
         return self.norm(out)
 
 

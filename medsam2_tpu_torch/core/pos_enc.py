@@ -1,5 +1,6 @@
 """Position encodings (counterpart of ``medsam2_tpu/core/pos_enc.py``): sine
-grid, random-Fourier prompt encoding, axial RoPE tables.
+grid, 1D sine encoding of object-pointer distances, random-Fourier prompt
+encoding, axial RoPE tables.
 
 The sine and RoPE tables depend only on static shapes: they are computed once
 in numpy and kept on the device per (shape, device, dtype), as the JAX package
@@ -46,6 +47,16 @@ def sine_pos_embed(h: int, w: int, num_pos_feats: int, device="cpu",
                    dtype=torch.float32) -> torch.Tensor:
     """[H, W, C] sine grid on ``device`` (shared, read-only)."""
     return _sine_on(h, w, num_pos_feats, torch.device(device), dtype)
+
+
+def get_1d_sine_pe(pos_inds: torch.Tensor, dim: int, temperature: float = 10000.0):
+    """1D sine encoding (``sam2_utils.py:60-70``): [..., dim] = [sin ; cos]
+    halves of ``pos_inds`` (any shape) over ``dim // 2`` frequencies."""
+    pe_dim = dim // 2
+    dim_t = torch.arange(pe_dim, dtype=torch.float32, device=pos_inds.device)
+    dim_t = temperature ** (2 * torch.div(dim_t, 2, rounding_mode="floor") / pe_dim)
+    pos = pos_inds.float()[..., None] / dim_t
+    return torch.cat([torch.sin(pos), torch.cos(pos)], dim=-1)
 
 
 class PositionEmbeddingRandom(nn.Module):

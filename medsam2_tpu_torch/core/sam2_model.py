@@ -1,13 +1,14 @@
 """SAM2 model assembly (counterpart of ``medsam2_tpu/core/sam2_model.py``),
-the part the 3D propagation path reaches.
+the part the 3D propagation and 3D training paths reach.
 
 :class:`SAM2Model` holds the reference's submodules under the reference's
 state-dict keys. ``forward_image`` runs the encoder; ``forward_sam_heads`` the
 prompt encoder and mask decoder with occlusion handling; ``track_step`` fuses
-the current frame with the bank through the storage-order memory attention,
-runs the SAM heads and writes the new memory. The read-order readout
-(``prepare_memory_conditioned_features`` without the kv cache) is not ported
-yet and raises.
+the current frame with the bank through the memory attention, runs the SAM
+heads and writes the new memory. The memory is read in storage order over the
+bank's roped-key cache (inference) or in read order over raw memory tokens
+(training, and any bank without the cache). :meth:`SAM2Model.set_trainable_groups`
+marks the 3D recipe's two trainable parameter groups.
 """
 
 from __future__ import annotations
@@ -24,11 +25,18 @@ from medsam2_tpu_torch.core.mask_decoder import MaskDecoder
 from medsam2_tpu_torch.core.memory import (MemoryAttention, MemoryEncoder,
                                            precompute_memory_kcache,
                                            precompute_pos_kcache)
-from medsam2_tpu_torch.core.pos_enc import sine_pos_embed
+from medsam2_tpu_torch.core.pos_enc import get_1d_sine_pe, sine_pos_embed
 from medsam2_tpu_torch.core.prompt_encoder import PromptEncoder
 from medsam2_tpu_torch.state import memory_bank as mb
 
 NO_OBJ_SCORE = -1024.0
+
+# The 3D recipe's parameter groups (``recipe_3d._param_labels``,
+# reference ``train_3d.py:34-46``); every other parameter is frozen.
+TRAINABLE_GROUPS = {
+    "sam": ("sam_mask_decoder",),
+    "mem": ("obj_ptr_proj", "memory_encoder", "memory_attention", "mask_downsample"),
+}
 
 
 class SamHeadOutputs(NamedTuple):
@@ -73,9 +81,15 @@ class SAM2Model(nn.Module):
     """``SAM2Base`` with random weights from ``seed`` (or loaded from a
     reference state dict, :mod:`medsam2_tpu_torch.checkpoint.convert`).
     Weights are made on the CPU from a seeded generator, then moved to
-    ``device``, so one seed gives the same model on every device."""
+    ``device``, so one seed gives the same model on every device. The model
+    lives on the card unless the caller asks for ``device="cpu"``; without a
+    CUDA device the default raises rather than fall back to the CPU. All
+    parameters start frozen (inference)."""
 
-    def __init__(self, cfg: SAM2Config, seed: int = 0, device="cpu"):
+    def __init__(self, cfg: SAM2Config, seed: int = 0, device="cuda"):
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("SAM2Model: no CUDA device; pass device='cpu' to run on the CPU")
         super().__init__()
         self.cfg = cfg
         gen = torch.Generator().manual_seed(seed)
@@ -98,7 +112,7 @@ class SAM2Model(nn.Module):
             self.obj_ptr_tpos_proj = layers.Linear(cfg.hidden_dim, cfg.mem_dim, gen)
         if cfg.pred_obj_scores and cfg.use_obj_ptrs_in_encoder:
             self.no_obj_ptr = layers.trunc_normal((1, cfg.hidden_dim), gen)
-        self.requires_grad_(False)  # inference only
+        self.requires_grad_(False)
         self.to(device)
         self.eval()
 
@@ -106,14 +120,35 @@ class SAM2Model(nn.Module):
     def device(self) -> torch.device:
         return self.no_mem_embed.device
 
+    def set_trainable_groups(self) -> Dict[str, List[Tuple[str, nn.Parameter]]]:
+        """Turn on gradients for exactly the recipe's two groups
+        (:data:`TRAINABLE_GROUPS`) and freeze the rest. Returns
+        {"sam": [(name, parameter)], "mem": [...]} in state-dict order."""
+        self.requires_grad_(False)
+        groups = {g: [] for g in TRAINABLE_GROUPS}
+        owner = {m: g for g, mods in TRAINABLE_GROUPS.items() for m in mods}
+        for name, p in self.named_parameters():
+            g = owner.get(name.split(".")[0])
+            if g is not None:
+                p.requires_grad_(True)
+                groups[g].append((name, p))
+        return groups
+
+    def encoder_trains(self) -> bool:
+        return any(p.requires_grad for p in self.image_encoder.parameters())
+
     # ------------------------------------------------------------------
     # Image features
     # ------------------------------------------------------------------
 
     def forward_image(self, img_batch, trunk_pos_embed=None) -> Dict:
         """Encode [B, H, W, 3] images and project the decoder's high-res skip
-        features (``sam2_base.py:464-476``)."""
-        out = self.image_encoder(img_batch, trunk_pos_embed=trunk_pos_embed)
+        features (``sam2_base.py:464-476``). A frozen encoder runs under
+        ``torch.no_grad`` (the recipe's ``remat="enc_saved"``: nothing of the
+        trunk is kept for the backward); the skip projections belong to the
+        mask decoder and keep their graph."""
+        with torch.set_grad_enabled(torch.is_grad_enabled() and self.encoder_trains()):
+            out = self.image_encoder(img_batch, trunk_pos_embed=trunk_pos_embed)
         if self.cfg.use_high_res_features_in_sam:
             dec = self.sam_mask_decoder
             fpn = list(out["backbone_fpn"])
@@ -271,9 +306,21 @@ class SAM2Model(nn.Module):
         return precompute_memory_kcache(self.memory_attention, maskmem_features,
                                         (mem_h, mem_h), dtype=dtype)
 
+    def _obj_ptr_pos(self, spec: mb.BankSpec, ptr_tdiff, num_frames: int, dtype):
+        """Temporal sine encoding of the pointer distances, normalised by the
+        pointer reach and projected to mem_dim when configured
+        (``sam2_base.py:617-634``); one row per pointer token [B, Nt, D]."""
+        cfg = self.cfg
+        t_diff_max = max(min(int(num_frames), cfg.max_obj_ptrs_in_encoder) - 1, 1)
+        tpos_dim = cfg.hidden_dim if cfg.proj_tpos_enc_in_obj_ptrs else cfg.mem_dim
+        obj_pos = get_1d_sine_pe(ptr_tdiff.float() / t_diff_max, tpos_dim)
+        if cfg.proj_tpos_enc_in_obj_ptrs:
+            obj_pos = self.obj_ptr_tpos_proj(obj_pos)
+        return obj_pos.repeat_interleave(spec.tokens_per_ptr, dim=1).to(dtype)
+
     def _memory_conditioned_features_storage(self, spec: mb.BankSpec, bank, frame_idx: int,
                                              curr, curr_pos, q_hw, num_frames: int,
-                                             is_eval: bool, pos_kcache):
+                                             is_eval: bool, pos_kcache, generator=None):
         """Storage-order memory readout: cross-attention consumes the bank's
         roped-key cache as stored, with per-slot positional rows and validity
         from :func:`memory_bank.kv_storage_layout`. Returns [B, Nq, C]."""
@@ -286,7 +333,8 @@ class SAM2Model(nn.Module):
         if not cfg.use_obj_ptrs_in_encoder:
             ptr_valid = torch.zeros_like(ptr_valid)
         if cfg.use_obj_ptrs_in_encoder and cfg.add_tpos_enc_to_obj_ptrs:
-            raise NotImplementedError("temporal encoding of object pointers is not ported")
+            raise NotImplementedError("temporal encoding of object pointers is ported for "
+                                      "the read-order readout only")
         row_of_slot, slot_valid = mb.kv_storage_layout(spec, bank, frame_idx)
         kv_mask = torch.cat([slot_valid.repeat_interleave(P, dim=1), ptr_valid], dim=1)
         v_slots = torch.cat([bank["cond_feats"], bank["noncond_feats"]], dim=1).to(curr.dtype)
@@ -299,29 +347,67 @@ class SAM2Model(nn.Module):
             "ptr_pos": torch.zeros_like(ptr_tokens, dtype=curr.dtype),
             "kv_mask": kv_mask,
         }
-        return self.memory_attention(curr, curr_pos, q_hw, bundle)
+        return self.memory_attention(curr, curr_pos, q_hw, kv_bundle=bundle,
+                                     generator=generator)
+
+    def _memory_conditioned_features_read(self, spec: mb.BankSpec, bank, frame_idx: int,
+                                          curr, curr_pos, q_hw, num_frames: int,
+                                          is_eval: bool, generator=None):
+        """Read-order memory readout (``sam2_model.py:347-391``): raw memory
+        tokens gathered by :func:`memory_bank.read_bank`, cross-attention
+        through the flash dispatcher with the low-rank value path. Returns
+        [B, Nq, C]."""
+        cfg = self.cfg
+        mem_h = cfg.sam_image_embedding_size
+        spatial = sine_pos_embed(mem_h, mem_h, cfg.mem_dim, device=curr.device)
+        memory, memory_pos, valid, num_ptr, ptr_tdiff = mb.read_bank(
+            spec, bank, frame_idx, self.maskmem_tpos_enc.reshape(cfg.num_maskmem, -1),
+            spatial.reshape(-1, cfg.mem_dim),
+            obj_ptrs_in_past_only=(cfg.only_obj_ptrs_in_the_past_for_eval and is_eval),
+            num_frames=num_frames)
+        n_sp = spec.num_spatial_tokens
+        if cfg.use_obj_ptrs_in_encoder and cfg.add_tpos_enc_to_obj_ptrs:
+            obj_pos = self._obj_ptr_pos(spec, ptr_tdiff, num_frames, memory_pos.dtype)
+            memory_pos = torch.cat([memory_pos[:, :n_sp], obj_pos], dim=1)
+        if not cfg.use_obj_ptrs_in_encoder:
+            memory, memory_pos, valid = memory[:, :n_sp], memory_pos[:, :n_sp], valid[:, :n_sp]
+            num_ptr = 0
+        return self.memory_attention(
+            curr, curr_pos, q_hw, memory=memory.to(curr.dtype),
+            memory_pos=memory_pos.to(curr.dtype), num_obj_ptr_tokens=num_ptr,
+            kv_mask=valid, generator=generator)
 
     def prepare_memory_conditioned_features(self, spec: mb.BankSpec, bank, frame_idx: int,
                                             is_init_cond_frame: bool, current_vision_feats,
                                             current_vision_pos, num_frames: int,
-                                            is_eval: bool, pos_kcache=None):
-        """``SAM2Base._prepare_memory_conditioned_features`` against the bank,
-        storage-order readout only. Returns [B, h, w, C]."""
+                                            is_eval: bool, pos_kcache=None, generator=None):
+        """``SAM2Base._prepare_memory_conditioned_features`` against the bank.
+        With ``pos_kcache`` and a bank that carries the roped-key cache the
+        memory is read in storage order, otherwise in read order over raw
+        memory tokens. ``generator`` turns on the memory-attention dropout.
+        Returns [B, h, w, C]."""
         cfg = self.cfg
         B, h, w, C = current_vision_feats.shape
         curr = current_vision_feats.reshape(B, h * w, C)
         if cfg.num_maskmem == 0:
             return current_vision_feats
-        if is_init_cond_frame:
-            if not cfg.directly_add_no_mem_embed:
-                raise NotImplementedError("memory attention over no_mem tokens is not ported")
-            return (curr + self.no_mem_embed.to(curr.dtype)).reshape(B, h, w, C)
-        if pos_kcache is None or "kcache" not in bank:
-            raise NotImplementedError("the read-order memory readout is not ported; "
-                                      "use a bank with the roped-key cache")
         curr_pos = current_vision_pos.reshape(B, h * w, C).to(curr.dtype)
-        out = self._memory_conditioned_features_storage(
-            spec, bank, frame_idx, curr, curr_pos, (w, h), num_frames, is_eval, pos_kcache)
+        if is_init_cond_frame:
+            if cfg.directly_add_no_mem_embed:
+                return (curr + self.no_mem_embed.to(curr.dtype)).reshape(B, h, w, C)
+            tokens = self.no_mem_embed.to(curr.dtype).expand(B, 1, C)
+            pos = self.no_mem_pos_enc.to(curr.dtype).expand(B, 1, C)
+            out = self.memory_attention(curr, curr_pos, (w, h), memory=tokens,
+                                        memory_pos=pos, num_obj_ptr_tokens=0,
+                                        generator=generator)
+            return out.reshape(B, h, w, C)
+        if pos_kcache is not None and "kcache" in bank:
+            out = self._memory_conditioned_features_storage(
+                spec, bank, frame_idx, curr, curr_pos, (w, h), num_frames, is_eval,
+                pos_kcache, generator)
+        else:
+            out = self._memory_conditioned_features_read(
+                spec, bank, frame_idx, curr, curr_pos, (w, h), num_frames, is_eval, generator)
         return out.reshape(B, h, w, C)
 
     # ------------------------------------------------------------------
@@ -333,10 +419,13 @@ class SAM2Model(nn.Module):
                    current_vision_pos: List[torch.Tensor], point_inputs=None,
                    mask_inputs=None, multimask_output: bool = False,
                    run_mem_encoder: bool = True, is_cond_frame: bool = False,
-                   num_frames: int = 2 ** 30, is_eval: bool = False, pos_kcache=None):
+                   num_frames: int = 2 ** 30, is_eval: bool = False, pos_kcache=None,
+                   generator: Optional[torch.Generator] = None):
         """One frame (``sam2_base.py:705-800``): memory readout -> SAM heads ->
-        memory write. Returns (outputs dict, bank); the bank is updated in
-        place."""
+        memory write. ``generator`` turns on the memory-attention dropout.
+        Returns (outputs dict, bank); for inference the bank is updated in
+        place, in training the returned bank is a new dict
+        (:func:`memory_bank.write_bank`)."""
         cfg = self.cfg
         high_res = list(current_vision_feats[:-1]) if len(current_vision_feats) > 1 else None
         if mask_inputs is not None and cfg.use_mask_input_as_output_without_sam:
@@ -345,7 +434,7 @@ class SAM2Model(nn.Module):
             pix = self.prepare_memory_conditioned_features(
                 spec, bank, frame_idx, is_init_cond_frame, current_vision_feats[-1],
                 current_vision_pos[-1], num_frames=num_frames, is_eval=is_eval,
-                pos_kcache=pos_kcache)
+                pos_kcache=pos_kcache, generator=generator)
             sam = self.forward_sam_heads(pix, point_inputs=point_inputs,
                                          mask_inputs=mask_inputs, high_res_features=high_res,
                                          multimask_output=multimask_output,

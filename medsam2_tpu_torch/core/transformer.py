@@ -118,22 +118,51 @@ def rope_attn_storage(attn: Attention, q, bundle: dict, layer: int, *,
 
 
 def rope_attn_apply(attn: Attention, q, k, v, *, q_hw: Tuple[int, int],
-                    rope_theta: float = 10000.0):
-    """RoPE self-attention (``transformer.py:266-331`` with q and k on the
-    same grid): q and k take the axial rotation, v and the output projection
-    are plain."""
+                    rope_theta: float = 10000.0, rope_k_repeat: bool = False,
+                    num_k_exclude_rope: int = 0, kv_mask=None):
+    """RoPE attention (``transformer.py:266-331``): the memory
+    self-attention, and the read-order memory cross-attention over raw
+    memory tokens.
+
+    ``q_hw`` is the (w, h) grid of the query tokens. The last
+    ``num_k_exclude_rope`` keys (object pointers) skip the rotation; with
+    ``rope_k_repeat`` the q-grid tables tile once per memory frame over the
+    other keys. Low-rank value path: when the raw kv width (64 memory
+    channels) is below the head dim, the raw tokens are the values and the v
+    projection is applied to the output, exactly (P (v W) = (P v) W, and the
+    bias commutes because masked-softmax rows sum to 1); the cross-attention
+    flash call is then D = 256 / Dv = 64."""
     h = attn.num_heads
     perm = _perm(attn.q_proj, h)
     qp = _split_heads(_linear_perm(attn.q_proj, q, perm), h)
     kp = _split_heads(_linear_perm(attn.k_proj, k, perm), h)
     head_dim = qp.shape[-1]
-    if attn.v_proj.weight.shape[1] < head_dim:
-        raise NotImplementedError("low-rank values are the storage-order path's")
-    vp = _split_heads(attn.v_proj(v), h)
+    v_in = attn.v_proj.weight.shape[1]
+    factor_v = v_in < head_dim
+    if factor_v:
+        vp = v[:, None].expand(v.shape[0], h, v.shape[1], v_in)
+    else:
+        vp = _split_heads(attn.v_proj(v), h)
     cos, sin = axial_rope_cos_sin(head_dim, q_hw[0], q_hw[1], rope_theta, device=q.device)
     qp = apply_rope_half(qp, cos, sin)
-    kp = apply_rope_half(kp, cos, sin)
-    out = attention(qp, kp, vp)
+    num_k_rope = kp.shape[2] - num_k_exclude_rope
+    if num_k_rope > 0:
+        repeat = num_k_rope // qp.shape[2] if rope_k_repeat else 1
+        if repeat > 1:
+            cos_k, sin_k = cos.repeat(repeat, 1), sin.repeat(repeat, 1)
+        else:
+            # a memory shorter than one frame (the single no-mem token) takes
+            # the first rows: attention over one key returns its value
+            # whatever its rotation, as the JAX package's broadcast does
+            cos_k, sin_k = cos[:num_k_rope], sin[:num_k_rope]
+        k_rot = apply_rope_half(kp[:, :, :num_k_rope], cos_k, sin_k)
+        kp = torch.cat([k_rot, kp[:, :, num_k_rope:]], dim=2) if num_k_exclude_rope else k_rot
+    out = attention(qp, kp, vp, kv_mask=kv_mask)
+    if factor_v:
+        wv = attn.v_proj.weight.reshape(h, head_dim, v_in).to(out.dtype)
+        out = torch.einsum("bhqe,hde->bhqd", out, wv)
+        if attn.v_proj.bias is not None:
+            out = out + attn.v_proj.bias.reshape(h, head_dim)[None, :, None, :].to(out.dtype)
     return attn.out_proj(_merge_heads(out))
 
 

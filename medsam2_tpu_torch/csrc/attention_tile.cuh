@@ -1,5 +1,6 @@
-// Shared online-softmax tile machinery for the two attention kernels
-// (flash_attention.cu, kv_cached_attention.cu).
+// Shared online-softmax tile machinery for the two forward attention kernels
+// (flash_attention.cu, kv_cached_attention.cu); the backward kernels
+// (flash_attention_bwd.cu) use its types and load_rows.
 //
 // One thread block owns kBQ = 64 query rows; each of its 4 warps owns a strip
 // of 16 rows and does everything for those rows itself (logits, softmax
@@ -122,13 +123,13 @@ struct Tile {
 };
 
 // Copy `rows` rows of COLS elements (global row stride COLS) into shared
-// memory with row stride `ld`, 16 bytes per thread per step; rows at or past
-// `valid` are zero-filled (the ragged edge of a sequence).
-template <typename T, int COLS>
+// memory with row stride `ld`, 16 bytes per thread per step, NT threads;
+// rows at or past `valid` are zero-filled (the ragged edge of a sequence).
+template <typename T, int COLS, int NT = kThreads>
 __device__ __forceinline__ void load_rows(T* dst, int ld, const T* src, int rows, int valid) {
   constexpr int VEC = 16 / sizeof(T);
   constexpr int CV = COLS / VEC;
-  for (int i = threadIdx.x; i < rows * CV; i += kThreads) {
+  for (int i = threadIdx.x; i < rows * CV; i += NT) {
     const int r = i / CV;
     const int c = (i % CV) * VEC;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);

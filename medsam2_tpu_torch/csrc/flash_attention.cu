@@ -4,10 +4,15 @@
 // (reached through _flash_call <- flash_attention <- attention). Same math:
 // online softmax over kv tiles, -1e30 on masked logits, probabilities
 // multiplied by the float kv mask, fp32 running max / sum / accumulator, and a
-// zero output for a row whose every key is masked.
+// zero output for a row whose every key is masked. With a non-null `lse` it
+// also writes the per-row log-sum-exp m + log(l) (l == 0 -> 1), the training
+// forward's second output (`with_lse`, attention.py:96-101) that the backward
+// kernels (flash_attention_bwd.cu) recompute P from; a null `lse` is the
+// inference launch and costs nothing extra.
 //
 // What bounds it on the H100: at the main path's shapes (Hiera global
-// attention [1,4,4096,96], memory self-attention [B,1,4096,256]) the work is
+// attention [1,4,4096,96], memory self-attention [B,1,4096,256], training
+// cross-attention [2,1,1024,10316] with 64-wide values) the work is
 // 2*Nq*Nk*(D+Dv) flops against O((Nq+Nk)*D) bytes, far above the card's
 // ~295 flop/byte ridge, so the limit is tensor-core issue rate, not HBM.
 // This first version stages K/V through shared memory with plain 16-byte
@@ -27,8 +32,8 @@ namespace {
 template <typename T, int D, int DV>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     const float* __restrict__ mask, T* __restrict__ out, int H, int Nq, int Nk,
-                     float scale) {
+                     const float* __restrict__ mask, T* __restrict__ out, float* __restrict__ lse,
+                     int H, int Nq, int Nk, float scale) {
   using L = Smem<T, D, DV>;
   constexpr int BK = L::BK;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -53,6 +58,15 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();
   write_out(t, out + ((size_t)bh * Nq + q0) * DV, valid_q);
+  if (lse != nullptr) {
+    // a fully masked row keeps m = -1e30 and l = 0: lse = -1e30, finite,
+    // and the backward zeroes its probabilities through the mask
+    float* lrow = lse + (size_t)bh * Nq + q0;
+    for (int r = threadIdx.x; r < valid_q; r += kThreads) {
+      const float l = t.l[r];
+      lrow[r] = t.m[r] + logf(l == 0.f ? 1.f : l);
+    }
+  }
 }
 
 struct FlashArgs {
@@ -61,6 +75,7 @@ struct FlashArgs {
   const void* v;
   const float* mask;
   void* out;
+  float* lse;
   int BH, H, Nq, Nk;
   float scale;
   cudaStream_t stream;
@@ -79,7 +94,7 @@ struct FlashLaunch {
     const dim3 grid((a.Nq + kBQ - 1) / kBQ, a.BH);
     kern<<<grid, kThreads, L::bytes, a.stream>>>(
         static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v), a.mask,
-        static_cast<T*>(a.out), a.H, a.Nq, a.Nk, a.scale);
+        static_cast<T*>(a.out), a.lse, a.H, a.Nq, a.Nk, a.scale);
     return cudaGetLastError();
   }
 };
@@ -89,14 +104,16 @@ struct FlashLaunch {
 
 // q [BH, Nq, D], k [BH, Nk, D], v [BH, Nk, Dv], mask [BH / H, Nk] float or
 // NULL, out [BH, Nq, Dv]; all contiguous, 16-byte aligned, one dtype
-// (0 = float32, 1 = bfloat16). Returns the cudaError_t of the launch.
+// (0 = float32, 1 = bfloat16). lse [BH, Nq] float32, or NULL for the
+// inference launch. Returns the cudaError_t of the launch.
 extern "C" int medsam2_flash_attention_fwd(const void* q, const void* k, const void* v,
-                                           const float* mask, void* out, int BH, int H, int Nq,
-                                           int Nk, int D, int Dv, float scale, int dtype,
-                                           void* stream) {
+                                           const float* mask, void* out, float* lse, int BH,
+                                           int H, int Nq, int Nk, int D, int Dv, float scale,
+                                           int dtype, void* stream) {
   using namespace medsam2;
   if (BH <= 0 || Nq <= 0 || H <= 0 || BH % H != 0 || Nk < 0) return (int)cudaErrorInvalidValue;
-  const FlashArgs a{q, k, v, mask, out, BH, H, Nq, Nk, scale, static_cast<cudaStream_t>(stream)};
+  const FlashArgs a{q, k, v, mask, out, lse, BH, H, Nq, Nk, scale,
+                    static_cast<cudaStream_t>(stream)};
   if (dtype == 1) return (int)dispatch_dims(D, Dv, FlashLaunch<bf16>{a});
   if (dtype == 0) return (int)dispatch_dims(D, Dv, FlashLaunch<float>{a});
   return (int)cudaErrorInvalidValue;

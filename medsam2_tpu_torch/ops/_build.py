@@ -99,7 +99,13 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn = lib.medsam2_flash_attention_fwd
-    fn.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, i, i, f, i, vp]
+    fn.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, i, i, i, f, i, vp]
+    fn.restype = i
+    fn = lib.medsam2_flash_attention_bwd_dkv
+    fn.argtypes = [vp] * 9 + [i] * 7 + [f, i, vp]
+    fn.restype = i
+    fn = lib.medsam2_flash_attention_bwd_dq
+    fn.argtypes = [vp] * 8 + [i] * 7 + [f, i, vp]
     fn.restype = i
     fn = lib.medsam2_kv_cached_attention_fwd
     fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp,

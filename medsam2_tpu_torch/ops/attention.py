@@ -1,18 +1,24 @@
-"""Scaled dot-product attention: plain PyTorch path + two CUDA kernels.
+"""Scaled dot-product attention: plain PyTorch path + CUDA kernels.
 
 Counterpart of ``medsam2_tpu/ops/attention.py``. Every attention of the model
-goes through :func:`attention`; the memory cross-attention over the bank goes
-through :func:`kv_cached_attention`.
+goes through :func:`attention`; the memory cross-attention over the bank's
+roped-key cache goes through :func:`kv_cached_attention`.
 
 - :func:`sdpa_plain` is ``sdpa_xla``: fp32 softmax, products accumulated in
   fp32, probabilities cast to the value dtype before the PV product.
-- :func:`flash_attention` replaces the Pallas ``_flash_kernel``; on a CUDA
-  tensor it launches ``csrc/flash_attention.cu``, on a CPU tensor it runs
-  :func:`flash_attention_plain`, which spells out the kernel's math (masked
-  probabilities are zeroed, a row with every key masked returns 0).
+- :func:`flash_attention` replaces the Pallas ``_flash_kernel`` and, under
+  autograd, its ``custom_vjp`` with the backward pair ``_bwd_dkv_kernel`` /
+  ``_bwd_dq_kernel``. On a CUDA tensor the forward launches
+  ``csrc/flash_attention.cu`` (with the per-row LSE output when a gradient
+  will be taken) and the backward ``csrc/flash_attention_bwd.cu``; on a CPU
+  tensor the same autograd function runs the plain twins
+  :func:`flash_attention_lse_plain` and :func:`flash_attention_bwd_plain`,
+  which spell out the kernels' math (masked probabilities are zeroed, a row
+  with every key masked returns 0 and gets zero gradients).
 - :func:`kv_cached_attention` replaces ``_kv_cached_kernel``; on CUDA it
   launches ``csrc/kv_cached_attention.cu``, on CPU it runs
-  :func:`kv_cached_attention_plain`.
+  :func:`kv_cached_attention_plain`. Inference only: it raises when a
+  gradient would be taken, as the JAX kernel path has no vjp.
 
 There is no fallback: a CUDA tensor either reaches its kernel or the wrapper
 raises. Shapes follow the JAX package: q [B, H, Nq, D], k [B, H, Nk, D],
@@ -28,12 +34,19 @@ import torch
 
 _NEG_INF = -1e30
 
-# Head dims the flash kernel is instantiated for, D and Dv independently
-# (csrc/attention_tile.cuh).
+# Head dims the flash forward kernel is instantiated for, D and Dv
+# independently (csrc/attention_tile.cuh).
 KERNEL_HEAD_DIMS = (64, 96, 128, 256)
+# (D, Dv) the backward kernels are instantiated for: memory self-attention and
+# the low-rank memory cross-attention, the only flash calls training
+# differentiates (csrc/flash_attention_bwd.cu).
+BWD_HEAD_DIMS = ((256, 256), (256, 64))
 # (C, Dv) the kv-cached kernel is instantiated for: d_model and mem_dim of
 # every SAM2 variant (csrc/kv_cached_attention.cu).
 KV_CACHED_WIDTHS = (256, 64)
+# The backward kernels write fp32 gradients into buffers padded to this many
+# rows (the largest tile of either dtype).
+_BWD_ROWS = 64
 
 
 def _check_device(t: torch.Tensor, name: str) -> bool:
@@ -45,12 +58,15 @@ def _check_device(t: torch.Tensor, name: str) -> bool:
     raise RuntimeError(f"{name}: unsupported device {t.device}")
 
 
+def _default_scale(q, scale):
+    return 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
+
+
 def sdpa_plain(q, k, v, kv_mask=None, scale=None):
     """Plain attention matching ``sdpa_xla`` (and torch's math SDPA).
 
     ``v`` may have another head dim than q/k (the low-rank value path)."""
-    if scale is None:
-        scale = 1.0 / math.sqrt(q.shape[-1])
+    scale = _default_scale(q, scale)
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if kv_mask is not None:
         logits = logits.masked_fill(~kv_mask[:, None, None, :], _NEG_INF)
@@ -59,26 +75,57 @@ def sdpa_plain(q, k, v, kv_mask=None, scale=None):
     return out.to(q.dtype)
 
 
-def flash_attention_plain(q, k, v, kv_mask=None, scale=None):
-    """The flash kernel's math in plain PyTorch: -1e30 on masked logits,
-    probabilities multiplied by the mask, fp32 row sums, probabilities cast to
-    the value dtype for the PV product, and ``l == 0 -> 1`` so a fully masked
-    row returns zeros (``medsam2_tpu/ops/attention.py:71-95``)."""
-    if scale is None:
-        scale = 1.0 / math.sqrt(q.shape[-1])
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+def _mask_float(kv_mask, k):
+    """[B, 1, 1, Nk] float 0/1 mask (all ones without a mask)."""
     if kv_mask is None:
-        maskf = torch.ones(k.shape[0], k.shape[2], device=q.device)
-    else:
-        maskf = kv_mask.float()
-    maskf = maskf[:, None, None, :]
+        return torch.ones(k.shape[0], 1, 1, k.shape[2], device=k.device)
+    return kv_mask.float()[:, None, None, :]
+
+
+def flash_attention_lse_plain(q, k, v, kv_mask=None, scale=None):
+    """The flash forward kernel's math in plain PyTorch: -1e30 on masked
+    logits, probabilities multiplied by the mask, fp32 row sums,
+    probabilities cast to the value dtype for the PV product, and
+    ``l == 0 -> 1`` so a fully masked row returns zeros
+    (``medsam2_tpu/ops/attention.py:71-101``). Returns (out in q's dtype,
+    lse [B, H, Nq] fp32 = m + log(l))."""
+    scale = _default_scale(q, scale)
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    maskf = _mask_float(kv_mask, k)
     s = torch.where(maskf > 0, s, torch.full_like(s, _NEG_INF))
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m) * maskf
     l = p.sum(dim=-1, keepdim=True)
-    out = torch.matmul(p.to(v.dtype).float(), v.float())
-    out = out / torch.where(l == 0, torch.ones_like(l), l)
-    return out.to(q.dtype)
+    lz = torch.where(l == 0, torch.ones_like(l), l)
+    out = torch.matmul(p.to(v.dtype).float(), v.float()) / lz
+    return out.to(q.dtype), (m + torch.log(lz))[..., 0]
+
+
+def flash_attention_plain(q, k, v, kv_mask=None, scale=None):
+    """:func:`flash_attention_lse_plain` without the LSE."""
+    return flash_attention_lse_plain(q, k, v, kv_mask, scale)[0]
+
+
+def flash_attention_bwd_plain(q, k, v, kv_mask, o, lse, do, scale=None):
+    """The backward kernels' math in plain PyTorch (``_bwd_dkv_kernel`` and
+    ``_bwd_dq_kernel``, ``medsam2_tpu/ops/attention.py:227-301``):
+    P = exp(min(S * scale - lse, 0)) * mask, dV = P^T dO, dP = dO V^T,
+    dS = P (dP - rowsum(dO O)), dK = scale dS^T Q, dQ = scale dS K, with P and
+    dS cast to the input dtype before their products and fp32 accumulation.
+    Returns (dq, dk, dv) in the input dtypes."""
+    scale = _default_scale(q, scale)
+    dt = q.dtype
+    qf, kf, vf = q.float(), k.float(), v.float()
+    do_c = do.to(dt).float()
+    dvec = (do.float() * o.float()).sum(dim=-1, keepdim=True)
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    p = torch.exp(torch.clamp(s - lse.float()[..., None], max=0.0)) * _mask_float(kv_mask, k)
+    dv = torch.matmul(p.to(dt).float().transpose(-1, -2), do_c)
+    dp = torch.matmul(do_c, vf.transpose(-1, -2))
+    ds = (p * (dp - dvec)).to(dt).float()
+    dq = torch.matmul(ds, kf) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -104,54 +151,160 @@ def _raise_on_error(rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {rc} at launch")
 
 
-def flash_attention(q, k, v, kv_mask=None, scale=None):
-    """Flash attention forward. q [B,H,Nq,D], k [B,H,Nk,D], v [B,H,Nk,Dv],
-    kv_mask [B,Nk] bool. Returns [B,H,Nq,Dv] in q's dtype.
-
-    CUDA tensors launch ``csrc/flash_attention.cu`` (replaces the Pallas
-    ``_flash_kernel``); CPU tensors run :func:`flash_attention_plain`."""
-    if not _check_device(q, "flash_attention"):
-        return flash_attention_plain(q, k, v, kv_mask, scale)
+def _flash_shapes(q, k, v, name: str):
+    """Check q/k/v on the card in one kernel dtype; returns (B, H, Nq, Nk, D,
+    Dv, dtype code)."""
     B, H, Nq, D = q.shape
     Nk = k.shape[2]
     Dv = v.shape[3]
     if k.shape != (B, H, Nk, D) or v.shape[:3] != (B, H, Nk):
-        raise ValueError(f"flash_attention: shapes q {tuple(q.shape)} "
-                         f"k {tuple(k.shape)} v {tuple(v.shape)} disagree")
+        raise ValueError(f"{name}: shapes q {tuple(q.shape)} k {tuple(k.shape)} "
+                         f"v {tuple(v.shape)} disagree")
+    code = _dtype_code(q, name)
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"{name}: q, k, v must share one dtype")
+    if not (k.is_cuda and v.is_cuda):
+        raise RuntimeError(f"{name}: q, k, v must all lie on the card")
+    return B, H, Nq, Nk, D, Dv, code
+
+
+def _mask_arg(kv_mask, B: int, Nk: int, device, name: str):
+    if kv_mask is None:
+        return None
+    if kv_mask.shape != (B, Nk):
+        raise ValueError(f"{name}: kv_mask {tuple(kv_mask.shape)} != {(B, Nk)}")
+    return _aligned(kv_mask.to(device=device, dtype=torch.float32))
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _flash_forward(q, k, v, kv_mask, scale, with_lse: bool):
+    """One launch of the forward kernel; returns (out, lse or None)."""
+    B, H, Nq, Nk, D, Dv, code = _flash_shapes(q, k, v, "flash_attention")
     if D not in KERNEL_HEAD_DIMS or Dv not in KERNEL_HEAD_DIMS:
         raise ValueError(f"flash_attention: kernel built for head dims "
                          f"{KERNEL_HEAD_DIMS}, got D={D} Dv={Dv}")
-    code = _dtype_code(q, "flash_attention")
-    if k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError("flash_attention: q, k, v must share one dtype")
-    if not (k.is_cuda and v.is_cuda):
-        raise RuntimeError("flash_attention: q, k, v must all lie on the card")
-    if scale is None:
-        scale = 1.0 / math.sqrt(D)
     from medsam2_tpu_torch.ops._build import load_library
 
     lib = load_library()
     qf = _aligned(q.reshape(B * H, Nq, D))
     kf = _aligned(k.reshape(B * H, Nk, D))
     vf = _aligned(v.reshape(B * H, Nk, Dv))
-    mask = None
-    if kv_mask is not None:
-        if kv_mask.shape != (B, Nk):
-            raise ValueError(f"flash_attention: kv_mask {tuple(kv_mask.shape)} "
-                             f"!= {(B, Nk)}")
-        mask = _aligned(kv_mask.to(device=q.device, dtype=torch.float32))
+    mask = _mask_arg(kv_mask, B, Nk, q.device, "flash_attention")
     out = torch.empty(B * H, Nq, Dv, device=q.device, dtype=q.dtype)
+    lse = torch.empty(B * H, Nq, device=q.device, dtype=torch.float32) if with_lse else None
     rc = lib.medsam2_flash_attention_fwd(
         qf.data_ptr(), kf.data_ptr(), vf.data_ptr(),
         mask.data_ptr() if mask is not None else None, out.data_ptr(),
-        B * H, H, Nq, Nk, D, Dv, ctypes.c_float(scale), code,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        lse.data_ptr() if lse is not None else None,
+        B * H, H, Nq, Nk, D, Dv, ctypes.c_float(scale), code, _stream(q))
     _raise_on_error(rc, "flash_attention")
     flash_attention.launches += 1
-    return out.reshape(B, H, Nq, Dv)
+    return (out.reshape(B, H, Nq, Dv),
+            lse.reshape(B, H, Nq) if lse is not None else None)
 
 
-flash_attention.launches = 0
+def _padded_rows(n: int) -> int:
+    return -(-n // _BWD_ROWS) * _BWD_ROWS
+
+
+def _flash_bwd_launch(which: str, q, k, v, kv_mask, do, lse, dvec, scale):
+    """One launch of ``csrc/flash_attention_bwd.cu``'s ``which`` pass: "dkv"
+    (one block per kv tile) returns (dk, dv), "dq" (one block per q tile)
+    returns (dq,), each in its input's dtype. The kernels write fp32 into
+    buffers padded to whole tiles."""
+    name = f"flash_attention_bwd_{which}"
+    B, H, Nq, Nk, D, Dv, code = _flash_shapes(q, k, v, name)
+    if (D, Dv) not in BWD_HEAD_DIMS:
+        raise ValueError(f"{name}: kernel built for (D, Dv) in {BWD_HEAD_DIMS}, "
+                         f"got ({D}, {Dv})")
+    if do.shape != (B, H, Nq, Dv) or lse.shape != (B, H, Nq) or dvec.shape != (B, H, Nq):
+        raise ValueError(f"{name}: do {tuple(do.shape)} / lse {tuple(lse.shape)} / "
+                         f"dvec {tuple(dvec.shape)} disagree with q {tuple(q.shape)}")
+    n, like = (Nk, (k, v)) if which == "dkv" else (Nq, (q,))
+    rows = _padded_rows(n)
+    outs = [torch.empty(B * H, rows, t.shape[-1], device=q.device, dtype=torch.float32)
+            for t in like]
+    mask = _mask_arg(kv_mask, B, Nk, q.device, name)
+    ins = (_aligned(q.reshape(B * H, Nq, D)), _aligned(k.reshape(B * H, Nk, D)),
+           _aligned(v.reshape(B * H, Nk, Dv)))
+    do_, lse_, dvec_ = (_aligned(do.to(q.dtype).reshape(B * H, Nq, Dv)),
+                        _aligned(lse.to(torch.float32).reshape(B * H, Nq)),
+                        _aligned(dvec.to(torch.float32).reshape(B * H, Nq)))
+    from medsam2_tpu_torch.ops._build import load_library
+
+    rc = getattr(load_library(), "medsam2_" + name)(
+        *(t.data_ptr() for t in ins), mask.data_ptr() if mask is not None else None,
+        do_.data_ptr(), lse_.data_ptr(), dvec_.data_ptr(), *(o.data_ptr() for o in outs),
+        B * H, H, Nq, Nk, rows, D, Dv, ctypes.c_float(_default_scale(q, scale)), code,
+        _stream(q))
+    _raise_on_error(rc, name)
+    if which == "dkv":
+        flash_attention_bwd_dkv.launches += 1
+    else:
+        flash_attention_bwd_dq.launches += 1
+    return tuple(o[:, :n].reshape(B, H, n, o.shape[-1]).to(t.dtype) for o, t in zip(outs, like))
+
+
+def flash_attention_bwd_dkv(q, k, v, kv_mask, do, lse, dvec, scale=None):
+    """dK, dV of flash attention on the card (replaces the Pallas
+    ``_bwd_dkv_kernel``). ``dvec`` = rowsum(dO * O) [B, H, Nq] fp32; ``lse``
+    the forward's [B, H, Nq]. Returns (dk, dv) in the input dtype."""
+    return _flash_bwd_launch("dkv", q, k, v, kv_mask, do, lse, dvec, scale)
+
+
+def flash_attention_bwd_dq(q, k, v, kv_mask, do, lse, dvec, scale=None):
+    """dQ of flash attention on the card (replaces the Pallas
+    ``_bwd_dq_kernel``). Arguments as :func:`flash_attention_bwd_dkv`."""
+    return _flash_bwd_launch("dq", q, k, v, kv_mask, do, lse, dvec, scale)[0]
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Flash attention with its backward pair, the ``custom_vjp`` of the JAX
+    package's ``flash_attention``: the forward keeps the per-row LSE, the
+    backward recomputes P from it."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask, scale):
+        if _check_device(q, "flash_attention"):
+            out, lse = _flash_forward(q, k, v, kv_mask, scale, with_lse=True)
+        else:
+            out, lse = flash_attention_lse_plain(q, k, v, kv_mask, scale)
+        ctx.save_for_backward(q, k, v, kv_mask, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, kv_mask, out, lse = ctx.saved_tensors
+        if not _check_device(q, "flash_attention"):
+            dq, dk, dv = flash_attention_bwd_plain(q, k, v, kv_mask, out, lse, do, ctx.scale)
+            return dq, dk, dv, None, None
+        # dvec = rowsum(dO * O) stays a PyTorch op in fp32, as the JAX
+        # package computes it in XLA outside its kernels
+        dvec = (do.float() * out.float()).sum(dim=-1)
+        dk, dv = flash_attention_bwd_dkv(q, k, v, kv_mask, do, lse, dvec, ctx.scale)
+        dq = flash_attention_bwd_dq(q, k, v, kv_mask, do, lse, dvec, ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q, k, v, kv_mask=None, scale=None):
+    """Flash attention. q [B,H,Nq,D], k [B,H,Nk,D], v [B,H,Nk,Dv], kv_mask
+    [B,Nk] bool. Returns [B,H,Nq,Dv] in q's dtype.
+
+    When grad is enabled and an input requires it, the call is the autograd
+    function (forward with LSE, backward through the two backward kernels);
+    otherwise it is the inference launch with no LSE, as JAX's
+    ``with_lse=False``. CUDA tensors launch ``csrc/flash_attention.cu``;
+    CPU tensors run the plain twins."""
+    scale = _default_scale(q, scale)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, kv_mask, scale)
+    if not _check_device(q, "flash_attention"):
+        return flash_attention_plain(q, k, v, kv_mask, scale)
+    return _flash_forward(q, k, v, kv_mask, scale, with_lse=False)[0]
 
 
 def kv_cached_attention_plain(q, kcache, pos_rows, row_of_slot, ptr_k, v_slots,
@@ -162,8 +315,6 @@ def kv_cached_attention_plain(q, kcache, pos_rows, row_of_slot, ptr_k, v_slots,
     (zeroed masked probabilities, fully masked rows -> 0)."""
     B, F, L, P, C = kcache.shape
     Dv = v_slots.shape[-1]
-    if scale is None:
-        scale = 1.0 / math.sqrt(C)
     rows = row_of_slot.long()
     k_sp = kcache[:, :, layer] + pos_rows[rows, layer][None].to(kcache.dtype)
     k = torch.cat([k_sp.reshape(B, F * P, C), ptr_k.to(kcache.dtype)], dim=1)
@@ -182,9 +333,14 @@ def kv_cached_attention(q, kcache, pos_rows, row_of_slot, ptr_k, v_slots,
     [F] int; ptr_k [B, Nptr, C]; v_slots [B, F, P, Dv]; ptr_v [B, Nptr, Dv];
     kv_mask [B, F*P + Nptr] bool. Returns [B, Nq, Dv].
 
-    CUDA tensors launch ``csrc/kv_cached_attention.cu`` for every P and Nptr
-    (ragged ones included); CPU tensors run
+    Inference only, as the JAX kernel path: raises when grad is enabled and
+    an input requires it. CUDA tensors launch ``csrc/kv_cached_attention.cu``
+    for every P and Nptr (ragged ones included); CPU tensors run
     :func:`kv_cached_attention_plain`."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, kcache, pos_rows, ptr_k, v_slots, ptr_v)):
+        raise RuntimeError("kv_cached_attention is inference only (no backward); "
+                           "training reads memory in read order")
     if not _check_device(q, "kv_cached_attention"):
         return kv_cached_attention_plain(q, kcache, pos_rows, row_of_slot,
                                          ptr_k, v_slots, ptr_v, kv_mask,
@@ -215,8 +371,7 @@ def kv_cached_attention(q, kcache, pos_rows, row_of_slot, ptr_k, v_slots,
                     ("v_slots", v_slots), ("ptr_v", ptr_v), ("kv_mask", kv_mask)):
         if not t.is_cuda:
             raise RuntimeError(f"kv_cached_attention: {name} is not on the card")
-    if scale is None:
-        scale = 1.0 / math.sqrt(C)
+    scale = 1.0 / math.sqrt(C) if scale is None else scale
     from medsam2_tpu_torch.ops._build import load_library
 
     lib = load_library()
@@ -234,24 +389,27 @@ def kv_cached_attention(q, kcache, pos_rows, row_of_slot, ptr_k, v_slots,
         qc.data_ptr(), kc.data_ptr(), pr.data_ptr(), rows.data_ptr(),
         pk.data_ptr(), vs.data_ptr(), pv.data_ptr(), mask.data_ptr(),
         out.data_ptr(), B, Nq, F, L, P, C, Dv, Nptr, Rr, int(layer),
-        ctypes.c_float(scale), code,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        ctypes.c_float(scale), code, _stream(q))
     _raise_on_error(rc, "kv_cached_attention")
     kv_cached_attention.launches += 1
     return out
 
 
-kv_cached_attention.launches = 0
+# Launch counts: each wrapper adds one where it launches its kernel.
+_COUNTED = (flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dq,
+            kv_cached_attention)
 
 
 def reset_launch_counts() -> None:
-    flash_attention.launches = 0
-    kv_cached_attention.launches = 0
+    for fn in _COUNTED:
+        fn.launches = 0
 
 
 def launch_counts() -> dict:
-    return {"flash_attention": flash_attention.launches,
-            "kv_cached_attention": kv_cached_attention.launches}
+    return {fn.__name__: fn.launches for fn in _COUNTED}
+
+
+reset_launch_counts()
 
 
 def _use_flash(q: torch.Tensor, kv_len: int, head_dim: int) -> bool:

@@ -5,13 +5,17 @@ Conditioning memories sit in append-once slots [B, Mc, P, D]; non-conditioning
 memories in a ring of the last R frames (slot = t % R); object pointers in cond
 slots plus a ring of the last (max_obj_ptrs - 1) frames. The roped-key cache
 ``kcache`` [B, Mc + R, L, P, C] holds the slots in storage order, and
-attention consumes it as stored (:func:`kv_storage_layout`).
+inference attention consumes it as stored (:func:`kv_storage_layout`);
+training reads raw memory tokens in read order (:func:`read_bank`).
 
-Unlike the JAX package, :func:`write_bank` updates the bank in place (the
-cache is ~67 MB at 1024 px for one object; copying it every frame buys
-nothing in eager PyTorch) and returns it for call-site symmetry. Frame indices
-are host integers; slot choice for a cond write happens on the device, so no
-write synchronises with the host.
+For inference :func:`write_bank` updates the bank in place (the cache is
+~67 MB at 1024 px for one object; copying it every frame buys nothing in
+eager PyTorch) and returns it for call-site symmetry. When grad is enabled
+and the memory or the bank requires grad, it writes out of place and returns
+a new dict, as the JAX bank does:
+a later frame that reads a slot then reads the tensor autograd recorded, not
+one changed under it. Frame indices are host integers; slot choice for a cond
+write happens on the device, so no write synchronises with the host.
 """
 
 from __future__ import annotations
@@ -57,6 +61,14 @@ class BankSpec:
         return max(self.max_obj_ptrs - 1, 1)
 
     @property
+    def num_frames_attended(self) -> int:
+        return self.max_cond_frames + self.num_maskmem - 1
+
+    @property
+    def num_spatial_tokens(self) -> int:
+        return self.num_frames_attended * self.mem_spatial
+
+    @property
     def tokens_per_ptr(self) -> int:
         return self.hidden_dim // self.mem_dim
 
@@ -100,11 +112,35 @@ def init_bank(spec: BankSpec, batch: int, device,
 
 def write_bank(spec: BankSpec, bank, frame_idx: int, maskmem_feats, obj_ptr,
                is_cond: bool, kcache=None):
-    """Store one frame's memory in place. maskmem_feats [B, P, D]; obj_ptr
-    [B, C]; kcache [B, L, P, d_model], required iff the bank carries one."""
+    """Store one frame's memory. maskmem_feats [B, P, D]; obj_ptr [B, C];
+    kcache [B, L, P, d_model], required iff the bank carries one. In place
+    for inference; out of place (a new dict) when grad is enabled and the
+    write or the bank requires grad."""
     if ("kcache" in bank) != (kcache is not None):
         raise ValueError("bank kcache presence and write kcache argument disagree")
     frame_idx = int(frame_idx)
+    inplace = not (torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad
+        for t in (maskmem_feats, obj_ptr, kcache, *bank.values())))
+    if not inplace:
+        bank = dict(bank)
+
+    def put(key, slot, value):
+        """bank[key][:, slot] = value; ``slot`` a host int or a [1] index
+        tensor on the device."""
+        t = bank[key]
+        value = value.to(t.dtype)
+        if inplace and isinstance(slot, int):
+            t[:, slot] = value
+        elif inplace:
+            t.index_copy_(1, slot, value[:, None])
+        else:
+            idx = slot if torch.is_tensor(slot) else torch.tensor([slot], device=t.device)
+            bank[key] = t.index_copy(1, idx, value[:, None])
+
+    dev = bank["cond_feats"].device
+    B = bank["cond_feats"].shape[0]
+    frame = torch.full((B,), frame_idx, dtype=torch.int32, device=dev)
     if is_cond:
         # re-prompting a stored frame overwrites its slot; else the first
         # empty slot; else evict the slot farthest from the new frame
@@ -113,21 +149,25 @@ def write_bank(spec: BankSpec, bank, frame_idx: int, maskmem_feats, obj_ptr,
         key = torch.where(stored == frame_idx, big,
                           torch.where(stored < 0, big - 1, (stored - frame_idx).abs()))
         slot = key.argmax().reshape(1)
-        bank["cond_feats"].index_copy_(1, slot, maskmem_feats[:, None].to(bank["cond_feats"].dtype))
-        bank["cond_frame_idx"].index_fill_(1, slot, frame_idx)
-        bank["cond_obj_ptr"].index_copy_(1, slot, obj_ptr[:, None].to(bank["cond_obj_ptr"].dtype))
-        bank["cond_count"].add_(1).clamp_(max=spec.max_cond_frames)
+        put("cond_feats", slot, maskmem_feats)
+        put("cond_frame_idx", slot, frame)
+        put("cond_obj_ptr", slot, obj_ptr)
         if kcache is not None:
-            bank["kcache"].index_copy_(1, slot, kcache[:, None].to(bank["kcache"].dtype))
+            put("kcache", slot, kcache)
+        count = bank["cond_count"]
+        if inplace:
+            count.add_(1).clamp_(max=spec.max_cond_frames)
+        else:
+            bank["cond_count"] = (count + 1).clamp(max=spec.max_cond_frames)
     else:
         slot = frame_idx % spec.noncond_ring
-        bank["noncond_feats"][:, slot] = maskmem_feats.to(bank["noncond_feats"].dtype)
+        put("noncond_feats", slot, maskmem_feats)
         if kcache is not None:
-            bank["kcache"][:, spec.max_cond_frames + slot] = kcache.to(bank["kcache"].dtype)
-        bank["noncond_frame_idx"][:, slot] = frame_idx
+            put("kcache", spec.max_cond_frames + slot, kcache)
+        put("noncond_frame_idx", slot, frame)
         pslot = frame_idx % spec.ptr_ring
-        bank["ptr_ring"][:, pslot] = obj_ptr.to(bank["ptr_ring"].dtype)
-        bank["ptr_frame_idx"][:, pslot] = frame_idx
+        put("ptr_ring", pslot, obj_ptr)
+        put("ptr_frame_idx", pslot, frame)
     return bank
 
 
@@ -204,3 +244,47 @@ def read_ptrs(spec: BankSpec, bank, frame_idx: int, obj_ptrs_in_past_only: bool 
     ptr_tokens = all_ptrs.reshape(B, spec.num_ptr_slots * tok, D)
     ptr_valid = all_valid.repeat_interleave(tok, dim=1)
     return ptr_tokens, ptr_valid, ptr_tdiff
+
+
+def read_bank(spec: BankSpec, bank, frame_idx: int, maskmem_tpos_enc, spatial_pos,
+              obj_ptrs_in_past_only: bool = False, num_frames: int = 2 ** 30):
+    """Read-order memory for cross-attention at ``frame_idx``
+    (``memory_bank.read_bank``, ``sam2_base.py:494-635``), forward tracking:
+    the cond slots, then the stride-r non-cond targets gathered from the ring,
+    then the object-pointer tokens. maskmem_tpos_enc [num_maskmem, D];
+    spatial_pos [P, D].
+
+    Returns (memory [B, T, D], memory_pos [B, T, D], valid [B, T] bool,
+    num_obj_ptr_tokens, ptr_tdiff [B, num_ptr_slots]); T = Fa * P + the
+    pointer tokens. The gathers are differentiable: gradients reach the
+    memories of earlier frames."""
+    P, D = spec.mem_spatial, spec.mem_dim
+    B = bank["cond_feats"].shape[0]
+    dev = bank["cond_feats"].device
+    Mc = spec.max_cond_frames
+    cond_valid = bank["cond_frame_idx"] >= 0                              # [B, Mc]
+    cond_tpos = maskmem_tpos_enc[spec.num_maskmem - 1]                    # [D]
+    targets_np = _noncond_target_frames(spec, frame_idx)                  # [F]
+    slots = torch.from_numpy(np.remainder(np.clip(targets_np, 0, None),
+                                          spec.noncond_ring)).to(dev)
+    targets = torch.from_numpy(targets_np).to(dev)
+    nc_feats = bank["noncond_feats"].index_select(1, slots)               # [B, F, P, D]
+    stored = bank["noncond_frame_idx"].index_select(1, slots).long()
+    nc_valid = (stored == targets[None]) & (targets >= 0)[None]
+    # t_pos k takes embedding num_maskmem - k - 1 (sam2_base.py:577-579)
+    tpos_idx = spec.num_maskmem - torch.arange(1, spec.num_maskmem, device=dev) - 1
+    tpos = torch.cat([cond_tpos[None].expand(Mc, D), maskmem_tpos_enc[tpos_idx]], dim=0)
+
+    Fa = spec.num_frames_attended
+    memory_sp = torch.cat([bank["cond_feats"], nc_feats], dim=1).reshape(B, Fa * P, D)
+    pos_sp = (spatial_pos[None] + tpos[:, None]).reshape(1, Fa * P, D)
+    pos_sp = pos_sp.expand(B, Fa * P, D).to(memory_sp.dtype)
+    valid_sp = torch.cat([cond_valid, nc_valid], dim=1).repeat_interleave(P, dim=1)
+
+    ptr_tokens, ptr_valid, ptr_tdiff = read_ptrs(
+        spec, bank, frame_idx, obj_ptrs_in_past_only=obj_ptrs_in_past_only,
+        num_frames=num_frames)
+    memory = torch.cat([memory_sp, ptr_tokens.to(memory_sp.dtype)], dim=1)
+    memory_pos = torch.cat([pos_sp, pos_sp.new_zeros(B, spec.num_ptr_tokens, D)], dim=1)
+    valid = torch.cat([valid_sp, ptr_valid], dim=1)
+    return memory, memory_pos, valid, spec.num_ptr_tokens, ptr_tdiff

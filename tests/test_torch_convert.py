@@ -63,7 +63,7 @@ def test_state_dict_from_jax_matches_export_and_loads_strict(cfg):
         assert got[k].shape == want[k].shape, k
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
-    model = SAM2Model(_port_config(cfg), seed=1)
+    model = SAM2Model(_port_config(cfg), seed=1, device="cpu")
     own = model.state_dict()
     assert sorted(own) == sorted(got)
     for k in got:
@@ -74,7 +74,7 @@ def test_state_dict_from_jax_matches_export_and_loads_strict(cfg):
 
 
 def test_load_rejects_missing_and_unexpected_keys():
-    model = SAM2Model(TINY, seed=0)
+    model = SAM2Model(TINY, seed=0, device="cpu")
     sd = {k: v.numpy() for k, v in model.state_dict().items()}
     extra = dict(sd, **{"not_a_key": np.zeros(1, np.float32)})
     with pytest.raises(RuntimeError):
@@ -85,8 +85,8 @@ def test_load_rejects_missing_and_unexpected_keys():
 
 
 def test_seeded_init_is_reproducible_and_in_jax_ranges():
-    a = SAM2Model(TINY, seed=3).state_dict()
-    b = SAM2Model(TINY, seed=3).state_dict()
+    a = SAM2Model(TINY, seed=3, device="cpu").state_dict()
+    b = SAM2Model(TINY, seed=3, device="cpu").state_dict()
     for k in a:
         assert torch.equal(a[k], b[k]), k
     # fan-in uniform linears, trunc-normal(0.02) tables, as the JAX init

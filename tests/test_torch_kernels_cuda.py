@@ -84,6 +84,99 @@ def test_flash_kernel_matches_twin(dev, dtype, case):
         assert got[0].abs().max().item() == 0.0
 
 
+BWD_CASES = [
+    # (B, H, Nq, Nk, D, Dv, mask); (D, Dv) in the two built pairs
+    (1, 1, 128, 300, 256, 64, "random"),      # ragged Nk, low-rank values
+    (2, 1, 100, 77, 256, 256, "row0_dead"),   # ragged both, batch 0 fully masked
+    (1, 1, 1024, 1024, 256, 256, None),       # memory self-attention @512
+    (2, 1, 1024, 10316, 256, 64, "stale"),    # memory cross-attention @512, training
+]
+# gradients are held relative to their largest |value|: fp32 as tight as the
+# JAX package's grad test (5e-5), bf16 against the twin run on the same bf16
+# values with the same roundings of P and dS, so only summation order and the
+# final bf16 rounding of the gradient differ
+TOL_GRAD_F32 = 5e-5
+TOL_GRAD_BF16 = 1e-2
+
+
+def _bwd_mask(rng, B, Nk, kind, dev):
+    if kind is None:
+        return None
+    m = rng.random((B, Nk)) > 0.3
+    if kind == "row0_dead":
+        m[0] = False
+    elif kind == "stale":
+        m[:, 2048:4096] = False                # two stale memory frames
+        m[1, -40:] = False                     # pointer padding
+    return torch.from_numpy(m).to(dev)
+
+
+def _rel_err(got, want):
+    return ((got.float() - want.float()).abs().max() / want.float().abs().max().clamp_min(1e-6)).item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", BWD_CASES, ids=lambda c: "x".join(map(str, c[:6])))
+def test_flash_lse_and_backward_kernels_match_twins(dev, dtype, case):
+    B, H, Nq, Nk, D, Dv, kind = case
+    rng = np.random.default_rng(3)
+    q = _t(rng, (B, H, Nq, D), dev, dtype)
+    k = _t(rng, (B, H, Nk, D), dev, dtype)
+    v = _t(rng, (B, H, Nk, Dv), dev, dtype)
+    do = _t(rng, (B, H, Nq, Dv), dev, dtype)
+    mask = _bwd_mask(rng, B, Nk, kind, dev)
+    # forward with LSE (the training launch)
+    out, lse = A._flash_forward(q, k, v, mask, 1.0 / D ** 0.5, with_lse=True)
+    want_out, want_lse = A.flash_attention_lse_plain(q.float(), k.float(), v.float(), mask)
+    assert (out.float() - want_out).abs().max().item() <= _tol(want_out, dtype)
+    assert (lse - want_lse).abs().max().item() <= 1e-4 * want_lse.abs().clamp_max(1e3).max().item() + 1e-4
+    # backward pair against the twin on the same inputs, O and LSE
+    dvec = (do.float() * want_out.to(dtype).float()).sum(-1)
+    before = A.launch_counts()
+    dk, dv = A.flash_attention_bwd_dkv(q, k, v, mask, do, want_lse, dvec)
+    dq = A.flash_attention_bwd_dq(q, k, v, mask, do, want_lse, dvec)
+    torch.cuda.synchronize()
+    after = A.launch_counts()
+    assert after["flash_attention_bwd_dkv"] == before["flash_attention_bwd_dkv"] + 1
+    assert after["flash_attention_bwd_dq"] == before["flash_attention_bwd_dq"] + 1
+    wq, wk, wv = A.flash_attention_bwd_plain(q, k, v, mask, want_out.to(dtype), want_lse, do)
+    tol = TOL_GRAD_F32 if dtype == torch.float32 else TOL_GRAD_BF16
+    for name, got, want in (("dq", dq, wq), ("dk", dk, wk), ("dv", dv, wv)):
+        assert got.shape == want.shape and got.dtype == dtype
+        assert _rel_err(got, want) <= tol, (name, _rel_err(got, want))
+    if kind == "row0_dead":
+        assert dq[0].abs().max().item() == 0.0 and dk[0].abs().max().item() == 0.0
+
+
+def test_flash_autograd_launches_backward_pair(dev):
+    rng = np.random.default_rng(4)
+    q, k = (_t(rng, (1, 1, 200, 256), dev, torch.float32).requires_grad_() for _ in range(2))
+    v = _t(rng, (1, 1, 200, 64), dev, torch.float32).requires_grad_()
+    w = _t(rng, (1, 1, 200, 64), dev, torch.float32)
+    mask = torch.from_numpy(rng.random((1, 200)) > 0.2).to(dev)
+    before = A.launch_counts()
+    (A.flash_attention(q, k, v, kv_mask=mask) * w).sum().backward()
+    after = A.launch_counts()
+    assert {n: after[n] - before[n] for n in after} == {
+        "flash_attention": 1, "flash_attention_bwd_dkv": 1, "flash_attention_bwd_dq": 1,
+        "kv_cached_attention": 0}
+    got = [t.grad.clone() for t in (q, k, v)]
+    for t in (q, k, v):
+        t.grad = None
+    (A.sdpa_plain(q, k, v, kv_mask=mask) * w).sum().backward()
+    for g, t in zip(got, (q, k, v)):
+        assert _rel_err(g, t.grad) <= TOL_GRAD_F32
+
+
+def test_backward_kernels_reject_unbuilt_widths(dev):
+    z = lambda *shape: torch.zeros(shape, device=dev)  # noqa: E731
+    before = A.launch_counts()
+    with pytest.raises(ValueError, match="kernel built for"):
+        A.flash_attention_bwd_dkv(z(1, 1, 64, 96), z(1, 1, 64, 96), z(1, 1, 64, 96), None,
+                                  z(1, 1, 64, 96), z(1, 1, 64), z(1, 1, 64))
+    assert A.launch_counts() == before
+
+
 KV_CASES = [
     # (B, Nq, F, L, P, Nptr, Rr); C = 256, Dv = 64, the only widths built
     (2, 64, 4, 2, 64, 8, 5),

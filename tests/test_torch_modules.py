@@ -34,7 +34,7 @@ torch.set_num_threads(2)
 @pytest.fixture(scope="module")
 def models():
     params = JS.sam2_init(jax.random.PRNGKey(0), TINY)
-    model = SAM2Model(TINY, seed=1)
+    model = SAM2Model(TINY, seed=1, device="cpu")
     load_reference_state_dict(
         model, state_dict_from_jax(jax.tree_util.tree_map(np.asarray, params), TINY))
     return params, model

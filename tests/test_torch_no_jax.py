@@ -16,7 +16,8 @@ torch.set_num_threads(2)
 PKG = Path(medsam2_tpu_torch.__file__).parent
 ROOT = PKG.parent
 # the port's own entry points beside the package
-SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_port_propagation.py"]
+SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_port_propagation.py",
+           ROOT / "scripts" / "profile_port_train.py"]
 JAX_IMPORT = re.compile(r"^\s*(from|import)\s+(jax|medsam2_tpu)\b", re.MULTILINE)
 
 
@@ -38,6 +39,10 @@ def test_importing_every_module_leaves_jax_unloaded():
 
 
 def test_sources_have_no_jax_import_library_attention_or_compile():
+    """The package never calls a library attention kernel or
+    ``torch.compile``; ``chip_smoke.py`` may time ``F.scaled_dot_product_attention``
+    as the library yardstick beside each kernel (its ``library_ms``), and
+    nothing else."""
     banned = ("scaled_dot_product_attention", "torch.compile")
     files = [p for p in PKG.rglob("*") if p.suffix in (".py", ".cu", ".cuh")]
     assert files
@@ -45,5 +50,7 @@ def test_sources_have_no_jax_import_library_attention_or_compile():
         text = path.read_text()
         match = JAX_IMPORT.search(text)
         assert match is None, f"{path.relative_to(ROOT)} imports {match.group(2)}"
+        allowed = banned[:1] if path.name == "chip_smoke.py" else ()
         for word in banned:
-            assert word not in text, f"{path.relative_to(ROOT)} contains {word!r}"
+            if word not in allowed:
+                assert word not in text, f"{path.relative_to(ROOT)} contains {word!r}"

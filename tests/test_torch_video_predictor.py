@@ -25,7 +25,7 @@ TOL = dict(atol=1e-3, rtol=1e-3)
 @pytest.fixture(scope="module")
 def models():
     params = sam2_init(jax.random.PRNGKey(0), TINY)
-    model = SAM2Model(TINY, seed=1)
+    model = SAM2Model(TINY, seed=1, device="cpu")
     load_reference_state_dict(
         model, state_dict_from_jax(jax.tree_util.tree_map(np.asarray, params), TINY))
     return params, model
@@ -105,8 +105,6 @@ def test_out_of_scope_paths_raise(models):
     with pytest.raises(NotImplementedError):
         tp.init_state(images=video, offload_video_to_cpu=True)
     state = tp.init_state(images=video)
-    with pytest.raises(NotImplementedError):
-        tp.add_new_mask(state, 0, 1, gt[0])
     tp.add_new_points(state, 0, 1, np.array([[16.0, 28.0]]), np.array([1]))
     with pytest.raises(NotImplementedError):
         tp.propagate_in_video_batch(state, reverse=True)
@@ -114,7 +112,34 @@ def test_out_of_scope_paths_raise(models):
     assert frames == list(range(6)) and torch.isfinite(masks).all()
     with pytest.raises(NotImplementedError):      # a correction on a tracked frame
         tp.add_new_points(state, 3, 1, np.array([[20.0, 28.0]]), np.array([1]))
+    with pytest.raises(NotImplementedError):      # a mask correction, too
+        tp.add_new_mask(state, 3, 1, gt[3])
     with pytest.raises(NotImplementedError):      # resume past tracked frames
         tp.propagate_in_video_batch(state, start_frame_idx=3)
     with pytest.raises(NotImplementedError):
         propagate_volumes_batched(model, TINY)
+
+
+def test_mask_prompts_match_jax(models):
+    """``add_new_mask`` on conditioning frames (an 80-px mask resized to the
+    64-px model and re-binarised, and the empty mask that validation gives an
+    absent object) beside a click, then propagation; and ``reset_state``."""
+    video, gt = moving_square_video(T=8, size=80)
+    jp, js, tp, ts = _both(models, video)
+    previews = []
+    for p, s in ((jp, js), (tp, ts)):
+        p.add_new_mask(s, 0, obj_id=1, mask=gt[0])
+        previews.append(p.add_new_points(s, 0, obj_id=2, points=np.array([[60.0, 10.0]]),
+                                         labels=np.array([1]))[2])
+        p.add_new_mask(s, 4, obj_id=1, mask=np.zeros((80, 80), np.float32))
+        p.add_new_points(s, 4, obj_id=2, points=np.array([[60.0, 12.0]]), labels=np.array([1]))
+    np.testing.assert_allclose(previews[1].numpy(), np.asarray(previews[0]), **TOL)
+    jframes, jmasks = jp.propagate_in_video_batch(js)
+    tframes, tmasks = tp.propagate_in_video_batch(ts)
+    assert tframes == jframes == list(range(8))
+    for i in range(8):
+        np.testing.assert_allclose(tmasks[i].numpy(), np.asarray(jmasks[i]), **TOL,
+                                   err_msg=f"frame {i}")
+    tp.reset_state(ts)
+    assert ts["obj_ids"] == [] and not ts["cond_frame_idx"] and not ts["tracked"]
+    assert ts["images"].shape[0] == 8
