@@ -1,4 +1,5 @@
-"""Drive the PyTorch port's 3D propagation and 3D training on one NVIDIA GPU.
+"""Drive the PyTorch port's 3D propagation, 3D training and 2D image serving
+on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -25,13 +26,26 @@ Phases, each printing its own line:
      ``bench.py`` train_3d default): a warm-up step and 3 timed steps, finite
      losses, both groups updated, frozen tensors bit-identical, exact launch
      counts of the three training kernels, seconds per step, frames per
-     second, peak memory.
+     second, peak memory;
+  8. the Hiera encoder kernels (window attention and its rank-3 form, fused
+     LN-MLP, fused window block) against their twins at the hiera_t @1024
+     shapes, bf16 and fp32, with kernel, twin, library and bound times;
+  9. sam2_hiera_t @512 fp32 (TF32 off), the three encoder switches on:
+     ``SAM2ImagePredictor.set_image`` + ``predict`` (points, box) on the card
+     against the same seeded model on the CPU, low-res logits to 1e-3;
+  10. sam2_hiera_t @1024 bf16 image serving: ``set_image`` with the switches
+     off and on (the A/B), ``predict``, the 64-prompt grid decode (masks/s),
+     ``SAM2AutomaticMaskGenerator.generate`` at 32 points per side with the
+     default and the loaded thresholds and its stage split, peak memory, and
+     the exact launch counts of one ``set_image`` with the switches on.
 Then one JSON line of per-kernel results, the card's name and power limit,
 and, last, the device line. Any failure raises and exits non-zero; without a
 CUDA device nothing runs.
 """
 
+import contextlib
 import json
+import os
 import re
 import subprocess
 import sys
@@ -45,11 +59,16 @@ if not torch.cuda.is_available():
 
 import torch.nn.functional as F  # noqa: E402
 
+from medsam2_tpu_torch.api import automatic_mask_generator as amg_api  # noqa: E402
+from medsam2_tpu_torch.api.image_predictor import SAM2ImagePredictor  # noqa: E402
 from medsam2_tpu_torch.api.video_predictor import SAM2VideoPredictor  # noqa: E402
 from medsam2_tpu_torch.configs import sam2_hiera_t  # noqa: E402
 from medsam2_tpu_torch.core.sam2_model import TRAINABLE_GROUPS, SAM2Model  # noqa: E402
 from medsam2_tpu_torch.ops import _build  # noqa: E402
 from medsam2_tpu_torch.ops import attention as A  # noqa: E402
+from medsam2_tpu_torch.ops import fused_block as FB  # noqa: E402
+from medsam2_tpu_torch.ops import fused_mlp as FM  # noqa: E402
+from medsam2_tpu_torch.ops import window_attention as WA  # noqa: E402
 from medsam2_tpu_torch.train import recipe_3d  # noqa: E402
 
 DEV = torch.device("cuda")
@@ -78,7 +97,19 @@ KERNELS = {
                                    replaces="medsam2_tpu/ops/attention.py:271"),
     "kv_cached_attention": dict(source="medsam2_tpu_torch/csrc/kv_cached_attention.cu",
                                 replaces="medsam2_tpu/ops/attention.py:454"),
+    "window_attention": dict(source="medsam2_tpu_torch/csrc/window_attention.cu",
+                             replaces="medsam2_tpu/ops/window_attention.py:45"),
+    # B6 has its own Pallas kernel; the port serves it with B5's CUDA kernel
+    # (launches counted under window_attention), and no path calls it
+    "window_attention_v2": dict(source="medsam2_tpu_torch/csrc/window_attention.cu",
+                                replaces="medsam2_tpu/ops/window_attention.py:85"),
+    "fused_mlp": dict(source="medsam2_tpu_torch/csrc/fused_mlp.cu",
+                      replaces="medsam2_tpu/ops/fused_mlp.py:58"),
+    "fused_block": dict(source="medsam2_tpu_torch/csrc/fused_block.cu",
+                        replaces="medsam2_tpu/ops/fused_block.py:90"),
 }
+ENCODER_SWITCHES = ("MEDSAM2_FUSED_BLOCK", "MEDSAM2_FUSED_WINDOW", "MEDSAM2_FUSED_MLP")
+NO_ENCODER_LAUNCHES = {"window_attention": 0, "fused_mlp": 0, "fused_block": 0}
 
 
 def tolerance(want: torch.Tensor, dtype) -> float:
@@ -434,7 +465,7 @@ def phase_full_width(power_line: str):
     n_layers = cfg.memory_attention.num_layers
     want = {"flash_attention": n_global * encoded + n_layers * tracked,
             "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0,
-            "kv_cached_attention": n_layers * tracked}
+            "kv_cached_attention": n_layers * tracked, **NO_ENCODER_LAUNCHES}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     finite = bool(torch.isfinite(masks).all())
     shape_ok = tuple(masks.shape) == (T, 1, 1, 256, 256) and frames == list(range(T))
@@ -484,7 +515,7 @@ def train_launches(cfg, rcfg) -> dict:
     bwd = tracked * 2 * L + tracked * (2 * L - 1)
     return {"flash_attention": len(cfg.trunk.global_att_blocks) * T + tracked * 2 * L,
             "flash_attention_bwd_dkv": bwd, "flash_attention_bwd_dq": bwd,
-            "kv_cached_attention": 0}
+            "kv_cached_attention": 0, **NO_ENCODER_LAUNCHES}
 
 
 def train_grads(model):
@@ -587,6 +618,270 @@ def phase_train_full_width(power_line: str):
     return counts
 
 
+@contextlib.contextmanager
+def encoder_switches(value: str):
+    """Set the three encoder switches to ``value`` for a block of code."""
+    saved = {k: os.environ.get(k) for k in ENCODER_SWITCHES}
+    os.environ.update({k: value for k in ENCODER_SWITCHES})
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def linear_params(rng, out_dim, in_dim, dtype):
+    """A torch Linear's weight and bias at its fan-in init scale."""
+    b = in_dim ** -0.5
+    return (torch.from_numpy(rng.uniform(-b, b, (out_dim, in_dim)).astype(np.float32)).to(DEV, dtype),
+            torch.from_numpy(rng.uniform(-b, b, out_dim).astype(np.float32)).to(DEV, dtype))
+
+
+def block_params(rng, C, dtype):
+    g1, g2 = (1 + 0.1 * rand(rng, (C,), dtype) for _ in range(2))
+    b1, b2 = (0.1 * rand(rng, (C,), dtype) for _ in range(2))
+    wq, bq = linear_params(rng, 3 * C, C, dtype)
+    wp, bp = linear_params(rng, C, C, dtype)
+    w1, bm1 = linear_params(rng, 4 * C, C, dtype)
+    w2, bm2 = linear_params(rng, C, 4 * C, dtype)
+    return FB.BlockParams(g1, b1, wq, bq, wp, bp, g2, b2, w1, bm1, w2, bm2)
+
+
+def _check(name, label, dtype, got, want, ms, plain_ms, lib_ms, bnd, best, main):
+    err = (got.float() - want.float()).abs().max().item()
+    tol = tolerance(want.float(), dtype)
+    ok = err <= tol and bool(torch.isfinite(got).all())
+    lib = f"{lib_ms:.3f} ms" if lib_ms is not None else "none"
+    print(f"[8 encoder kernel] {name} {label} {dtype} max_abs_err {err:.3e} (tol {tol:.3e}) "
+          f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms library {lib} bound {bnd[0]:.4f} ms "
+          f"({bnd[1]}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name} {label} {dtype}: err {err} (tol {tol})")
+    if dtype == torch.bfloat16 and main:
+        best[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bnd[0],
+                          bound_by=bnd[1], library_ms=lib_ms)
+
+
+def phase_encoder_kernels():
+    """Phase 8: B5/B6, B7 and B8 against their twins at the hiera_t @1024
+    shapes. Returns the bf16 main-shape results per kernel."""
+    rng = np.random.default_rng(8)
+    best = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        set_tf32(False)
+        it = 2 if dtype == torch.bfloat16 else 4
+        # B5 / B6: blocks 4/6/8 (64 -> 70, ws 14, 4 heads) and 11 (32 -> 35,
+        # ws 7, 8 heads); d 96
+        for (Hp, heads, ws, main) in ((70, 4, 14, True), (35, 8, 7, False)):
+            C = 96 * heads
+            qkv = rand(rng, (1, Hp, Hp, 3 * C), dtype)
+            want = WA.window_attention_plain(qkv.float(), heads, ws)
+            nw, n = (Hp // ws) ** 2, ws * ws
+            q, k, v = qkv.reshape(1, Hp // ws, ws, Hp // ws, ws, 3, heads, 96).permute(
+                5, 0, 1, 3, 6, 2, 4, 7).reshape(3, nw, heads, n, 96).unbind(0)
+            q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), reps=20)
+            bnd = bound(4.0 * nw * heads * n * n * 96, it * Hp * Hp * 4 * C, dtype)
+            plain_ms = cuda_ms(lambda: WA.window_attention_plain(qkv, heads, ws), reps=5)
+            for name, fn in (("window_attention", WA.window_attention),
+                             ("window_attention_v2", WA.window_attention_v2)):
+                got = fn(qkv, heads, ws)
+                ms = cuda_ms(lambda: fn(qkv, heads, ws), reps=20)
+                _check(name, f"[1,{Hp},{Hp},{3 * C}] ws {ws} heads {heads}", dtype, got, want,
+                       ms, plain_ms, lib_ms, bnd, best, main)
+            del qkv, q, k, v, want
+        # B7: the MLP tails of hiera_t @1024 (rows x C, hidden 4C), and a
+        # ragged row count
+        for N, C, main in ((16384, 192, True), (65536, 96, False), (4096, 384, False),
+                           (1024, 768, False), (1000, 96, False)):
+            x = rand(rng, (N, C), dtype)
+            g, b = 1 + 0.1 * rand(rng, (C,), dtype), 0.1 * rand(rng, (C,), dtype)
+            (w1, b1), (w2, b2) = linear_params(rng, 4 * C, C, dtype), linear_params(rng, C, 4 * C, dtype)
+            args = (x, g, b, w1, b1, w2, b2)
+            got = FM.ln_mlp_residual(*args)
+            want = FM.ln_mlp_residual_plain(*args)
+            ms = cuda_ms(lambda: FM.ln_mlp_residual(*args), reps=20)
+            plain_ms = cuda_ms(lambda: FM.ln_mlp_residual_plain(*args), reps=5)
+            bnd = bound(16.0 * N * C * C, it * (2 * N * C + 8 * C * C + 7 * C), dtype)
+            _check("fused_mlp", f"{N}x{C}x{4 * C}", dtype, got, want, ms, plain_ms, None, bnd,
+                   best, main)
+            del x, args, got, want
+        # B8: blocks 0 (ws 8, C 96, 1 head) and 2 (ws 4, C 192, 2 heads) @1024,
+        # and a ragged 64-row group (5 ws-4 windows)
+        for Bn, ws, C, main in ((1024, 8, 96, True), (1024, 4, 192, False), (5, 4, 192, False)):
+            wins = rand(rng, (Bn, ws, ws, C), dtype)
+            p = block_params(rng, C, dtype)
+            heads = C // 96
+            N, n = Bn * ws * ws, ws * ws
+            got = FB.fused_window_block(wins, p, heads)
+            want = FB.fused_window_block_plain(wins.reshape(-1, C), p, heads, n).reshape(wins.shape)
+            ms = cuda_ms(lambda: FB.fused_window_block(wins, p, heads), reps=20)
+            plain_ms = cuda_ms(lambda: FB.fused_window_block_plain(wins.reshape(-1, C), p, heads,
+                                                                   n), reps=5)
+            bnd = bound(2.0 * N * C * 12 * C + 4.0 * N * n * C,
+                        it * (2 * N * C + 12 * C * C + 13 * C), dtype)
+            _check("fused_block", f"N {N} C {C} ws {ws} heads {heads}", dtype, got, want, ms,
+                   plain_ms, None, bnd, best, main)
+            del wins, p, got, want
+    torch.cuda.empty_cache()
+    return best
+
+
+def test_image(size: int, seed: int) -> np.ndarray:
+    """bench.py's AMG image: 24 flat-coloured discs over black, plus noise."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:size, 0:size]
+    img = np.zeros((size, size, 3), np.float32)
+    for _ in range(24):
+        cy, cx = rng.integers(0, size, 2)
+        r = rng.integers(size // 50, size // 8)
+        blob = ((yy - cy) ** 2 + (xx - cx) ** 2 < r * r)[..., None]
+        img = np.where(blob, rng.random(3, np.float32) * 255, img)
+    return np.clip(img + rng.normal(0, 8, img.shape), 0, 255).astype(np.uint8)
+
+
+IMAGE_PROMPTS = {"points": dict(point_coords=np.array([[200.0, 150.0], [260.0, 300.0]]),
+                                point_labels=np.array([1, 0])),
+                 "box": dict(box=np.array([60, 80, 300, 280]), multimask_output=False)}
+
+
+def phase_image_parity():
+    """Phase 9: the image predictor @512 fp32 with the encoder switches on,
+    card (kernels) against the same seeded model on the CPU (twins)."""
+    cfg = sam2_hiera_t(image_size=512, compute_dtype="float32")
+    img = test_image(400, seed=9)[:, :360]           # 400 x 360, resized to 512
+    set_tf32(False)
+    outs = {}
+    with encoder_switches("1"):
+        for dev in (DEV, torch.device("cpu")):
+            pred = SAM2ImagePredictor(SAM2Model(cfg, seed=0, device=dev))
+            A.reset_launch_counts()
+            t0 = time.perf_counter()
+            pred.set_image(img)
+            counts = A.launch_counts()
+            res = {k: pred.predict(**kw) for k, kw in IMAGE_PROMPTS.items()}
+            outs[dev.type] = (res, counts, time.perf_counter() - t0)
+            del pred
+    (cres, counts, tc), (pres, _, tp) = outs["cuda"], outs["cpu"]
+    want = {**{k: 0 for k in counts}, "flash_attention": 3, "window_attention": 4,
+            "fused_mlp": 10, "fused_block": 2}
+    errs = {k: max(np.abs(cres[k][2] - pres[k][2]).max(), np.abs(cres[k][1] - pres[k][1]).max())
+            for k in IMAGE_PROMPTS}
+    ok = max(errs.values()) <= 1e-3 and counts == want and all(
+        np.isfinite(cres[k][2]).all() for k in IMAGE_PROMPTS)
+    print(f"[9 image parity] sam2_hiera_t @512 fp32 TF32 off, switches on: set_image + predict "
+          f"(points, box) cuda (kernels, launches {counts}) vs cpu (twins): low-res logits and "
+          f"IoU max_abs_err {errs} (tol 1e-3) | cuda {tc:.1f} s cpu {tp:.1f} s "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"image parity: errs {errs}, launches {counts} vs {want}")
+
+
+def _sync_s(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def timed_generate(gen, img):
+    """generate() with its stage split: encode (set_image), decode + score
+    (the point batches, synchronised), and the rest (host filters, NMS, the
+    survivors' pull, RLE and output)."""
+    spent = {"encode": 0.0, "decode_score": 0.0}
+    pred = gen.predictor
+    orig_set, orig_batch = pred.set_image, gen._decode_score_batch
+
+    def set_image(image):
+        dt, _ = _sync_s(lambda: orig_set(image))
+        spent["encode"] += dt
+
+    def batch(*a):
+        dt, out = _sync_s(lambda: orig_batch(*a))
+        spent["decode_score"] += dt
+        return out
+
+    pred.set_image, gen._decode_score_batch = set_image, batch
+    try:
+        total, anns = _sync_s(lambda: gen.generate(img))
+    finally:
+        pred.set_image, gen._decode_score_batch = orig_set, orig_batch
+    spent["host"] = total - spent["encode"] - spent["decode_score"]
+    return total, spent, anns
+
+
+def phase_image_full_width(power_line: str):
+    """Phase 10: hiera_t @1024 bf16 image serving. Returns the launch counts
+    of one set_image + predict with the switches on."""
+    cfg = sam2_hiera_t()
+    set_tf32(False)
+    model = SAM2Model(cfg, seed=0, device=DEV)
+    pred = SAM2ImagePredictor(model)
+    img = test_image(1024, seed=0)
+    # set_image A/B, switches off / on / on / off, 5 calls each after a warm-up
+    times = {"0": [], "1": []}
+    for value in ("0", "1", "1", "0"):
+        with encoder_switches(value):
+            pred.set_image(img)
+            for _ in range(5):
+                times[value].append(_sync_s(lambda: pred.set_image(img))[0] * 1e3)
+    off_ms, on_ms = float(np.median(times["0"])), float(np.median(times["1"]))
+    with encoder_switches("1"):
+        torch.cuda.reset_peak_memory_stats()
+        A.reset_launch_counts()
+        pred.set_image(img)
+        masks, ious, low = pred.predict(**IMAGE_PROMPTS["points"])
+        torch.cuda.synchronize()
+        counts = A.launch_counts()
+        peak_predictor = torch.cuda.max_memory_allocated() / 2 ** 30
+        predict_ms = float(np.median([_sync_s(lambda: pred.predict(**IMAGE_PROMPTS["points"]))[0]
+                                      for _ in range(10)])) * 1e3
+        # bench.py's 2d workload: one multimask decode of 64 single-point prompts
+        rng = np.random.default_rng(0)
+        coords = torch.from_numpy(rng.random((64, 1, 2)).astype(np.float32) * 1024).to(DEV)
+        labels = torch.ones(64, 1, dtype=torch.int32, device=DEV)
+
+        def decode():
+            with torch.no_grad():
+                lo, io = amg_api._decode_point_grid(model, pred._features, coords, labels)
+            return float(io.sum())
+
+        decode()
+        decode_s = min(_sync_s(decode)[0] for _ in range(5))
+        # generate at 32 points per side: default and loaded thresholds
+        gens = {"default": amg_api.SAM2AutomaticMaskGenerator(model, points_per_side=32),
+                "loaded": amg_api.SAM2AutomaticMaskGenerator(
+                    model, points_per_side=32, pred_iou_thresh=0.0, stability_score_thresh=0.0)}
+        gens["default"].generate(img)                # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        gen_res = {k: timed_generate(g, img) for k, g in gens.items()}
+        peak_amg = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = {**{k: 0 for k in counts}, "flash_attention": len(cfg.trunk.global_att_blocks),
+            "window_attention": 4, "fused_mlp": 10, "fused_block": 2}
+    finite = bool(np.isfinite(low).all()) and masks.shape == (3, 1024, 1024)
+    loaded_n = len(gen_res["loaded"][2])
+    ok = counts == want and finite and loaded_n > 0
+    gen_txt = " | ".join(
+        f"generate {k} {t:.3f} s ({len(a)} masks; encode {sp['encode']:.3f} decode+score "
+        f"{sp['decode_score']:.3f} host filter+NMS+RLE {sp['host']:.3f} s)"
+        for k, (t, sp, a) in gen_res.items())
+    print(f"[10 image full width] sam2_hiera_t @1024 bf16 | set_image switches off "
+          f"{off_ms:.2f} ms on {on_ms:.2f} ms (median of 10 each, off/on/on/off) | predict "
+          f"{predict_ms:.2f} ms | 2d decode 64 points x 3 masks {decode_s * 1e3:.2f} ms = "
+          f"{64 * 3 / decode_s:.1f} masks/s | {gen_txt} | launches per set_image + predict "
+          f"{counts} expected {want} | peak memory set_image+predict {peak_predictor:.2f} GiB, "
+          f"generate {peak_amg:.2f} GiB | {power_line} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"image full width: launches {counts} vs {want}, finite {finite}, "
+                             f"loaded masks {loaded_n}")
+    return counts
+
+
+
 def main() -> None:
     power_line = phase_device()
     phase_build()
@@ -596,9 +891,12 @@ def main() -> None:
     paths = {"propagation": phase_full_width(power_line)}
     phase_train_parity()
     paths["training"] = phase_train_full_width(power_line)
+    best.update(phase_encoder_kernels())
+    phase_image_parity()
+    paths["2d serving"] = phase_image_full_width(power_line)
     rows = []
     for name in KERNELS:
-        by_path = {p: c[name] for p, c in paths.items() if c[name]}
+        by_path = {p: c[name] for p, c in paths.items() if c.get(name)}
         rows.append(dict(name=name, route="cuda", **KERNELS[name],
                          launches=sum(by_path.values()), launches_by_path=by_path,
                          **best[name]))

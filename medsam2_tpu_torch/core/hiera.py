@@ -9,18 +9,47 @@ relayouts (width-folded / space-to-depth patch embed, split qkv, dot6d window
 attention, chained window layout) are exact rewrites of this same math for
 TPU tile layouts and have no counterpart here. Global-attention blocks reach
 the flash kernel through :func:`medsam2_tpu_torch.ops.attention.attention`.
+
+The encoder kernels sit behind the JAX package's switches, all off by
+default, and run where its default dispatch (chained windows on,
+``hiera.py:286-370``) runs them:
+
+- ``MEDSAM2_FUSED_BLOCK=1``: a plain windowed block (no q-pooling, no dim
+  change) whose extent divides its window size runs whole as the fused block
+  (:mod:`~medsam2_tpu_torch.ops.fused_block`) on its window partition;
+- ``MEDSAM2_FUSED_WINDOW=1``: a plain windowed block that needs padding takes
+  its attention from :func:`~medsam2_tpu_torch.ops.window_attention.window_attention`
+  on the padded qkv (the normed input is zero-padded before the qkv linear,
+  so padded tokens carry qkv = bias and attend, as in the partition path);
+- ``MEDSAM2_FUSED_MLP=1``: every other block's ``x + mlp(norm2(x))`` tail is
+  :func:`~medsam2_tpu_torch.ops.fused_mlp.ln_mlp_residual`.
+
+On the card a switched-on kernel launches; on the CPU the same call runs its
+plain twin.
 """
 
 from __future__ import annotations
 
+import os
 from typing import List, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from medsam2_tpu_torch.configs import HieraConfig
 from medsam2_tpu_torch.core import layers
+from medsam2_tpu_torch.ops import fused_block, fused_mlp
 from medsam2_tpu_torch.ops.attention import attention
+from medsam2_tpu_torch.ops.window_attention import window_attention
+
+
+def _use_fused_window(window_size: int, q_stride) -> bool:
+    """``MEDSAM2_FUSED_WINDOW=1`` sends windowed blocks without q-pooling to
+    the window-attention kernel (``hiera._use_fused_window``; its default
+    list of window sizes is empty, so only "1" turns it on)."""
+    return (os.environ.get("MEDSAM2_FUSED_WINDOW", "auto") == "1" and window_size > 0
+            and q_stride is None)
 
 
 class MultiScaleAttention(nn.Module):
@@ -64,9 +93,33 @@ class MultiScaleBlock(nn.Module):
         out = out.transpose(1, 2).reshape(B, H, W, dim_out)
         return self.attn.proj(out)
 
+    def fused_params(self) -> fused_block.BlockParams:
+        fc1, fc2 = self.mlp.layers
+        return fused_block.BlockParams(
+            self.norm1.weight, self.norm1.bias, self.attn.qkv.weight, self.attn.qkv.bias,
+            self.attn.proj.weight, self.attn.proj.bias, self.norm2.weight, self.norm2.bias,
+            fc1.weight, fc1.bias, fc2.weight, fc2.bias)
+
+    def _mlp_tail(self, x):
+        """``x + mlp(norm2(x))``, through the fused kernel when switched on."""
+        if fused_mlp.fused_mlp_enabled():
+            fc1, fc2 = self.mlp.layers
+            return fused_mlp.ln_mlp_residual(x, self.norm2.weight, self.norm2.bias, fc1.weight,
+                                             fc1.bias, fc2.weight, fc2.bias, self.norm2.eps)
+        return x + self.mlp(self.norm2(x))
+
     def forward(self, x):
         spec = self.spec
         window_size, q_stride = spec["window_size"], spec["q_stride"]
+        H, W = x.shape[1], x.shape[2]
+        divides = window_size > 0 and H % window_size == 0 and W % window_size == 0
+        if divides and fused_block.fused_block_enabled():
+            wins, _ = layers.window_partition(x, window_size)
+            if fused_block.fused_window_block_supported(spec, tuple(wins.shape)):
+                out = fused_block.fused_window_block(wins, self.fused_params(), spec["num_heads"],
+                                                     self.norm1.eps)
+                return layers.window_unpartition(out, window_size, (H, W), (H, W))
+
         shortcut = x
         x = self.norm1(x)
         if spec["dim"] != spec["dim_out"]:
@@ -74,7 +127,13 @@ class MultiScaleBlock(nn.Module):
             if q_stride is not None:
                 shortcut = layers.max_pool2d(shortcut, q_stride, q_stride)
 
-        pad_hw = (x.shape[1], x.shape[2])
+        if window_size > 0 and not divides and _use_fused_window(window_size, q_stride):
+            ph, pw = (-H) % window_size, (-W) % window_size
+            qkv = self.attn.qkv(F.pad(x, (0, 0, 0, pw, 0, ph)))
+            out = window_attention(qkv, spec["num_heads"], window_size)[:, :H, :W]
+            return self._mlp_tail(shortcut + self.attn.proj(out))
+
+        pad_hw = (H, W)
         if window_size > 0:
             x, pad_hw = layers.window_partition(x, window_size)
         x = self._attention(x)
@@ -90,8 +149,7 @@ class MultiScaleBlock(nn.Module):
         if window_size > 0:
             x = layers.window_unpartition(x, out_ws, pad_hw, (H, W))
 
-        x = shortcut + x
-        return x + self.mlp(self.norm2(x))
+        return self._mlp_tail(shortcut + x)
 
 
 class PatchEmbed(nn.Module):

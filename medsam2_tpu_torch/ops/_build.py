@@ -111,4 +111,13 @@ def load_library() -> ctypes.CDLL:
     fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp,
                    i, i, i, i, i, i, i, i, i, i, f, i, vp]
     fn.restype = i
+    fn = lib.medsam2_window_attention_fwd
+    fn.argtypes = [vp, vp, i, i, i, i, i, i, f, i, vp]
+    fn.restype = i
+    fn = lib.medsam2_fused_mlp_fwd
+    fn.argtypes = [vp] * 8 + [i, i, i, f, i, vp]
+    fn.restype = i
+    fn = lib.medsam2_fused_block_fwd
+    fn.argtypes = [vp] * 14 + [i, i, i, i, f, i, vp]
+    fn.restype = i
     return lib

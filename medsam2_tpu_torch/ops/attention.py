@@ -128,11 +128,11 @@ def flash_attention_bwd_plain(q, k, v, kv_mask, o, lse, do, scale=None):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """Contiguous with a 16-byte aligned base (the kernels load 16-byte
-    vectors)."""
+def _aligned(t: torch.Tensor, align: int = 16) -> torch.Tensor:
+    """Contiguous with an ``align``-byte aligned base (the kernels load
+    16-byte vectors; WMMA tiles read from device memory need 32 bytes)."""
     t = t.contiguous()
-    if t.data_ptr() % 16:
+    if t.data_ptr() % align:
         t = t.clone()
     return t
 
@@ -149,6 +149,14 @@ def _dtype_code(t: torch.Tensor, name: str) -> int:
 def _raise_on_error(rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc} at launch")
+
+
+def _forward_only(name: str, *tensors) -> None:
+    """Raise when a gradient would be taken through a kernel that has no
+    backward."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name} is forward only (no backward kernel); run it under "
+                           "torch.no_grad() or with frozen inputs")
 
 
 def _flash_shapes(q, k, v, name: str):
@@ -398,18 +406,28 @@ def kv_cached_attention(q, kcache, pos_rows, row_of_slot, ptr_k, v_slots,
 # Launch counts: each wrapper adds one where it launches its kernel.
 _COUNTED = (flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dq,
             kv_cached_attention)
+for _fn in _COUNTED:
+    _fn.launches = 0
+
+
+def _counted() -> dict:
+    """{name: the function carrying the count}, every kernel of the port
+    (the encoder kernels' modules import this one, so they load here)."""
+    from medsam2_tpu_torch.ops import fused_block, fused_mlp, window_attention
+
+    return {**{fn.__name__: fn for fn in _COUNTED},
+            "window_attention": window_attention.window_attention,
+            "fused_mlp": fused_mlp.ln_mlp_residual,
+            "fused_block": fused_block.fused_window_block}
 
 
 def reset_launch_counts() -> None:
-    for fn in _COUNTED:
+    for fn in _counted().values():
         fn.launches = 0
 
 
 def launch_counts() -> dict:
-    return {fn.__name__: fn.launches for fn in _COUNTED}
-
-
-reset_launch_counts()
+    return {name: fn.launches for name, fn in _counted().items()}
 
 
 def _use_flash(q: torch.Tensor, kv_len: int, head_dim: int) -> bool:

@@ -1,0 +1,143 @@
+"""A whole plain windowed Hiera block in one kernel (counterpart of
+``medsam2_tpu/ops/fused_block.py``).
+
+On window-contiguous rows x [N, C] (every n = ws^2 consecutive rows one
+window, the contiguous reshape of ``window_partition``'s [Bn, ws, ws, C]):
+
+    x1  = x + proj(window_attn(qkv(LN1(x))))
+    out = x1 + mlp(LN2(x1))
+
+:func:`fused_window_block` replaces the Pallas ``_kernel``. CUDA tensors
+launch ``csrc/fused_block.cu`` (C in {96, 192}, head dim 96, 64 % n == 0);
+CPU tensors run :func:`fused_window_block_plain`. Both follow the Pallas
+kernel's arithmetic (``fused_block.py:90-132``): LN scale and bias cast to
+the input dtype, qkv rounded before its bias, fp32 softmax with the
+probabilities cast before PV, each head's output cast, the projection summed
+over heads in fp32, and the residuals rounded as ``(x + y) + b``. Its MLP
+half is :mod:`medsam2_tpu_torch.ops.fused_mlp`'s.
+
+Off by default, as in the JAX package: ``MEDSAM2_FUSED_BLOCK=1``
+(:func:`fused_block_enabled`). Forward only: it raises when a gradient
+would be taken. No fallback: a CUDA tensor reaches the kernel or the wrapper
+raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+import os
+from typing import NamedTuple
+
+import torch
+
+from medsam2_tpu_torch.core import layers
+from medsam2_tpu_torch.ops.attention import (_aligned, _check_device, _dtype_code,
+                                             _forward_only, _raise_on_error, _stream,
+                                             sdpa_plain)
+from medsam2_tpu_torch.ops.fused_mlp import _matmul_cast, ln_mlp_residual_plain
+
+# Widths csrc/fused_block.cu is instantiated for; it takes 64-row groups of
+# whole windows.
+FUSED_BLOCK_WIDTHS = (96, 192)
+FUSED_BLOCK_HEAD_DIM = 96
+_GROUP_ROWS = 64
+
+
+class BlockParams(NamedTuple):
+    """One block's weights, torch layouts (Linear weight [out, in])."""
+    norm1_weight: torch.Tensor
+    norm1_bias: torch.Tensor
+    qkv_weight: torch.Tensor     # [3C, C]
+    qkv_bias: torch.Tensor
+    proj_weight: torch.Tensor    # [C, C]
+    proj_bias: torch.Tensor
+    norm2_weight: torch.Tensor
+    norm2_bias: torch.Tensor
+    fc1_weight: torch.Tensor     # [4C, C]
+    fc1_bias: torch.Tensor
+    fc2_weight: torch.Tensor     # [C, 4C]
+    fc2_bias: torch.Tensor
+
+
+def fused_block_enabled() -> bool:
+    return os.environ.get("MEDSAM2_FUSED_BLOCK", "0") == "1"
+
+
+def _pick_rows(N: int, n: int) -> int:
+    """The JAX package's row block: a multiple of the window that divides N
+    (``fused_block._pick_rows``); 0 when there is none."""
+    for r in (1024, 512, 256, 128, 64, 32, 16):
+        if r % n == 0 and N % r == 0 and r * r * 4 <= 4 << 20:
+            return r
+    return 0
+
+
+def fused_window_block_supported(spec: dict, wins_shape) -> bool:
+    """True when the fused block covers this block, by the JAX package's
+    rule: a plain windowed block (no q-pooling, no dim change) on square
+    windows whose heads split C, with a row block that tiles the windows
+    (``fused_block.fused_window_block_supported``). The port's blocks always
+    carry the qkv / proj / MLP biases."""
+    if spec["q_stride"] is not None or spec["dim"] != spec["dim_out"]:
+        return False
+    Bn, ws, ws2, C = wins_shape
+    if ws != ws2 or C % spec["num_heads"]:
+        return False
+    return _pick_rows(Bn * ws * ws, ws * ws) != 0
+
+
+def fused_window_block_plain(x2d, p: BlockParams, num_heads: int, n: int, eps: float = 1e-6):
+    """The kernel's math in plain PyTorch on window-contiguous rows [N, C]."""
+    N, C = x2d.shape
+    dt = x2d.dtype
+    d = C // num_heads
+    normed = layers.layer_norm(x2d, p.norm1_weight.to(dt).float(),
+                               p.norm1_bias.to(dt).float(), eps)
+    qkv = _matmul_cast(normed, p.qkv_weight) + p.qkv_bias.to(dt)
+    q, k, v = qkv.reshape(N // n, n, 3, num_heads, d).permute(2, 0, 3, 1, 4)
+    heads = sdpa_plain(q, k, v, scale=1.0 / math.sqrt(d))    # [W, heads, n, d]
+    heads = heads.permute(0, 2, 1, 3).reshape(N, C)
+    acc = torch.matmul(heads.float(), p.proj_weight.to(dt).float().t())
+    x1 = (x2d + acc.to(dt)) + p.proj_bias.to(dt)
+    return ln_mlp_residual_plain(x1, p.norm2_weight, p.norm2_bias, p.fc1_weight, p.fc1_bias,
+                                 p.fc2_weight, p.fc2_bias, eps)
+
+
+def _launch(x2d, p: BlockParams, num_heads: int, n: int, eps: float):
+    N, C = x2d.shape
+    if (C not in FUSED_BLOCK_WIDTHS or C != num_heads * FUSED_BLOCK_HEAD_DIM
+            or _GROUP_ROWS % n or N % n):
+        raise ValueError(f"fused_block: kernel built for C in {FUSED_BLOCK_WIDTHS}, head dim "
+                         f"{FUSED_BLOCK_HEAD_DIM} and windows of n rows with {_GROUP_ROWS} % n "
+                         f"== 0, got C={C}, {num_heads} heads, n={n}, N={N}")
+    if p.fc1_weight.shape != (4 * C, C):
+        raise ValueError(f"fused_block: MLP hidden width {p.fc1_weight.shape[0]} != 4C")
+    code = _dtype_code(x2d, "fused_block")
+    params = [_aligned(t.detach().to(device=x2d.device, dtype=x2d.dtype), 32) for t in p]
+    x = _aligned(x2d, 32)
+    out = torch.empty_like(x)
+    from medsam2_tpu_torch.ops._build import load_library
+
+    rc = load_library().medsam2_fused_block_fwd(
+        x.data_ptr(), *(t.data_ptr() for t in params), out.data_ptr(), N, C, num_heads, n,
+        ctypes.c_float(eps), code, _stream(x2d))
+    _raise_on_error(rc, "fused_block")
+    fused_window_block.launches += 1
+    return out
+
+
+def fused_window_block(wins, p: BlockParams, num_heads: int, eps: float = 1e-6):
+    """One plain windowed block on partitioned windows [Bn, ws, ws, C]
+    (the caller checks :func:`fused_window_block_supported`)."""
+    _forward_only("fused_block", wins, *p)
+    Bn, ws, _, C = wins.shape
+    x2d = wins.reshape(-1, C)
+    if _check_device(wins, "fused_block"):
+        y = _launch(x2d, p, num_heads, ws * ws, eps)
+    else:
+        y = fused_window_block_plain(x2d, p, num_heads, ws * ws, eps)
+    return y.reshape(wins.shape)
+
+
+fused_window_block.launches = 0

@@ -1,0 +1,94 @@
+"""Fused LayerNorm -> MLP(fc1, GELU, fc2) -> residual (counterpart of
+``medsam2_tpu/ops/fused_mlp.py``): the ``x + mlp(norm2(x))`` tail of a Hiera
+block.
+
+:func:`ln_mlp_residual` replaces the Pallas ``_kernel``. CUDA tensors launch
+``csrc/fused_mlp.cu`` (C in {96, 192, 384, 768}, hidden 4C, any row count);
+CPU tensors run :func:`ln_mlp_residual_plain`. Both follow the Pallas
+kernel's arithmetic, which differs from the unfused lowering in where it
+rounds: LN statistics in fp32 with the scale and bias cast to the input
+dtype, each matmul accumulated in fp32 and cast before its bias is added,
+GELU tanh in bf16 / erf in fp32, and the output rounded as ``(x + y) + b2``
+(``fused_mlp.py:58-75``; ``layers.linear_apply`` rounds ``x + (y + b2)``).
+
+Off by default, as in the JAX package: ``MEDSAM2_FUSED_MLP=1`` turns the
+Hiera blocks' MLP tails over to it (:func:`fused_mlp_enabled`). Forward
+only: it raises when a gradient would be taken (the JAX ``custom_vjp``
+recompute backward comes with 2D training). No fallback: a CUDA tensor
+reaches the kernel or the wrapper raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+
+import torch
+
+from medsam2_tpu_torch.core import layers
+from medsam2_tpu_torch.ops.attention import (_aligned, _check_device, _dtype_code,
+                                             _forward_only, _raise_on_error, _stream)
+
+# Channel widths csrc/fused_mlp.cu is instantiated for (hidden = 4C).
+FUSED_MLP_WIDTHS = (96, 192, 384, 768)
+
+
+def fused_mlp_enabled() -> bool:
+    return os.environ.get("MEDSAM2_FUSED_MLP", "0") == "1"
+
+
+def _matmul_cast(x, w):
+    """``x @ w.T`` accumulated in fp32 and cast to x's dtype, with the weight
+    cast to x's dtype first (the kernel's products)."""
+    return torch.matmul(x.float(), w.to(x.dtype).float().t()).to(x.dtype)
+
+
+def ln_mlp_residual_plain(x2d, gamma, beta, w1, b1, w2, b2, eps: float = 1e-6):
+    """The kernel's math in plain PyTorch. x2d [N, C]; torch Linear weights
+    w1 [H, C], w2 [C, H]."""
+    dt = x2d.dtype
+    normed = layers.layer_norm(x2d, gamma.to(dt).float(), beta.to(dt).float(), eps)
+    h = layers.gelu(_matmul_cast(normed, w1) + b1.to(dt))
+    y = _matmul_cast(h, w2)
+    return (x2d + y) + b2.to(dt)
+
+
+def _launch(x2d, gamma, beta, w1, b1, w2, b2, eps: float):
+    N, C = x2d.shape
+    H = w1.shape[0]
+    if C not in FUSED_MLP_WIDTHS or H != 4 * C:
+        raise ValueError(f"fused_mlp: kernel built for C in {FUSED_MLP_WIDTHS} with hidden 4C, "
+                         f"got C={C}, hidden {H}")
+    if w1.shape != (H, C) or w2.shape != (C, H):
+        raise ValueError(f"fused_mlp: weights {tuple(w1.shape)} / {tuple(w2.shape)} do not fit "
+                         f"C={C}, H={H}")
+    code = _dtype_code(x2d, "fused_mlp")
+    params = [_aligned(t.detach().to(device=x2d.device, dtype=x2d.dtype), 32)
+              for t in (gamma, beta, w1, b1, w2, b2)]
+    x = _aligned(x2d, 32)
+    out = torch.empty_like(x)
+    from medsam2_tpu_torch.ops._build import load_library
+
+    rc = load_library().medsam2_fused_mlp_fwd(
+        x.data_ptr(), *(t.data_ptr() for t in params), out.data_ptr(), N, C, H,
+        ctypes.c_float(eps), code, _stream(x2d))
+    _raise_on_error(rc, "fused_mlp")
+    ln_mlp_residual.launches += 1
+    return out
+
+
+def ln_mlp_residual(x, gamma, beta, w1, b1, w2, b2, eps: float = 1e-6):
+    """``(x + fc2(gelu(fc1(layer_norm(x))))) + b2`` for any leading shape
+    [..., C]: the LayerNorm's scale and bias, then the two torch Linears'
+    weights and biases (w1 [4C, C], w2 [C, 4C])."""
+    _forward_only("fused_mlp", x, gamma, beta, w1, b1, w2, b2)
+    C = x.shape[-1]
+    x2d = x.reshape(-1, C)
+    if _check_device(x, "fused_mlp"):
+        y = _launch(x2d, gamma, beta, w1, b1, w2, b2, eps)
+    else:
+        y = ln_mlp_residual_plain(x2d, gamma, beta, w1, b1, w2, b2, eps)
+    return y.reshape(x.shape)
+
+
+ln_mlp_residual.launches = 0

@@ -159,7 +159,7 @@ def test_flash_autograd_launches_backward_pair(dev):
     after = A.launch_counts()
     assert {n: after[n] - before[n] for n in after} == {
         "flash_attention": 1, "flash_attention_bwd_dkv": 1, "flash_attention_bwd_dq": 1,
-        "kv_cached_attention": 0}
+        "kv_cached_attention": 0, "window_attention": 0, "fused_mlp": 0, "fused_block": 0}
     got = [t.grad.clone() for t in (q, k, v)]
     for t in (q, k, v):
         t.grad = None
@@ -237,3 +237,106 @@ def test_kv_cached_kernel_rejects_unbuilt_widths(dev, widths):
         A.kv_cached_attention(z(B, Nq, c), z(B, F, L, P, c), z(F, L, P, c), rows,
                               z(B, Nptr, c), z(B, F, P, dv), z(B, Nptr, dv), mask, 0)
     assert A.kv_cached_attention.launches == before
+
+
+# ---------------------------------------------------------------------------
+# Hiera encoder kernels: window attention (B5/B6), fused MLP (B7), fused
+# block (B8). bf16 is held against the twin run on the same bf16 values, with
+# the same rounding points, to 1e-2 of the largest |output|; fp32 to 1e-4.
+# ---------------------------------------------------------------------------
+
+from medsam2_tpu_torch.ops import fused_block as FB  # noqa: E402
+from medsam2_tpu_torch.ops import fused_mlp as FM  # noqa: E402
+from medsam2_tpu_torch.ops import window_attention as WA  # noqa: E402
+
+WINDOW_CASES = [
+    # (B, Hp, Wp, heads, ws): hiera_t @1024 blocks 4/6/8 (64 -> 70) and 11
+    # (32 -> 35), and a small two-image case with non-square window grids
+    (1, 70, 70, 4, 14),
+    (1, 35, 35, 8, 7),
+    (2, 14, 21, 1, 7),
+]
+
+
+def _linear_w(rng, out_dim, in_dim, dev):
+    b = in_dim ** -0.5
+    return (torch.from_numpy(rng.uniform(-b, b, (out_dim, in_dim)).astype(np.float32)).to(dev),
+            torch.from_numpy(rng.uniform(-b, b, out_dim).astype(np.float32)).to(dev))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", WINDOW_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_window_attention_kernel_matches_twin(dev, dtype, case):
+    B, Hp, Wp, heads, ws = case
+    rng = np.random.default_rng(6)
+    qkv = _t(rng, (B, Hp, Wp, 3 * 96 * heads), dev, dtype)
+    before = A.launch_counts()["window_attention"]
+    got = WA.window_attention(qkv, heads, ws)
+    got_v2 = WA.window_attention_v2(qkv, heads, ws)
+    torch.cuda.synchronize()
+    assert A.launch_counts()["window_attention"] == before + 2
+    want = WA.window_attention_plain(qkv.float(), heads, ws)
+    assert got.shape == want.shape and got.dtype == dtype
+    assert (got.float() - want).abs().max().item() <= _tol(want, dtype)
+    assert torch.equal(got, got_v2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("N,C", [(65536, 96), (16384, 192), (4096, 384), (1024, 768),
+                                 (1000, 96), (77, 768)], ids=lambda v: str(v))
+def test_fused_mlp_kernel_matches_twin(dev, dtype, N, C):
+    rng = np.random.default_rng(7)
+    x = _t(rng, (N, C), dev, dtype)
+    g = 1 + 0.1 * _t(rng, (C,), dev, torch.float32)
+    b = 0.1 * _t(rng, (C,), dev, torch.float32)
+    (w1, b1), (w2, b2) = _linear_w(rng, 4 * C, C, dev), _linear_w(rng, C, 4 * C, dev)
+    before = A.launch_counts()["fused_mlp"]
+    got = FM.ln_mlp_residual(x, g, b, w1, b1, w2, b2)
+    torch.cuda.synchronize()
+    assert A.launch_counts()["fused_mlp"] == before + 1
+    want = FM.ln_mlp_residual_plain(x, g, b, w1, b1, w2, b2)
+    assert got.shape == (N, C) and got.dtype == dtype
+    assert (got.float() - want.float()).abs().max().item() <= _tol(want.float(), dtype)
+
+
+def _block_params(rng, C, dev):
+    g1, g2 = (1 + 0.1 * _t(rng, (C,), dev, torch.float32) for _ in range(2))
+    b1, b2 = (0.1 * _t(rng, (C,), dev, torch.float32) for _ in range(2))
+    wq, bq = _linear_w(rng, 3 * C, C, dev)
+    wp, bp = _linear_w(rng, C, C, dev)
+    w1, bm1 = _linear_w(rng, 4 * C, C, dev)
+    w2, bm2 = _linear_w(rng, C, 4 * C, dev)
+    return FB.BlockParams(g1, b1, wq, bq, wp, bp, g2, b2, w1, bm1, w2, bm2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("Bn,ws,C", [(1024, 8, 96), (1024, 4, 192), (5, 4, 192), (3, 8, 96)],
+                         ids=lambda v: str(v))
+def test_fused_block_kernel_matches_twin(dev, dtype, Bn, ws, C):
+    """hiera_t @1024 blocks 0 and 2, and ragged 64-row groups (5 ws-4
+    windows = 80 rows; 3 ws-8 windows)."""
+    rng = np.random.default_rng(8)
+    wins = _t(rng, (Bn, ws, ws, C), dev, dtype)
+    p = _block_params(rng, C, dev)
+    heads = C // 96
+    before = A.launch_counts()["fused_block"]
+    got = FB.fused_window_block(wins, p, heads)
+    torch.cuda.synchronize()
+    assert A.launch_counts()["fused_block"] == before + 1
+    want = FB.fused_window_block_plain(wins.reshape(-1, C), p, heads, ws * ws).reshape(wins.shape)
+    assert got.shape == wins.shape and got.dtype == dtype
+    assert (got.float() - want.float()).abs().max().item() <= _tol(want.float(), dtype)
+
+
+def test_encoder_kernels_reject_unbuilt_widths(dev):
+    z = lambda *shape: torch.zeros(shape, device=dev)  # noqa: E731
+    before = A.launch_counts()
+    with pytest.raises(ValueError, match="kernel built for"):
+        WA.window_attention(z(1, 8, 8, 3 * 64), 1, 4)          # head dim 64
+    with pytest.raises(ValueError, match="kernel built for"):
+        FM.ln_mlp_residual(z(4, 112), z(112), z(112), z(448, 112), z(448), z(112, 448), z(112))
+    p = FB.BlockParams(*(z(*t.shape) for t in _block_params(np.random.default_rng(0), 384,
+                                                               "cpu")))
+    with pytest.raises(ValueError, match="kernel built for"):
+        FB.fused_window_block(z(4, 8, 8, 384), p, 4)            # C 384
+    assert A.launch_counts() == before
