@@ -5,15 +5,22 @@ on one NVIDIA GPU.
 
 Phases, each printing its own line:
   1. device: the card's name and power limit (nvidia-smi);
-  2. build: compile the CUDA kernels from ``medsam2_tpu_torch/csrc``;
-  3. the propagation kernels (flash forward, kv-cached) against their plain
-     PyTorch twins at the propagation path's shapes, bf16 and fp32, with
-     CUDA-event times of kernel, twin and the library call;
+  2. build: compile the CUDA kernels from ``medsam2_tpu_torch/csrc``, and
+     count the HGMMA (wgmma) instructions of every bf16 flash / kv-cached
+     instantiation in the library's SASS (none fails the phase);
+  3. the propagation kernels (flash forward, kv-cached, and the split-kv
+     merge) against their plain PyTorch twins at the propagation path's
+     shapes and hiera_l's global attention, bf16 and fp32: device times of
+     kernel and library call from CUDA-graph replays (a split launch's time
+     includes its merge), what the wrapper's host work adds to an eager
+     call, the twin's time per eager call, TF/s, the share of the bound, the
+     ratio to the library call and the grid (blocks, kv splits);
   3b. the training kernels (flash forward with LSE, the dK/dV and dQ backward
      passes) against their twins at the training path's shapes, bf16 and
      fp32, with a kv mask holding stale frames, a ragged Nk and a batch whose
      keys are all masked; times of kernel, twin and
-     ``F.scaled_dot_product_attention`` forward and backward;
+     ``F.scaled_dot_product_attention`` forward and backward (the forwards
+     by CUDA-graph replay);
   4. sam2_hiera_t @512 fp32 propagation on the card (kernels) against the same
      seeded model on the CPU (plain twins), low-res logits to 1e-3;
   5. sam2_hiera_t @1024 bf16, 8 frames, 1 object: init_state -> add_new_points
@@ -47,6 +54,7 @@ import contextlib
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -97,6 +105,10 @@ KERNELS = {
                                    replaces="medsam2_tpu/ops/attention.py:271"),
     "kv_cached_attention": dict(source="medsam2_tpu_torch/csrc/kv_cached_attention.cu",
                                 replaces="medsam2_tpu/ops/attention.py:454"),
+    # the split-kv second pass of B1 and B2: the TPU kernels carried the sum
+    # over kv tiles across their sequential grid, the card splits it over blocks
+    "attention_merge": dict(source="medsam2_tpu_torch/csrc/flash_attention.cu",
+                            replaces="medsam2_tpu/ops/attention.py:49"),
     "window_attention": dict(source="medsam2_tpu_torch/csrc/window_attention.cu",
                              replaces="medsam2_tpu/ops/window_attention.py:45"),
     # B6 has its own Pallas kernel; the port serves it with B5's CUDA kernel
@@ -131,6 +143,41 @@ def bound(flops: float, nbytes: float, dtype):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def sm_count() -> int:
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+def bf16_grid(bh: int, nq: int, n_keys: int):
+    """(blocks, kv splits) of a bf16 flash / kv-cached launch: one block
+    per 128 query rows and head, the wrapper's split count."""
+    q_tiles = bh * -(-nq // 128)
+    splits = A.split_count(q_tiles, -(-n_keys // 64), sm_count())
+    return q_tiles * splits, splits
+
+
+def merges(bh: int, nq: int, n_keys: int) -> int:
+    """1 if a bf16 launch of this shape splits its kv range (and so runs
+    the merge kernel once), else 0: it splits when its blocks (one per 128
+    query rows and head) fill at most half the SMs, so that a second split
+    still fits in one wave, and it has more than one 64-key tile. Worked out
+    here apart from the wrapper's ``split_count``, so that a change to that
+    rule fails the exact launch counts of phases 5 and 7."""
+    blocks = bh * -(-nq // 128)
+    return int(2 * blocks <= sm_count() and n_keys > 64)
+
+
+def rates(ms: float, flops: float, bound_ms: float, lib_ms: float, grid) -> str:
+    merge = " (the time includes the merge)" if grid[1] > 1 else ""
+    return (f"{flops / ms / 1e9:.1f} TF/s, {bound_ms / ms:.1%} of bound, {ms / lib_ms:.2f}x "
+            f"the library call, grid {grid[0]} blocks ({grid[1]} kv splits){merge}")
+
+
+def host_us(eager_ms: float, ms: float) -> str:
+    """What the wrapper's host work adds to a call: an eager loop of calls
+    less their device time (0 while the card is the slower of the two)."""
+    return f"eager {eager_ms:.4f} ms, host adds {max(0.0, eager_ms - ms) * 1e3:.1f} us per call"
+
+
 def set_tf32(enabled: bool) -> None:
     torch.backends.cuda.matmul.allow_tf32 = enabled
     torch.backends.cudnn.allow_tf32 = enabled
@@ -147,6 +194,33 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int = 10, replays: int = 5) -> float:
+    """Mean device milliseconds per call: ``reps`` calls captured in one CUDA
+    graph and replayed ``replays`` times between CUDA events. No host work is
+    timed, so a short kernel's time is not its wrapper's Python time (which
+    ``cuda_ms`` measures once the host falls behind the card)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (reps * replays)
 
 
 def rand(rng, shape, dtype, scale=1.0):
@@ -173,6 +247,26 @@ def phase_build() -> None:
     print(f"[2 build] {secs:.1f} s -> {lib} | {len(regs)} kernel instantiations, "
           f"max {max(regs)} registers, {len(spilled)} with spill stores "
           f"(max {max(spilled, default=0)} bytes)")
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    hgmma, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1) if ("flash_sm90_kernel" in m.group(1)
+                                  or "kv_cached_sm90_kernel" in m.group(1)) else None
+            if name:
+                hgmma[name] = 0
+        elif name and "HGMMA" in line:
+            hgmma[name] += 1
+    short = {re.sub(r".*(flash_sm90_kernelILi\d+ELi\d+E|kv_cached_sm90_kernel).*", r"\1", n): c
+             for n, c in hgmma.items()}
+    ok = len(hgmma) == 26 and min(hgmma.values()) > 0
+    print(f"[2 sass] HGMMA instructions per bf16 B1/B2 instantiation ({len(hgmma)} of 26): "
+          f"{short} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"wgmma missing from the bf16 attention kernels: {short}")
 
 
 def flash_work(B, H, Nq, Nk, D, Dv, mask, itemsize):
@@ -184,67 +278,88 @@ def flash_work(B, H, Nq, Nk, D, Dv, mask, itemsize):
     return keys, flops, nbytes
 
 
+# (label, (B, H, N, D)): the flash forward's shapes at @1024
+FLASH_CASES = [("hiera global attention @1024", (1, 4, 4096, 96)),
+               ("memory self-attention @1024", (1, 1, 4096, 256)),
+               ("hiera_l global attention @1024", (1, 8, 4096, 72))]
+# memory cross-attention @1024: 1 cond slot + 7-slot ring, P = 64*64,
+# 4 layers, C = 256, 64-wide values, 64 pointer tokens
+KV_BANK = dict(F=8, L=4, P=4096, C=256, Dv=64, Nptr=64, Nq=4096)
+
+
+def kv_inputs(rng, B: int, dtype):
+    """The kv-cached call of memory cross-attention @1024 at batch B, layer
+    2: (the wrapper's arguments, the kv mask as numpy). Unit-scale inputs
+    keep the logits O(1), so the softmax is far from uniform and a kernel
+    that dropped keys, skipped pos_rows or read the wrong row fails the
+    tolerance; slot f reads its own row perm[f]."""
+    F_, L, P, C, Dv, Nptr, Nq = (KV_BANK[k] for k in ("F", "L", "P", "C", "Dv", "Nptr", "Nq"))
+    perm = np.array([3, 0, 6, 1, 7, 2, 5, 4], np.int32)
+    q = rand(rng, (B, Nq, C), dtype)
+    kc = rand(rng, (B, F_, L, P, C), dtype)
+    pos = rand(rng, (F_, L, P, C), dtype)
+    rows = torch.from_numpy(perm).to(DEV)
+    pk = rand(rng, (B, Nptr, C), dtype)
+    vs = rand(rng, (B, F_, P, Dv), dtype)
+    pv = rand(rng, (B, Nptr, Dv), dtype)
+    m = np.ones((B, F_ * P + Nptr), bool)
+    m[:, 5 * P:] = False                   # three stale ring slots
+    m[0, F_ * P:] = True                   # sixteen object pointers, the most kept
+    if B > 1:
+        m[1, 2 * P:3 * P] = False          # another stale slot
+        m[1, F_ * P:F_ * P + 32] = True    # eight object pointers
+    mask = torch.from_numpy(m).to(DEV)
+    return (q, kc, pos, rows, pk, vs, pv, mask, 2), m
+
+
 def phase_kernels():
     """Propagation kernels vs twins at the slice's shapes. Returns the bf16
     main-shape results per kernel for the JSON line."""
     rng = np.random.default_rng(0)
     best = {}
-    flash_cases = [("hiera global attention @1024", (1, 4, 4096, 96)),
-                   ("memory self-attention @1024", (1, 1, 4096, 256))]
     for dtype in (torch.bfloat16, torch.float32):
         set_tf32(False)
-        for label, (B, H, N, D) in flash_cases:
+        for label, (B, H, N, D) in FLASH_CASES:
             q, k, v = (rand(rng, (B, H, N, D), dtype) for _ in range(3))
             got = A.flash_attention(q, k, v)
             want = A.flash_attention_plain(q.float(), k.float(), v.float())
             err = (got.float() - want).abs().max().item()
             tol = tolerance(want, dtype)
-            ms = cuda_ms(lambda: A.flash_attention(q, k, v), reps=10)
+            ms = graph_ms(lambda: A.flash_attention(q, k, v))
+            eager_ms = cuda_ms(lambda: A.flash_attention(q, k, v), reps=10)
             plain_ms = cuda_ms(lambda: A.flash_attention_plain(q, k, v), reps=5)
-            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), reps=10)
+            lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(q, k, v))
             _, flops, nbytes = flash_work(B, H, N, N, D, D, None, q.element_size())
             bound_ms, bound_by = bound(flops, nbytes, dtype)
+            grid = (bf16_grid(B * H, N, N) if dtype == torch.bfloat16
+                    else (B * H * -(-N // 64), 1))
             ok = err <= tol
             print(f"[3 kernel] flash_attention {label} {[B, H, N, D]} {dtype} "
-                  f"max_abs_err {err:.3e} (tol {tol:.3e}) kernel {ms:.3f} ms "
-                  f"plain {plain_ms:.3f} ms sdpa {lib_ms:.3f} ms bound {bound_ms:.4f} ms "
-                  f"({bound_by}) {'ok' if ok else 'FAIL'}")
+                  f"max_abs_err {err:.3e} (tol {tol:.3e}) kernel {ms:.4f} ms "
+                  f"({host_us(eager_ms, ms)}) plain {plain_ms:.3f} ms sdpa {lib_ms:.4f} ms "
+                  f"bound {bound_ms:.4f} ms ({bound_by}) | "
+                  f"{rates(ms, flops, bound_ms, lib_ms, grid)} "
+                  f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"flash_attention {label} {dtype}: err {err}")
             if dtype == torch.bfloat16 and H == 4:
                 best["flash_attention"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                                bound_ms=bound_ms, bound_by=bound_by,
-                                               library_ms=lib_ms)
-        # memory cross-attention @1024: 1 cond slot + 7-slot ring, P = 64*64,
-        # 4 layers, C = 256, 64-wide values, 64 pointer tokens
-        F_, L, P, C, Dv, Nptr, Nq = 8, 4, 4096, 256, 64, 64, 4096
-        # Unit-scale inputs keep the logits O(1), so the softmax is far from
-        # uniform and a kernel that dropped keys, skipped pos_rows or read the
-        # wrong row fails the tolerance; slot f reads its own row perm[f].
-        perm = np.array([3, 0, 6, 1, 7, 2, 5, 4], np.int32)
+                                               library_ms=lib_ms,
+                                               ms_includes_merge=grid[1] > 1)
+        F_, L, P, C, Dv, Nptr, Nq = (KV_BANK[k] for k in ("F", "L", "P", "C", "Dv", "Nptr",
+                                                          "Nq"))
         for B in (1, 2):
-            q = rand(rng, (B, Nq, C), dtype)
-            kc = rand(rng, (B, F_, L, P, C), dtype)
-            pos = rand(rng, (F_, L, P, C), dtype)
-            rows = torch.from_numpy(perm).to(DEV)
-            pk = rand(rng, (B, Nptr, C), dtype)
-            vs = rand(rng, (B, F_, P, Dv), dtype)
-            pv = rand(rng, (B, Nptr, Dv), dtype)
-            m = np.ones((B, F_ * P + Nptr), bool)
-            m[:, 5 * P:] = False                   # three stale ring slots
-            m[0, F_ * P:] = True                   # sixteen object pointers, the most kept
-            if B > 1:
-                m[1, 2 * P:3 * P] = False          # another stale slot
-                m[1, F_ * P:F_ * P + 32] = True    # eight object pointers
-            mask = torch.from_numpy(m).to(DEV)
-            args = (q, kc, pos, rows, pk, vs, pv, mask, 2)
+            args, m = kv_inputs(rng, B, dtype)
+            q, kc, pos, rows, pk, vs, pv, mask, _ = args
             got = A.kv_cached_attention(*args)
             # the twin sums kcache + pos in the cache dtype, as the kernel does
             want = A.kv_cached_attention_plain(q.float(), kc, pos, rows, pk, vs.float(),
                                                pv.float(), mask, 2)
             err = (got.float() - want).abs().max().item()
             tol = tolerance(want, dtype)
-            ms = cuda_ms(lambda: A.kv_cached_attention(*args), reps=10)
+            ms = graph_ms(lambda: A.kv_cached_attention(*args))
+            eager_ms = cuda_ms(lambda: A.kv_cached_attention(*args), reps=10)
             plain_ms = cuda_ms(lambda: A.kv_cached_attention_plain(*args), reps=3)
             # the library call over k/v materialised outside the timing (the
             # gather is the kernel's own work and is not counted for SDPA)
@@ -252,29 +367,62 @@ def phase_kernels():
                                pk], dim=1)[:, None]
             v_mat = torch.cat([vs.reshape(B, F_ * P, Dv), pv], dim=1)[:, None]
             bias = mask[:, None, None, :]
-            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-                q[:, None], k_mat, v_mat, attn_mask=bias), reps=10)
+            lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(
+                q[:, None], k_mat, v_mat, attn_mask=bias))
             keys = float(m.sum())
             flops = 2.0 * Nq * keys * (C + Dv)
             nbytes = q.element_size() * (B * Nq * C + B * F_ * P * C + F_ * P * C
                                          + B * Nptr * C + B * F_ * P * Dv + B * Nptr * Dv
                                          + B * Nq * Dv) + m.size
             bound_ms, bound_by = bound(flops, nbytes, dtype)
+            grid = (bf16_grid(B, Nq, F_ * P + Nptr) if dtype == torch.bfloat16
+                    else (B * -(-Nq // 64), 1))
             ok = err <= tol
             print(f"[3 kernel] kv_cached_attention memory cross-attention @1024 B={B} "
                   f"{[B, Nq, F_, L, P, C, Dv, Nptr]} {dtype} max_abs_err {err:.3e} "
-                  f"(tol {tol:.3e}) kernel {ms:.3f} ms plain {plain_ms:.3f} ms "
-                  f"sdpa {lib_ms:.3f} ms bound {bound_ms:.4f} ms ({bound_by}) "
-                  f"{'ok' if ok else 'FAIL'}")
+                  f"(tol {tol:.3e}) kernel {ms:.4f} ms ({host_us(eager_ms, ms)}) plain "
+                  f"{plain_ms:.3f} ms sdpa {lib_ms:.4f} ms bound "
+                  f"{bound_ms:.4f} ms ({bound_by}) | "
+                  f"{rates(ms, flops, bound_ms, lib_ms, grid)} {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"kv_cached_attention B={B} {dtype}: err {err}")
             if dtype == torch.bfloat16 and B == 1:
                 best["kv_cached_attention"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                                    bound_ms=bound_ms, bound_by=bound_by,
-                                                   library_ms=lib_ms)
-            del q, kc, pos, pk, vs, pv, got, want, k_mat, v_mat
+                                                   library_ms=lib_ms,
+                                                   ms_includes_merge=grid[1] > 1)
+            del args, q, kc, pos, pk, vs, pv, got, want, k_mat, v_mat
+    best["attention_merge"] = merge_kernel(rng)
     torch.cuda.empty_cache()
     return best
+
+
+def merge_kernel(rng) -> dict:
+    """The merge at the memory self-attention's split @1024 (4 splits of
+    4096 rows x 256), one split of row block 7 empty."""
+    S, rows, Dv = bf16_grid(1, 4096, 4096)[1], 4096, 256
+    o = rand(rng, (S, rows, Dv), torch.float32)
+    lse = rand(rng, (S, rows), torch.float32, scale=3.0)
+    lse[S - 1, 7 * 128:8 * 128] = -1e30
+    o[S - 1, 7 * 128:8 * 128] = 0.0
+    out, got_lse = A.attention_merge(o, lse)
+    want, want_lse = A.attention_merge_plain(o, lse)
+    err = (out.float() - want).abs().max().item()
+    tol = tolerance(want, torch.bfloat16)
+    err_lse = (got_lse - want_lse).abs().max().item()
+    ms = graph_ms(lambda: A.attention_merge(o, lse))
+    plain_ms = cuda_ms(lambda: A.attention_merge_plain(o, lse), reps=10)
+    bound_ms, bound_by = bound(0.0, 4.0 * S * rows * (Dv + 1) + 2.0 * rows * Dv + 4.0 * rows,
+                               torch.bfloat16)
+    ok = err <= tol and err_lse <= 1e-5
+    print(f"[3 kernel] attention_merge {S} splits x [{rows}, {Dv}] fp32 -> bf16 max_abs_err "
+          f"{err:.3e} (tol {tol:.3e}) lse err {err_lse:.3e} (tol 1e-5) kernel {ms:.4f} ms plain "
+          f"{plain_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of bound "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"attention_merge: err {err}, lse {err_lse}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None)
 
 
 # (label, B, H, Nq, Nk, D, Dv, mask kind): the training path's flash calls at
@@ -337,7 +485,7 @@ def phase_train_kernels():
             if kind == "dead":
                 ok = ok and dq[0].abs().max().item() == 0 and dk[0].abs().max().item() == 0
             # times: kernels, twins, and the library call forward and backward
-            ms_fwd = cuda_ms(lambda: A._flash_forward(q, k, v, mask, scale, True), reps=10)
+            ms_fwd = graph_ms(lambda: A._flash_forward(q, k, v, mask, scale, True))
             ms_dkv = cuda_ms(lambda: A.flash_attention_bwd_dkv(q, k, v, mask, do, want_lse,
                                                                dvec), reps=10)
             ms_dq = cuda_ms(lambda: A.flash_attention_bwd_dq(q, k, v, mask, do, want_lse,
@@ -346,8 +494,7 @@ def phase_train_kernels():
             plain_bwd = cuda_ms(lambda: A.flash_attention_bwd_plain(q, k, v, mask, o, want_lse,
                                                                     do), reps=3)
             bias = None if mask is None else mask[:, None, None, :]
-            lib_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias),
-                              reps=10)
+            lib_fwd = graph_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias))
             qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
             lib_out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=bias)
             lib_bwd = cuda_ms(lambda: torch.autograd.grad(lib_out, (qg, kg, vg), do,
@@ -363,7 +510,10 @@ def phase_train_kernels():
             b_dq = bound(2.0 * H * Nq * keys * (2 * D + Dv),
                          it * B * H * (2 * Nq * D + Nk * D + Nk * Dv + Nq * Dv) + rows + mbytes,
                          dtype)
+            grid = (bf16_grid(B * H, Nq, Nk) if dtype == torch.bfloat16
+                    else (B * H * -(-Nq // 64), 1))
             print(f"[3b train kernel] {label} {[B, H, Nq, Nk, D, Dv]} {dtype} | "
+                  f"fwd+lse {rates(ms_fwd, flops_fwd, b_fwd[0], lib_fwd, grid)} | "
                   f"fwd+lse err {err_out:.3e} lse err {err_lse:.3e} | grad err rel max|grad| "
                   f"dq {errs['dq']:.3e} dk {errs['dk']:.3e} dv {errs['dv']:.3e} "
                   f"(tol {tol_grad:.0e}) | kernel fwd+lse {ms_fwd:.3f} dkv {ms_dkv:.3f} "
@@ -463,9 +613,17 @@ def phase_full_width(power_line: str):
     encoded = 1 + 1 + tracked                 # preview + preflight + tracked frames
     n_global = len(cfg.trunk.global_att_blocks)
     n_layers = cfg.memory_attention.num_layers
+    # bf16 launches that split their kv range run the merge once each: the
+    # global attention [1, 4, 4096, 96] fills the card, the memory
+    # self-attention [1, 1, 4096, 256] and the kv-cached call over 4096
+    # queries (8 slots of 4096 keys + the pointers) split
+    tok = (cfg.image_size // 16) ** 2
     want = {"flash_attention": n_global * encoded + n_layers * tracked,
             "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0,
-            "kv_cached_attention": n_layers * tracked, **NO_ENCODER_LAUNCHES}
+            "kv_cached_attention": n_layers * tracked,
+            "attention_merge": n_global * encoded * merges(4, tok, tok)
+            + n_layers * tracked * (merges(1, tok, tok) + merges(1, tok, 8 * tok + 64)),
+            **NO_ENCODER_LAUNCHES}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     finite = bool(torch.isfinite(masks).all())
     shape_ok = tuple(masks.shape) == (T, 1, 1, 256, 256) and frames == list(range(T))
@@ -500,7 +658,7 @@ def train_batch(T: int, O: int, S: int, n_prompt: int, P: int = 8, seed: int = 0
             "obj_valid": np.ones((1, O), bool)}
 
 
-def train_launches(cfg, rcfg) -> dict:
+def train_launches(cfg, rcfg, bf16: bool) -> dict:
     """Kernel launches of one train step, from the config. Every frame is
     encoded once (its global-attention blocks take the forward kernel, no
     LSE); each tracked frame runs L memory-attention layers of self- and
@@ -508,14 +666,21 @@ def train_launches(cfg, rcfg) -> dict:
     runs the backward of all 2L of them; the sam pull
     d(prompt + non_prompt)/d(sam) reaches the decoder's parameters through the
     memory (earlier decoders wrote it) but not through a tracked frame's first
-    self-attention, whose input is the frozen encoder's output: 2L - 1."""
+    self-attention, whose input is the frozen encoder's output: 2L - 1. In
+    bf16 every forward whose grid leaves SMs idle splits its kv range and
+    runs the merge: the global attention [1, 4, tok, 96] and the memory
+    attention over O objects [O, 1, tok, *] (tok = 1024 @512)."""
     T = rcfg.video_length
     tracked = T - len(rcfg.prompt_frames)
     L = cfg.memory_attention.num_layers
+    n_global = len(cfg.trunk.global_att_blocks)
     bwd = tracked * 2 * L + tracked * (2 * L - 1)
-    return {"flash_attention": len(cfg.trunk.global_att_blocks) * T + tracked * 2 * L,
+    tok, O = (cfg.image_size // 16) ** 2, rcfg.num_objects
+    merge = (n_global * T * merges(4, tok, tok) + tracked * L * 2 * merges(O, tok, tok)
+             if bf16 else 0)
+    return {"flash_attention": n_global * T + tracked * 2 * L,
             "flash_attention_bwd_dkv": bwd, "flash_attention_bwd_dq": bwd,
-            "kv_cached_attention": 0, **NO_ENCODER_LAUNCHES}
+            "kv_cached_attention": 0, "attention_merge": merge, **NO_ENCODER_LAUNCHES}
 
 
 def train_grads(model):
@@ -560,7 +725,7 @@ def phase_train_parity():
         err = rel_err(got, want)
         if err > worst:
             worst, worst_name = err, name
-    want_counts = train_launches(cfg, rcfg)
+    want_counts = train_launches(cfg, rcfg, bf16=False)
     ok = loss_err <= 1e-4 and worst <= 1e-3 and zero_ok and counts == want_counts
     print(f"[6 train parity] sam2_hiera_t @512 fp32 TF32 off, 4 frames, 1 object, one step: "
           f"cuda (kernels, launches {counts}, expected {want_counts}) vs cpu (plain): losses "
@@ -604,7 +769,7 @@ def phase_train_full_width(power_line: str):
     frozen_same = all(torch.equal(before[k], after[k]) for k in before
                       if k.split(".")[0] not in group_of)
     finite = all(np.isfinite(float(m[k])) for m in losses for k in m)
-    want = {k: 3 * n for k, n in train_launches(cfg, rcfg).items()}
+    want = {k: 3 * n for k, n in train_launches(cfg, rcfg, bf16=True).items()}
     ok = finite and all(changed.values()) and frozen_same and counts == want
     loss_txt = ", ".join(f"{float(m['loss']):.4f}" for m in losses)
     print(f"[7 train full width] sam2_hiera_t @512 bf16, 8 frames, 2 objects, max_cond_frames 4, "

@@ -1,20 +1,15 @@
-// Shared online-softmax tile machinery for the two forward attention kernels
-// (flash_attention.cu, kv_cached_attention.cu); the backward kernels
-// (flash_attention_bwd.cu) use its types and load_rows.
+// The fp32 online-softmax tile machinery of the two forward attention kernels
+// (flash_attention.cu, kv_cached_attention.cu), and the helpers the
+// backward kernels (flash_attention_bwd.cu) and the encoder kernels
+// (encoder_tile.cuh) share: the bf16 type, conversions, warp reductions and
+// load_rows. The bf16 forwards run the wgmma design of hopper_attention.cuh.
 //
-// One thread block owns kBQ = 64 query rows; each of its 4 warps owns a strip
-// of 16 rows and does everything for those rows itself (logits, softmax
-// update, PV product), so inside a kv tile the only block-wide barrier is the
-// one that publishes the freshly staged K/V tile. The running max m, row sum
-// l and the output accumulator O stay in fp32 in shared memory; O lives there
-// (not in WMMA fragments) because the per-row rescale by alpha needs the row
-// of every element, which WMMA fragments do not expose.
-//
-// bfloat16 inputs: logits and PV run on the tensor cores through WMMA
-// (mma.sync, 16x16x16, fp32 accumulation); probabilities are rounded to bf16
-// before the PV product, as the Pallas kernel casts p to v's dtype.
-// float32 inputs: plain fp32 FMA, no TF32 (the JAX package pins
-// Precision.HIGHEST for fp32).
+// fp32: one thread block owns kBQ = 64 query rows; each of its 4 warps owns a
+// strip of 16 rows and does everything for those rows itself (logits,
+// softmax update, PV product) with plain FMA, no TF32 (the JAX package pins
+// Precision.HIGHEST for fp32), so inside a kv tile the only block-wide
+// barrier is the one that publishes the freshly staged K/V tile. The running
+// max m, row sum l and the output accumulator O stay in shared memory.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -32,19 +27,6 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kBQ = 16 * kWarps;  // query rows per block; warp w owns [16w, 16w+16)
 
 using bf16 = __nv_bfloat16;
-
-template <typename T>
-struct TileCfg;
-template <>
-struct TileCfg<bf16> {
-  static constexpr int BK = 64;   // kv rows per tile
-  static constexpr int PAD = 8;   // row padding (elements): keeps 32-byte WMMA alignment
-};
-template <>
-struct TileCfg<float> {
-  static constexpr int BK = 32;   // smaller tile keeps D=Dv=256 fp32 under 227 KB
-  static constexpr int PAD = 4;
-};
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(bf16 x) { return __bfloat162float(x); }
@@ -68,53 +50,47 @@ __device__ __forceinline__ float warp_sum(float x) {
 
 __host__ __device__ constexpr size_t align128(size_t x) { return (x + 127) & ~size_t(127); }
 
-// Shared-memory layout (bytes) for one block.
-template <typename T, int D, int DV>
+// Shared-memory layout (bytes) of one fp32 block.
+template <int D, int DV>
 struct Smem {
-  static constexpr bool kBf16 = std::is_same<T, bf16>::value;
-  static constexpr int BK = TileCfg<T>::BK;
-  static constexpr int PAD = TileCfg<T>::PAD;
-  static constexpr int LDQ = D + PAD;   // elements of T
+  static constexpr int BK = 32;   // kv rows per tile: one key column per lane
+  static constexpr int PAD = 4;
+  static constexpr int LDQ = D + PAD;   // floats
   static constexpr int LDK = D + PAD;
   static constexpr int LDV = DV + PAD;
-  static constexpr int LDS = BK + 4;    // floats
-  static constexpr int LDP = BK + PAD;  // elements of T (bf16 probabilities)
-  static constexpr int LDO = DV + 4;    // floats
+  static constexpr int LDS = BK + 4;
+  static constexpr int LDO = DV + 4;
   static constexpr size_t q_off = 0;
-  static constexpr size_t k_off = q_off + align128(sizeof(T) * kBQ * LDQ);
-  static constexpr size_t v_off = k_off + align128(sizeof(T) * BK * LDK);
-  static constexpr size_t s_off = v_off + align128(sizeof(T) * BK * LDV);
-  static constexpr size_t p_off = s_off + align128(sizeof(float) * kBQ * LDS);
-  static constexpr size_t o_off = p_off + (kBf16 ? align128(sizeof(T) * kBQ * LDP) : 0);
+  static constexpr size_t k_off = q_off + align128(sizeof(float) * kBQ * LDQ);
+  static constexpr size_t v_off = k_off + align128(sizeof(float) * BK * LDK);
+  static constexpr size_t s_off = v_off + align128(sizeof(float) * BK * LDV);
+  static constexpr size_t o_off = s_off + align128(sizeof(float) * kBQ * LDS);
   static constexpr size_t m_off = o_off + align128(sizeof(float) * kBQ * LDO);
   static constexpr size_t l_off = m_off + align128(sizeof(float) * kBQ);
   static constexpr size_t a_off = l_off + align128(sizeof(float) * kBQ);
   static constexpr size_t mask_off = a_off + align128(sizeof(float) * kBQ);
   static constexpr size_t bytes = mask_off + align128(sizeof(float) * BK);
   static_assert(bytes <= 232448, "tile does not fit the 227 KB a block may use");
-  static_assert(D % 16 == 0 && DV % 16 == 0, "head dims must be multiples of 16");
-  static_assert(kBf16 || BK == 32, "the fp32 path maps one key column to each lane");
+  static_assert(D % 4 == 0 && DV % 4 == 0, "head dims must be multiples of 4");
 };
 
-template <typename T, int D, int DV>
+template <int D, int DV>
 struct Tile {
-  using L = Smem<T, D, DV>;
-  T* q;
-  T* k;
-  T* v;
+  using L = Smem<D, DV>;
+  float* q;
+  float* k;
+  float* v;
   float* s;
-  T* p;
   float* o;
   float* m;
   float* l;
   float* alpha;
   float* mask;
   __device__ explicit Tile(unsigned char* base)
-      : q(reinterpret_cast<T*>(base + L::q_off)),
-        k(reinterpret_cast<T*>(base + L::k_off)),
-        v(reinterpret_cast<T*>(base + L::v_off)),
+      : q(reinterpret_cast<float*>(base + L::q_off)),
+        k(reinterpret_cast<float*>(base + L::k_off)),
+        v(reinterpret_cast<float*>(base + L::v_off)),
         s(reinterpret_cast<float*>(base + L::s_off)),
-        p(reinterpret_cast<T*>(base + L::p_off)),
         o(reinterpret_cast<float*>(base + L::o_off)),
         m(reinterpret_cast<float*>(base + L::m_off)),
         l(reinterpret_cast<float*>(base + L::l_off)),
@@ -163,10 +139,10 @@ __device__ __forceinline__ void load_rows_sum(T* dst, int ld, const T* a, const 
 }
 
 // Zero the accumulators and load this block's query rows.
-template <typename T, int D, int DV>
-__device__ __forceinline__ void init_block(Tile<T, D, DV>& t, const T* q_rows, int valid_q) {
-  using L = Smem<T, D, DV>;
-  load_rows<T, D>(t.q, L::LDQ, q_rows, kBQ, valid_q);
+template <int D, int DV>
+__device__ __forceinline__ void init_block(Tile<D, DV>& t, const float* q_rows, int valid_q) {
+  using L = Smem<D, DV>;
+  load_rows<float, D>(t.q, L::LDQ, q_rows, kBQ, valid_q);
   for (int i = threadIdx.x; i < kBQ * L::LDO; i += kThreads) t.o[i] = 0.f;
   for (int i = threadIdx.x; i < kBQ; i += kThreads) {
     t.m[i] = kNegInf;
@@ -178,9 +154,9 @@ __device__ __forceinline__ void init_block(Tile<T, D, DV>& t, const T* q_rows, i
 // columns at or past `valid` are padding). Returns, block-uniformly, whether
 // any key of the tile attends: a fully masked tile changes nothing (p = 0,
 // alpha = 1) and skips its dots, as the Pallas kernel's pl.when does.
-template <typename T, int D, int DV>
-__device__ __forceinline__ bool stage_mask(Tile<T, D, DV>& t, const float* mask, int valid) {
-  constexpr int BK = Smem<T, D, DV>::BK;
+template <int D, int DV>
+__device__ __forceinline__ bool stage_mask(Tile<D, DV>& t, const float* mask, int valid) {
+  constexpr int BK = Smem<D, DV>::BK;
   float mv = 0.f;
   if (threadIdx.x < BK) {
     if (threadIdx.x < valid) mv = mask ? mask[threadIdx.x] : 1.f;
@@ -191,44 +167,26 @@ __device__ __forceinline__ bool stage_mask(Tile<T, D, DV>& t, const float* mask,
 
 // One online-softmax step over the staged K/V tile, for this warp's 16 rows.
 // Caller: K, V and mask staged and published with __syncthreads().
-template <typename T, int D, int DV>
-__device__ __forceinline__ void attend_tile(Tile<T, D, DV>& t, float scale) {
-  using L = Smem<T, D, DV>;
+template <int D, int DV>
+__device__ __forceinline__ void attend_tile(Tile<D, DV>& t, float scale) {
+  using L = Smem<D, DV>;
   constexpr int BK = L::BK;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int r0 = warp * 16;
 
-  // ---- S = Q K^T for rows [r0, r0 + 16) ----
-  if constexpr (L::kBf16) {
-    using namespace nvcuda;
-#pragma unroll
-    for (int cb = 0; cb < BK / 16; ++cb) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-      for (int ks = 0; ks < D / 16; ++ks) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-        wmma::load_matrix_sync(a, t.q + r0 * L::LDQ + ks * 16, L::LDQ);
-        wmma::load_matrix_sync(b, t.k + cb * 16 * L::LDK + ks * 16, L::LDK);
-        wmma::mma_sync(acc, a, b, acc);
-      }
-      wmma::store_matrix_sync(t.s + r0 * L::LDS + cb * 16, acc, L::LDS, wmma::mem_row_major);
-    }
-  } else {
-    // one key column per lane (BK == 32), 16 query rows per lane
+  // ---- S = Q K^T for rows [r0, r0 + 16): one key column per lane ----
+  {
     const int c = lane;
     float acc[16];
 #pragma unroll
     for (int rr = 0; rr < 16; ++rr) acc[rr] = 0.f;
-    const float* krow = reinterpret_cast<const float*>(t.k) + c * L::LDK;
+    const float* krow = t.k + c * L::LDK;
     for (int d = 0; d < D; d += 4) {
       const float4 kv = *reinterpret_cast<const float4*>(krow + d);
 #pragma unroll
       for (int rr = 0; rr < 16; ++rr) {
-        const float4 qv =
-            *reinterpret_cast<const float4*>(reinterpret_cast<const float*>(t.q) + (r0 + rr) * L::LDQ + d);
+        const float4 qv = *reinterpret_cast<const float4*>(t.q + (r0 + rr) * L::LDQ + d);
         acc[rr] = fmaf(qv.x, kv.x, acc[rr]);
         acc[rr] = fmaf(qv.y, kv.y, acc[rr]);
         acc[rr] = fmaf(qv.z, kv.z, acc[rr]);
@@ -244,31 +202,13 @@ __device__ __forceinline__ void attend_tile(Tile<T, D, DV>& t, float scale) {
   for (int rr = 0; rr < 16; ++rr) {
     const int r = r0 + rr;
     float* srow = t.s + r * L::LDS;
-    float vals[BK / 32];
-    float mx = kNegInf;
-#pragma unroll
-    for (int j = 0; j < BK / 32; ++j) {
-      const int c = lane + 32 * j;
-      const float sv = t.mask[c] > 0.f ? srow[c] * scale : kNegInf;
-      vals[j] = sv;
-      mx = fmaxf(mx, sv);
-    }
-    mx = warp_max(mx);
+    const float sv = t.mask[lane] > 0.f ? srow[lane] * scale : kNegInf;
+    const float mx = warp_max(sv);
     const float m_old = t.m[r];
     const float m_new = fmaxf(m_old, mx);
-    float sum = 0.f;
-#pragma unroll
-    for (int j = 0; j < BK / 32; ++j) {
-      const int c = lane + 32 * j;
-      const float p = expf(vals[j] - m_new) * t.mask[c];
-      sum += p;
-      if constexpr (L::kBf16) {
-        t.p[r * L::LDP + c] = from_float<T>(p);
-      } else {
-        srow[c] = p;
-      }
-    }
-    sum = warp_sum(sum);
+    const float p = expf(sv - m_new) * t.mask[lane];
+    srow[lane] = p;
+    const float sum = warp_sum(p);
     __syncwarp();
     if (lane == 0) {
       const float alpha = expf(m_old - m_new);
@@ -286,62 +226,44 @@ __device__ __forceinline__ void attend_tile(Tile<T, D, DV>& t, float scale) {
     t.o[(r0 + rr) * L::LDO + c] *= t.alpha[r0 + rr];
   }
   __syncwarp();
-  if constexpr (L::kBf16) {
-    using namespace nvcuda;
+  for (int c = lane; c < DV; c += 32) {
+    float acc[16];
 #pragma unroll
-    for (int j = 0; j < DV / 16; ++j) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::load_matrix_sync(acc, t.o + r0 * L::LDO + j * 16, L::LDO, wmma::mem_row_major);
+    for (int rr = 0; rr < 16; ++rr) acc[rr] = t.o[(r0 + rr) * L::LDO + c];
+    for (int kk = 0; kk < BK; ++kk) {
+      const float vv = t.v[kk * L::LDV + c];
 #pragma unroll
-      for (int ks = 0; ks < BK / 16; ++ks) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-        wmma::load_matrix_sync(a, t.p + r0 * L::LDP + ks * 16, L::LDP);
-        wmma::load_matrix_sync(b, t.v + ks * 16 * L::LDV + j * 16, L::LDV);
-        wmma::mma_sync(acc, a, b, acc);
-      }
-      wmma::store_matrix_sync(t.o + r0 * L::LDO + j * 16, acc, L::LDO, wmma::mem_row_major);
+      for (int rr = 0; rr < 16; ++rr) acc[rr] = fmaf(t.s[(r0 + rr) * L::LDS + kk], vv, acc[rr]);
     }
-  } else {
-    const float* vs = reinterpret_cast<const float*>(t.v);
-    for (int c = lane; c < DV; c += 32) {
-      float acc[16];
 #pragma unroll
-      for (int rr = 0; rr < 16; ++rr) acc[rr] = t.o[(r0 + rr) * L::LDO + c];
-      for (int kk = 0; kk < BK; ++kk) {
-        const float vv = vs[kk * L::LDV + c];
-#pragma unroll
-        for (int rr = 0; rr < 16; ++rr) acc[rr] = fmaf(t.s[(r0 + rr) * L::LDS + kk], vv, acc[rr]);
-      }
-#pragma unroll
-      for (int rr = 0; rr < 16; ++rr) t.o[(r0 + rr) * L::LDO + c] = acc[rr];
-    }
+    for (int rr = 0; rr < 16; ++rr) t.o[(r0 + rr) * L::LDO + c] = acc[rr];
   }
   __syncwarp();
 }
 
 // out rows [q0, q0 + valid_q) = O / l, with l == 0 (every key masked) -> 0.
 // Caller: __syncthreads() after the last tile.
-template <typename T, int D, int DV>
-__device__ __forceinline__ void write_out(Tile<T, D, DV>& t, T* out_rows, int valid_q) {
-  using L = Smem<T, D, DV>;
+template <int D, int DV>
+__device__ __forceinline__ void write_out(Tile<D, DV>& t, float* out_rows, int valid_q) {
+  using L = Smem<D, DV>;
   for (int i = threadIdx.x; i < kBQ * DV; i += kThreads) {
     const int r = i / DV;
     const int c = i % DV;
     if (r < valid_q) {
       const float l = t.l[r];
-      out_rows[(size_t)r * DV + c] = from_float<T>(t.o[r * L::LDO + c] / (l == 0.f ? 1.f : l));
+      out_rows[(size_t)r * DV + c] = t.o[r * L::LDO + c] / (l == 0.f ? 1.f : l);
     }
   }
 }
 
-// Calls fn.template operator()<D, DV>() for the (D, DV) pairs the flash kernel
-// is instantiated for, D and DV each in {64, 96, 128, 256}; anything else is
-// cudaErrorInvalidValue.
+// Calls fn.template operator()<D, DV>() for the (D, DV) pairs the flash
+// forward is instantiated for, D and DV each in {64, 72, 96, 128, 256};
+// anything else is cudaErrorInvalidValue.
 template <int D, typename Fn>
 cudaError_t dispatch_dv(int dv, Fn&& fn) {
   switch (dv) {
     case 64: return fn.template operator()<D, 64>();
+    case 72: return fn.template operator()<D, 72>();
     case 96: return fn.template operator()<D, 96>();
     case 128: return fn.template operator()<D, 128>();
     case 256: return fn.template operator()<D, 256>();
@@ -352,6 +274,7 @@ template <typename Fn>
 cudaError_t dispatch_dims(int d, int dv, Fn&& fn) {
   switch (d) {
     case 64: return dispatch_dv<64>(dv, fn);
+    case 72: return dispatch_dv<72>(dv, fn);
     case 96: return dispatch_dv<96>(dv, fn);
     case 128: return dispatch_dv<128>(dv, fn);
     case 256: return dispatch_dv<256>(dv, fn);

@@ -1,58 +1,53 @@
-// Flash attention forward for Hopper (sm_90a).
+// Flash attention forward for Hopper (sm_90a): the entry point, the fp32
+// kernel, and attention_merge, which combines split-kv partial outputs.
 //
 // Replaces the Pallas TPU kernel medsam2_tpu/ops/attention.py:_flash_kernel
 // (reached through _flash_call <- flash_attention <- attention). Same math:
 // online softmax over kv tiles, -1e30 on masked logits, probabilities
 // multiplied by the float kv mask, fp32 running max / sum / accumulator, and a
 // zero output for a row whose every key is masked. With a non-null `lse` it
-// also writes the per-row log-sum-exp m + log(l) (l == 0 -> 1), the training
-// forward's second output (`with_lse`, attention.py:96-101) that the backward
-// kernels (flash_attention_bwd.cu) recompute P from; a null `lse` is the
-// inference launch and costs nothing extra.
+// also writes the per-row log-sum-exp m + log(l) (-1e30 when every key is
+// masked), the training forward's second output (`with_lse`,
+// attention.py:96-101) that the backward kernels (flash_attention_bwd.cu)
+// recompute P from; a null `lse` is the inference launch.
 //
-// What bounds it on the H100: at the main path's shapes (Hiera global
-// attention [1,4,4096,96], memory self-attention [B,1,4096,256], training
-// cross-attention [2,1,1024,10316] with 64-wide values) the work is
-// 2*Nq*Nk*(D+Dv) flops against O((Nq+Nk)*D) bytes, far above the card's
-// ~295 flop/byte ridge, so the limit is tensor-core issue rate, not HBM.
-// This first version stages K/V through shared memory with plain 16-byte
-// loads and keeps O in shared memory, so it reaches only a fraction of the
-// mma.sync peak; the design keeps the [Nq, Nk] logits out of device memory
-// (the plain path writes them), which is what matters at these shapes. A
-// wgmma + TMA pipeline is later work.
-//
-// Grid: (ceil(Nq / 64), B*H); 128 threads; dynamic shared memory per
-// (dtype, D, Dv) from attention_tile.cuh.
+// bfloat16 inputs run the wgmma + TMA design (flash_fwd_sm90.cuh), with the
+// kv range split over `splits` blocks when the wrapper asks for it.
+// float32 inputs run the FMA design of attention_tile.cuh (wgmma has no
+// full-fp32 mode, and the JAX package pins Precision.HIGHEST): grid
+// (ceil(Nq / 64), B*H), 128 threads, one split.
 
 #include "attention_tile.cuh"
+#include "flash_fwd_sm90.cuh"
 
 namespace medsam2 {
 namespace {
 
-template <typename T, int D, int DV>
+template <int D, int DV>
 __global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     const float* __restrict__ mask, T* __restrict__ out, float* __restrict__ lse,
-                     int H, int Nq, int Nk, float scale) {
-  using L = Smem<T, D, DV>;
+    flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, const float* __restrict__ mask,
+                         float* __restrict__ out, float* __restrict__ lse, int H, int Nq, int Nk,
+                         float scale) {
+  using L = Smem<D, DV>;
   constexpr int BK = L::BK;
   extern __shared__ __align__(128) unsigned char smem[];
-  Tile<T, D, DV> t(smem);
+  Tile<D, DV> t(smem);
 
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * kBQ;
   const int valid_q = min(kBQ, Nq - q0);
   init_block(t, q + ((size_t)bh * Nq + q0) * D, valid_q);
   const float* mrow = mask ? mask + (size_t)(bh / H) * Nk : nullptr;
-  const T* kb = k + (size_t)bh * Nk * D;
-  const T* vb = v + (size_t)bh * Nk * DV;
+  const float* kb = k + (size_t)bh * Nk * D;
+  const float* vb = v + (size_t)bh * Nk * DV;
 
   for (int k0 = 0; k0 < Nk; k0 += BK) {
     const int valid = min(BK, Nk - k0);
     __syncthreads();  // the previous tile's readers are done with K/V/mask
     if (!stage_mask(t, mrow ? mrow + k0 : nullptr, valid)) continue;
-    load_rows<T, D>(t.k, L::LDK, kb + (size_t)k0 * D, BK, valid);
-    load_rows<T, DV>(t.v, L::LDV, vb + (size_t)k0 * DV, BK, valid);
+    load_rows<float, D>(t.k, L::LDK, kb + (size_t)k0 * D, BK, valid);
+    load_rows<float, DV>(t.v, L::LDV, vb + (size_t)k0 * DV, BK, valid);
     __syncthreads();
     attend_tile(t, scale);
   }
@@ -69,35 +64,67 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-struct FlashArgs {
-  const void* q;
-  const void* k;
-  const void* v;
-  const float* mask;
-  void* out;
-  float* lse;
-  int BH, H, Nq, Nk;
-  float scale;
-  cudaStream_t stream;
-};
-
-template <typename T>
-struct FlashLaunch {
-  const FlashArgs& a;
+struct F32Launch {
+  const hopper::FlashCall& a;
   template <int D, int DV>
   cudaError_t operator()() const {
-    using L = Smem<T, D, DV>;
-    auto kern = flash_fwd_kernel<T, D, DV>;
-    cudaError_t e =
-        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::bytes);
+    using L = Smem<D, DV>;
+    auto kern = flash_fwd_f32_kernel<D, DV>;
+    static unsigned long long smem_set = 0;
+    const cudaError_t e =
+        hopper::allow_smem(reinterpret_cast<const void*>(kern), (int)L::bytes, smem_set);
     if (e != cudaSuccess) return e;
     const dim3 grid((a.Nq + kBQ - 1) / kBQ, a.BH);
     kern<<<grid, kThreads, L::bytes, a.stream>>>(
-        static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v), a.mask,
-        static_cast<T*>(a.out), a.lse, a.H, a.Nq, a.Nk, a.scale);
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+        static_cast<const float*>(a.v), a.mask, static_cast<float*>(a.out), a.lse, a.H, a.Nq,
+        a.Nk, a.scale);
     return cudaGetLastError();
   }
 };
+
+struct Sm90Launch {
+  const hopper::FlashCall& a;
+  template <int D, int DV>
+  cudaError_t operator()() const {
+    return hopper::flash_sm90<D, DV>(a);
+  }
+};
+
+// attention_merge: one warp per row. lse = logsumexp_i lse_i over the
+// splits, out = sum_i exp(lse_i - lse) O_i; a split whose keys were all
+// masked has lse_i = -1e30 and weight 0; when every split is empty the row
+// is 0 with lse -1e30. The order of the sum is fixed: no atomics.
+constexpr int kMergeRows = 8;
+
+__global__ void __launch_bounds__(32 * kMergeRows)
+    attention_merge_kernel(const float* __restrict__ o_part, const float* __restrict__ lse_part,
+                           bf16* __restrict__ out, float* __restrict__ lse, int splits, int rows,
+                           int DV) {
+  const int row = blockIdx.x * kMergeRows + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= rows) return;
+  float mx = kNegInf;
+  for (int s = 0; s < splits; ++s) mx = fmaxf(mx, lse_part[(size_t)s * rows + row]);
+  bf16* orow = out + (size_t)row * DV;
+  if (mx == kNegInf) {
+    for (int c = lane; c < DV; c += 32) orow[c] = __float2bfloat16(0.f);
+    if (lse != nullptr && lane == 0) lse[row] = kNegInf;
+    return;
+  }
+  float sum = 0.f;
+  for (int s = 0; s < splits; ++s) sum += expf(lse_part[(size_t)s * rows + row] - mx);
+  const float total = mx + logf(sum);
+  for (int c = lane; c < DV; c += 32) {
+    float acc = 0.f;
+    for (int s = 0; s < splits; ++s) {
+      const size_t prow = (size_t)s * rows + row;
+      acc += expf(lse_part[prow] - total) * o_part[prow * DV + c];
+    }
+    orow[c] = __float2bfloat16(acc);
+  }
+  if (lse != nullptr && lane == 0) lse[row] = total;
+}
 
 }  // namespace
 }  // namespace medsam2
@@ -105,16 +132,35 @@ struct FlashLaunch {
 // q [BH, Nq, D], k [BH, Nk, D], v [BH, Nk, Dv], mask [BH / H, Nk] float or
 // NULL, out [BH, Nq, Dv]; all contiguous, 16-byte aligned, one dtype
 // (0 = float32, 1 = bfloat16). lse [BH, Nq] float32, or NULL for the
-// inference launch. Returns the cudaError_t of the launch.
+// inference launch. bfloat16 only: with splits > 1 the blocks write
+// o_part [splits, BH, Nq, Dv] and lse_part [splits, BH, Nq] (float32) and
+// leave out and lse to medsam2_attention_merge. Returns the cudaError_t of
+// the launch.
 extern "C" int medsam2_flash_attention_fwd(const void* q, const void* k, const void* v,
-                                           const float* mask, void* out, float* lse, int BH,
-                                           int H, int Nq, int Nk, int D, int Dv, float scale,
+                                           const float* mask, void* out, float* lse,
+                                           float* o_part, float* lse_part, int BH, int H, int Nq,
+                                           int Nk, int D, int Dv, float scale, int splits,
                                            int dtype, void* stream) {
   using namespace medsam2;
-  if (BH <= 0 || Nq <= 0 || H <= 0 || BH % H != 0 || Nk < 0) return (int)cudaErrorInvalidValue;
-  const FlashArgs a{q, k, v, mask, out, lse, BH, H, Nq, Nk, scale,
-                    static_cast<cudaStream_t>(stream)};
-  if (dtype == 1) return (int)dispatch_dims(D, Dv, FlashLaunch<bf16>{a});
-  if (dtype == 0) return (int)dispatch_dims(D, Dv, FlashLaunch<float>{a});
+  if (BH <= 0 || Nq <= 0 || H <= 0 || BH % H != 0 || Nk < 0 || splits < 1)
+    return (int)cudaErrorInvalidValue;
+  if (splits > 1 && (dtype != 1 || o_part == nullptr || lse_part == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const hopper::FlashCall a{q,     k,  v,  mask, out, lse, o_part, lse_part, BH,
+                            H,     Nq, Nk, splits, scale, static_cast<cudaStream_t>(stream)};
+  if (dtype == 1) return (int)dispatch_dims(D, Dv, Sm90Launch{a});
+  if (dtype == 0) return (int)dispatch_dims(D, Dv, F32Launch{a});
   return (int)cudaErrorInvalidValue;
+}
+
+// o_part [splits, rows, Dv] and lse_part [splits, rows] float32 -> out
+// [rows, Dv] bfloat16 and, if non-NULL, lse [rows] float32.
+extern "C" int medsam2_attention_merge(const float* o_part, const float* lse_part, void* out,
+                                       float* lse, int splits, int rows, int Dv, void* stream) {
+  using namespace medsam2;
+  if (splits < 1 || rows <= 0 || Dv <= 0) return (int)cudaErrorInvalidValue;
+  const dim3 grid((rows + kMergeRows - 1) / kMergeRows);
+  attention_merge_kernel<<<grid, 32 * kMergeRows, 0, static_cast<cudaStream_t>(stream)>>>(
+      o_part, lse_part, static_cast<bf16*>(out), lse, splits, rows, Dv);
+  return (int)cudaGetLastError();
 }

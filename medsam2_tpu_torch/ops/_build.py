@@ -99,7 +99,10 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn = lib.medsam2_flash_attention_fwd
-    fn.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, i, i, i, f, i, vp]
+    fn.argtypes = [vp] * 8 + [i] * 6 + [f, i, i, vp]
+    fn.restype = i
+    fn = lib.medsam2_attention_merge
+    fn.argtypes = [vp] * 4 + [i] * 3 + [vp]
     fn.restype = i
     fn = lib.medsam2_flash_attention_bwd_dkv
     fn.argtypes = [vp] * 9 + [i] * 7 + [f, i, vp]
@@ -108,8 +111,7 @@ def load_library() -> ctypes.CDLL:
     fn.argtypes = [vp] * 8 + [i] * 7 + [f, i, vp]
     fn.restype = i
     fn = lib.medsam2_kv_cached_attention_fwd
-    fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp,
-                   i, i, i, i, i, i, i, i, i, i, f, i, vp]
+    fn.argtypes = [vp] * 11 + [i] * 10 + [f, i, i, vp]
     fn.restype = i
     fn = lib.medsam2_window_attention_fwd
     fn.argtypes = [vp, vp, i, i, i, i, i, i, f, i, vp]

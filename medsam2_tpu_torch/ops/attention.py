@@ -19,6 +19,12 @@ roped-key cache goes through :func:`kv_cached_attention`.
   launches ``csrc/kv_cached_attention.cu``, on CPU it runs
   :func:`kv_cached_attention_plain`. Inference only: it raises when a
   gradient would be taken, as the JAX kernel path has no vjp.
+- bf16 on the card, both forwards run the wgmma + TMA design of
+  ``csrc/hopper_attention.cuh``. When one block per 128 query rows leaves
+  SMs idle, the wrapper splits the kv range over several blocks, each of
+  which writes a normalised fp32 partial output and its LSE, and
+  :func:`attention_merge` (``csrc/flash_attention.cu``) combines them;
+  :func:`attention_merge_plain` is its twin.
 
 There is no fallback: a CUDA tensor either reaches its kernel or the wrapper
 raises. Shapes follow the JAX package: q [B, H, Nq, D], k [B, H, Nk, D],
@@ -28,6 +34,7 @@ v [B, H, Nk, Dv], kv_mask [B, Nk] bool (True = attend).
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -35,8 +42,13 @@ import torch
 _NEG_INF = -1e30
 
 # Head dims the flash forward kernel is instantiated for, D and Dv
-# independently (csrc/attention_tile.cuh).
-KERNEL_HEAD_DIMS = (64, 96, 128, 256)
+# independently (csrc/attention_tile.cuh, csrc/flash_fwd_sm90_d*.cu); 72 is
+# hiera_l's global attention.
+KERNEL_HEAD_DIMS = (64, 72, 96, 128, 256)
+# Query rows of one block of the bf16 forwards, and kv rows of one tile
+# (csrc/hopper_attention.cuh kBQ, kBK).
+_SM90_ROWS = 128
+_SM90_TILE = 64
 # (D, Dv) the backward kernels are instantiated for: memory self-attention and
 # the low-rank memory cross-attention, the only flash calls training
 # differentiates (csrc/flash_attention_bwd.cu).
@@ -188,12 +200,104 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _flash_forward(q, k, v, kv_mask, scale, with_lse: bool):
-    """One launch of the forward kernel; returns (out, lse or None)."""
+def _ptr(t):
+    """A tensor's device address for ctypes, None (NULL) for no tensor."""
+    return t.data_ptr() if t is not None else None
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def split_count(blocks: int, n_tiles: int, sms: int) -> int:
+    """kv splits of a bf16 forward: 1 when ``blocks`` (one per 128 query rows
+    and head) fill the ``sms`` SMs; else as many as keep one wave, at most one
+    kv tile a split."""
+    if blocks >= sms or n_tiles <= 1:
+        return 1
+    return min(n_tiles, sms // blocks)
+
+
+def _splits_for(t: torch.Tensor, blocks: int, n_tiles: int, forced, name: str) -> int:
+    """The split count of a launch: the wrapper's pick, or ``forced``
+    (checked). fp32 launches never split."""
+    if t.dtype != torch.bfloat16:
+        if forced not in (None, 1):
+            raise ValueError(f"{name}: only the bf16 kernel splits the kv range")
+        return 1
+    if forced is None:
+        return split_count(blocks, n_tiles, _sm_count(t.device.index or 0))
+    if not 1 <= forced <= max(1, n_tiles):
+        raise ValueError(f"{name}: {forced} splits for {n_tiles} kv tiles")
+    return forced
+
+
+def _partials(splits: int, rows: int, Dv: int, device):
+    """fp32 scratch of a split launch (None, None for one split)."""
+    if splits == 1:
+        return None, None
+    return (torch.empty(splits, rows, Dv, device=device, dtype=torch.float32),
+            torch.empty(splits, rows, device=device, dtype=torch.float32))
+
+
+def attention_merge_plain(o_parts, lse_parts):
+    """attention_merge's math in plain PyTorch. o_parts [S, ..., Dv] fp32,
+    each split's output normalised by its own row sum; lse_parts [S, ...]
+    each split's m + log(l), -1e30 for a split whose keys were all masked.
+    Returns (out fp32, lse): lse = logsumexp over the splits and
+    out = sum_i exp(lse_i - lse) o_i; a row with every split empty gives 0
+    and -1e30, as the flash forward does."""
+    lse_parts = lse_parts.float()
+    m = lse_parts.amax(dim=0)
+    dead = m <= _NEG_INF
+    m_safe = torch.where(dead, torch.zeros_like(m), m)
+    total = m_safe + torch.log(torch.exp(lse_parts - m_safe).sum(dim=0))
+    lse = torch.where(dead, torch.full_like(m, _NEG_INF), total)
+    w = torch.where(dead, torch.zeros_like(lse_parts), torch.exp(lse_parts - total))
+    return (w[..., None] * o_parts.float()).sum(dim=0), lse
+
+
+def attention_merge(o_parts, lse_parts, dtype=torch.bfloat16, with_lse: bool = True):
+    """Combine split-kv partial outputs (see :func:`attention_merge_plain`).
+    On the card it launches ``csrc/flash_attention.cu``'s merge kernel,
+    which writes bf16; on the CPU it runs the twin. Returns (out in
+    ``dtype``, lse fp32 or None)."""
+    if not _check_device(o_parts, "attention_merge"):
+        out, lse = attention_merge_plain(o_parts, lse_parts)
+        return out.to(dtype), (lse if with_lse else None)
+    if dtype != torch.bfloat16 or o_parts.dtype != torch.float32:
+        raise TypeError("attention_merge: the kernel merges fp32 partials into bf16")
+    S, Dv = o_parts.shape[0], o_parts.shape[-1]
+    lead = o_parts.shape[1:-1]
+    if lse_parts.shape != o_parts.shape[:-1] or not lse_parts.is_cuda:
+        raise ValueError(f"attention_merge: lse {tuple(lse_parts.shape)} vs o "
+                         f"{tuple(o_parts.shape)}")
+    rows = math.prod(lead)
+    op = _aligned(o_parts.reshape(S, rows, Dv))
+    lp = _aligned(lse_parts.float().reshape(S, rows))
+    out = torch.empty(rows, Dv, device=o_parts.device, dtype=dtype)
+    lse = torch.empty(rows, device=o_parts.device, dtype=torch.float32) if with_lse else None
+    from medsam2_tpu_torch.ops._build import load_library
+
+    rc = load_library().medsam2_attention_merge(
+        op.data_ptr(), lp.data_ptr(), out.data_ptr(), _ptr(lse), S, rows, Dv, _stream(o_parts))
+    _raise_on_error(rc, "attention_merge")
+    attention_merge.launches += 1
+    return out.reshape(*lead, Dv), (lse.reshape(lead) if lse is not None else None)
+
+
+def _flash_forward(q, k, v, kv_mask, scale, with_lse: bool, _splits=None):
+    """One launch of the forward kernel (and, when the bf16 kernel splits the
+    kv range, one of the merge); returns (out, lse or None). ``_splits``
+    forces the split count (tests)."""
     B, H, Nq, Nk, D, Dv, code = _flash_shapes(q, k, v, "flash_attention")
     if D not in KERNEL_HEAD_DIMS or Dv not in KERNEL_HEAD_DIMS:
         raise ValueError(f"flash_attention: kernel built for head dims "
                          f"{KERNEL_HEAD_DIMS}, got D={D} Dv={Dv}")
+    n_tiles = -(-Nk // _SM90_TILE)
+    blocks = B * H * -(-Nq // _SM90_ROWS)
+    splits = _splits_for(q, blocks, n_tiles, _splits, "flash_attention")
     from medsam2_tpu_torch.ops._build import load_library
 
     lib = load_library()
@@ -201,15 +305,20 @@ def _flash_forward(q, k, v, kv_mask, scale, with_lse: bool):
     kf = _aligned(k.reshape(B * H, Nk, D))
     vf = _aligned(v.reshape(B * H, Nk, Dv))
     mask = _mask_arg(kv_mask, B, Nk, q.device, "flash_attention")
-    out = torch.empty(B * H, Nq, Dv, device=q.device, dtype=q.dtype)
-    lse = torch.empty(B * H, Nq, device=q.device, dtype=torch.float32) if with_lse else None
+    o_part, lse_part = _partials(splits, B * H * Nq, Dv, q.device)
+    out = lse = None
+    if splits == 1:
+        out = torch.empty(B * H, Nq, Dv, device=q.device, dtype=q.dtype)
+        if with_lse:
+            lse = torch.empty(B * H, Nq, device=q.device, dtype=torch.float32)
     rc = lib.medsam2_flash_attention_fwd(
-        qf.data_ptr(), kf.data_ptr(), vf.data_ptr(),
-        mask.data_ptr() if mask is not None else None, out.data_ptr(),
-        lse.data_ptr() if lse is not None else None,
-        B * H, H, Nq, Nk, D, Dv, ctypes.c_float(scale), code, _stream(q))
+        qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), _ptr(mask), _ptr(out), _ptr(lse),
+        _ptr(o_part), _ptr(lse_part), B * H, H, Nq, Nk, D, Dv, ctypes.c_float(scale), splits,
+        code, _stream(q))
     _raise_on_error(rc, "flash_attention")
     flash_attention.launches += 1
+    if splits > 1:
+        out, lse = attention_merge(o_part, lse_part, q.dtype, with_lse)
     return (out.reshape(B, H, Nq, Dv),
             lse.reshape(B, H, Nq) if lse is not None else None)
 
@@ -244,7 +353,7 @@ def _flash_bwd_launch(which: str, q, k, v, kv_mask, do, lse, dvec, scale):
     from medsam2_tpu_torch.ops._build import load_library
 
     rc = getattr(load_library(), "medsam2_" + name)(
-        *(t.data_ptr() for t in ins), mask.data_ptr() if mask is not None else None,
+        *(t.data_ptr() for t in ins), _ptr(mask),
         do_.data_ptr(), lse_.data_ptr(), dvec_.data_ptr(), *(o.data_ptr() for o in outs),
         B * H, H, Nq, Nk, rows, D, Dv, ctypes.c_float(_default_scale(q, scale)), code,
         _stream(q))
@@ -333,7 +442,7 @@ def kv_cached_attention_plain(q, kcache, pos_rows, row_of_slot, ptr_k, v_slots,
 
 
 def kv_cached_attention(q, kcache, pos_rows, row_of_slot, ptr_k, v_slots,
-                        ptr_v, kv_mask, layer: int, scale=None):
+                        ptr_v, kv_mask, layer: int, scale=None, _splits=None):
     """Cross-attention against the bank's roped-key cache in storage order
     (single kv head), ``medsam2_tpu.ops.attention.kv_cached_attention``.
 
@@ -343,7 +452,9 @@ def kv_cached_attention(q, kcache, pos_rows, row_of_slot, ptr_k, v_slots,
 
     Inference only, as the JAX kernel path: raises when grad is enabled and
     an input requires it. CUDA tensors launch ``csrc/kv_cached_attention.cu``
-    for every P and Nptr (ragged ones included); CPU tensors run
+    for every P and Nptr (ragged ones included), in bf16 with the kv tiles
+    split over blocks when one block per 128 query rows leaves SMs idle
+    (``_splits`` forces the count, for tests); CPU tensors run
     :func:`kv_cached_attention_plain`."""
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (q, kcache, pos_rows, ptr_k, v_slots, ptr_v)):
@@ -392,20 +503,25 @@ def kv_cached_attention(q, kcache, pos_rows, row_of_slot, ptr_k, v_slots,
     vs = _aligned(v_slots.to(q.dtype))
     pv = _aligned(ptr_v.to(q.dtype))
     mask = _aligned(kv_mask.to(torch.float32))
-    out = torch.empty(B, Nq, Dv, device=q.device, dtype=q.dtype)
+    n_tiles = F * -(-P // _SM90_TILE) + -(-Nptr // _SM90_TILE)
+    splits = _splits_for(q, B * -(-Nq // _SM90_ROWS), n_tiles, _splits, "kv_cached_attention")
+    o_part, lse_part = _partials(splits, B * Nq, Dv, q.device)
+    out = torch.empty(B, Nq, Dv, device=q.device, dtype=q.dtype) if splits == 1 else None
     rc = lib.medsam2_kv_cached_attention_fwd(
         qc.data_ptr(), kc.data_ptr(), pr.data_ptr(), rows.data_ptr(),
         pk.data_ptr(), vs.data_ptr(), pv.data_ptr(), mask.data_ptr(),
-        out.data_ptr(), B, Nq, F, L, P, C, Dv, Nptr, Rr, int(layer),
-        ctypes.c_float(scale), code, _stream(q))
+        _ptr(out), _ptr(o_part), _ptr(lse_part), B, Nq, F, L, P, C, Dv, Nptr, Rr, int(layer), ctypes.c_float(scale), splits, code,
+        _stream(q))
     _raise_on_error(rc, "kv_cached_attention")
     kv_cached_attention.launches += 1
+    if splits > 1:
+        out = attention_merge(o_part, lse_part, q.dtype, with_lse=False)[0].reshape(B, Nq, Dv)
     return out
 
 
 # Launch counts: each wrapper adds one where it launches its kernel.
 _COUNTED = (flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dq,
-            kv_cached_attention)
+            kv_cached_attention, attention_merge)
 for _fn in _COUNTED:
     _fn.launches = 0
 

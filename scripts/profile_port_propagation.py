@@ -8,8 +8,9 @@ frame 8 times each stage of ``track_step`` with CUDA events (image encoder,
 memory attention, SAM heads, memory encoder + roped-key cache + bank write),
 the whole tracked frame, a tracked run of 7 frames, and whole
 ``propagate_in_video_batch`` calls over 8 frames (host clock). One tracked frame is
-also traced with ``torch.profiler``: device time by kernel, and the device's
-busy share of the frame's wall time. Prints one line per measurement and, last,
+also traced with ``torch.profiler``: device time by kernel, the time of the
+port's attention kernels (flash forward, kv-cached, split-kv merge), and the
+device's busy share of the frame's wall time. Prints one line per measurement and, last,
 a JSON summary (also written to ``--out``).
 """
 
@@ -33,6 +34,9 @@ from medsam2_tpu_torch.core.sam2_model import SAM2Model, compute_dtype, kcache_s
 from medsam2_tpu_torch.state import memory_bank as mb  # noqa: E402
 
 DEV = torch.device("cuda")
+# kernel-name fragments of the port's attention kernels on the propagation path
+ATTENTION_KERNELS = ("flash_sm90_kernel", "flash_fwd_f32_kernel", "kv_cached_sm90_kernel",
+                     "kv_cached_f32_kernel", "attention_merge_kernel")
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -73,7 +77,8 @@ def trace_frame(fn):
             by_name[e.name] += e.time_range.elapsed_us()
     busy_us = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    return wall_us, busy_us, top
+    attn = {k: sum(us for n, us in by_name.items() if k in n) / 1e3 for k in ATTENTION_KERNELS}
+    return wall_us, busy_us, top, {k: ms for k, ms in attn.items() if ms}
 
 
 def profile(n_obj: int) -> dict:
@@ -145,9 +150,11 @@ def profile(n_obj: int) -> dict:
             "memory_encoder_kcache_write": cuda_ms(memory_write),
         }
         out["track_one_frame_ms"] = cuda_ms(lambda: _track_run(model, images, bank, [f], **kw))
-        wall_us, busy_us, top = trace_frame(lambda: _track_run(model, images, bank, [f], **kw))
+        wall_us, busy_us, top, attn = trace_frame(
+            lambda: _track_run(model, images, bank, [f], **kw))
     out["traced_frame"] = {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
                            "device_idle_share": (1 - busy_us / wall_us) if busy_us else None,
+                           "attention_kernels_ms": attn,
                            "top_kernels_ms": [(n[:90], us / 1e3) for n, us in top]}
     out["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     return out
@@ -175,8 +182,11 @@ def main() -> None:
               f"{r['prompt_step_ms_host']:.2f} ms | stages "
               + ", ".join(f"{k} {v:.2f} ms" for k, v in r["stage_ms"].items()))
         tf = r["traced_frame"]
+        attn_ms = sum(tf["attention_kernels_ms"].values())
         print(f"[{n} object(s)] traced frame: wall {tf['wall_ms']:.2f} ms, device busy "
-              f"{tf['device_busy_ms']:.2f} ms, idle share {tf['device_idle_share']}")
+              f"{tf['device_busy_ms']:.2f} ms, idle share {tf['device_idle_share']} | attention "
+              f"kernels {attn_ms:.3f} ms ({attn_ms / tf['device_busy_ms']:.1%} of device time): "
+              f"{tf['attention_kernels_ms']}")
         for name, ms in tf["top_kernels_ms"]:
             print(f"    {ms:8.3f} ms  {name}")
     if args.out:

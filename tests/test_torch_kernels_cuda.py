@@ -13,6 +13,11 @@ against the twin run on the same values upcast to fp32, to 1e-2 of the
 largest |output|. The kernel rounds probabilities and the output to bf16, so
 its error scales with the output: measured on an H100 over these cases,
 max_abs_err / max|output| stays under 3.2e-3, about one bf16 ulp.
+
+The bf16 forwards split the kv range over blocks when the grid would leave
+SMs idle (and merge the partial outputs with ``attention_merge``); the split
+cases force each split count the wrapper can pick through its private
+``_splits`` argument.
 """
 
 import numpy as np
@@ -55,6 +60,9 @@ FLASH_CASES = [
     (1, 3, 64, 64, 128, 256, None),
     (1, 4, 4096, 4096, 96, 96, None),         # Hiera global attention @1024
     (1, 1, 4096, 4096, 256, 256, None),       # memory self-attention @1024
+    (1, 2, 200, 333, 72, 72, "random"),       # hiera_l heads: Nq, Nk ragged against the tiles
+    (2, 3, 100, 77, 72, 72, "row0_dead"),
+    (1, 8, 4096, 4096, 72, 72, None),         # hiera_l global attention @1024
 ]
 
 
@@ -125,16 +133,18 @@ def test_flash_lse_and_backward_kernels_match_twins(dev, dtype, case):
     v = _t(rng, (B, H, Nk, Dv), dev, dtype)
     do = _t(rng, (B, H, Nq, Dv), dev, dtype)
     mask = _bwd_mask(rng, B, Nk, kind, dev)
-    # forward with LSE (the training launch)
+    # forward with LSE (the training launch; the bf16 training shapes split
+    # the kv range and merge)
     out, lse = A._flash_forward(q, k, v, mask, 1.0 / D ** 0.5, with_lse=True)
     want_out, want_lse = A.flash_attention_lse_plain(q.float(), k.float(), v.float(), mask)
     assert (out.float() - want_out).abs().max().item() <= _tol(want_out, dtype)
     assert (lse - want_lse).abs().max().item() <= 1e-4 * want_lse.abs().clamp_max(1e3).max().item() + 1e-4
-    # backward pair against the twin on the same inputs, O and LSE
+    # backward pair fed the kernel's own LSE, against the twin on the same
+    # inputs, O and the twin's LSE
     dvec = (do.float() * want_out.to(dtype).float()).sum(-1)
     before = A.launch_counts()
-    dk, dv = A.flash_attention_bwd_dkv(q, k, v, mask, do, want_lse, dvec)
-    dq = A.flash_attention_bwd_dq(q, k, v, mask, do, want_lse, dvec)
+    dk, dv = A.flash_attention_bwd_dkv(q, k, v, mask, do, lse, dvec)
+    dq = A.flash_attention_bwd_dq(q, k, v, mask, do, lse, dvec)
     torch.cuda.synchronize()
     after = A.launch_counts()
     assert after["flash_attention_bwd_dkv"] == before["flash_attention_bwd_dkv"] + 1
@@ -159,7 +169,8 @@ def test_flash_autograd_launches_backward_pair(dev):
     after = A.launch_counts()
     assert {n: after[n] - before[n] for n in after} == {
         "flash_attention": 1, "flash_attention_bwd_dkv": 1, "flash_attention_bwd_dq": 1,
-        "kv_cached_attention": 0, "window_attention": 0, "fused_mlp": 0, "fused_block": 0}
+        "kv_cached_attention": 0, "attention_merge": 0, "window_attention": 0, "fused_mlp": 0,
+        "fused_block": 0}
     got = [t.grad.clone() for t in (q, k, v)]
     for t in (q, k, v):
         t.grad = None
@@ -222,6 +233,86 @@ def test_kv_cached_kernel_matches_twin(dev, dtype, case):
         err = (got.float() - want).abs().max().item()
         assert got.shape == (B, Nq, DV) and got.dtype == dtype
         assert err <= _tol(want, dtype), (layer, err)
+
+
+SPLIT_PAIRS = [(96, 96), (256, 64), (72, 72), (128, 256)]
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("dims", SPLIT_PAIRS, ids=lambda d: "x".join(map(str, d)))
+def test_flash_split_counts_match_twin(dev, dims, splits):
+    """B*H = 1, one q tile of 100 rows and Nk = 300 (five 64-key tiles, the
+    last ragged): the wrapper picks 5 splits; every count from 1 to 5, with
+    the keys of tile 1 all masked (one split empty at 5)."""
+    D, Dv = dims
+    rng = np.random.default_rng(9)
+    q, k = _t(rng, (1, 1, 100, D), dev, torch.bfloat16), _t(rng, (1, 1, 300, D), dev, torch.bfloat16)
+    v = _t(rng, (1, 1, 300, Dv), dev, torch.bfloat16)
+    m = rng.random((1, 300)) > 0.3
+    m[:, 64:128] = False
+    mask = torch.from_numpy(m).to(dev)
+    assert A.split_count(1, 5, torch.cuda.get_device_properties(dev).multi_processor_count) == 5
+    before = A.launch_counts()
+    out, lse = A._flash_forward(q, k, v, mask, D ** -0.5, with_lse=True, _splits=splits)
+    torch.cuda.synchronize()
+    after = A.launch_counts()
+    assert after["flash_attention"] == before["flash_attention"] + 1
+    assert after["attention_merge"] == before["attention_merge"] + (splits > 1)
+    want, want_lse = A.flash_attention_lse_plain(q.float(), k.float(), v.float(), mask)
+    assert out.shape == (1, 1, 100, Dv) and out.dtype == torch.bfloat16
+    assert (out.float() - want).abs().max().item() <= _tol(want, torch.bfloat16)
+    assert (lse - want_lse).abs().max().item() <= 1e-3
+
+
+def test_attention_merge_kernel_matches_twin(dev):
+    """Partial outputs of 6 splits, with whole splits empty (LSE -1e30) and a
+    row every split of which is empty."""
+    rng = np.random.default_rng(10)
+    o = _t(rng, (6, 2, 3, 77, 64), dev, torch.float32)
+    lse = _t(rng, (6, 2, 3, 77), dev, torch.float32, scale=3.0)
+    lse[1] = -1e30
+    lse[:, 0, 0, 5] = -1e30
+    o[lse <= -1e30] = 0.0
+    before = A.launch_counts()["attention_merge"]
+    out, got_lse = A.attention_merge(o, lse)
+    torch.cuda.synchronize()
+    assert A.launch_counts()["attention_merge"] == before + 1
+    want, want_lse = A.attention_merge_plain(o, lse)
+    assert out.dtype == torch.bfloat16 and out.shape == (2, 3, 77, 64)
+    assert (out.float() - want).abs().max().item() <= _tol(want, torch.bfloat16)
+    assert (got_lse - want_lse).abs().max().item() <= 1e-5
+    assert out[0, 0, 5].abs().max().item() == 0
+    assert got_lse[0, 0, 5].item() == np.float32(-1e30)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 7])
+def test_kv_cached_split_counts_match_twin(dev, splits):
+    """B = 2, a non-identity slot -> row map, a stale slot and pointer
+    padding; 3 slots of 100 keys (two tiles each, the second ragged) and one
+    pointer tile: 7 kv tiles, each split count forced."""
+    B, Nq, F, L, P, Nptr, Rr = 2, 130, 3, 2, 100, 10, 4
+    rng = np.random.default_rng(11)
+    dt = torch.bfloat16
+    q = _t(rng, (B, Nq, C), dev, dt)
+    kcache, pos_rows = _t(rng, (B, F, L, P, C), dev, dt), _t(rng, (Rr, L, P, C), dev, dt)
+    rows = torch.tensor([2, 0, 3], dtype=torch.int32, device=dev)
+    ptr_k, v_slots = _t(rng, (B, Nptr, C), dev, dt), _t(rng, (B, F, P, DV), dev, dt)
+    ptr_v = _t(rng, (B, Nptr, DV), dev, dt)
+    m = np.ones((B, F * P + Nptr), bool)
+    m[:, P:2 * P] = False                      # a stale slot: its two tiles skipped
+    m[1, F * P + 4:] = False                   # pointer padding
+    mask = torch.from_numpy(m).to(dev)
+    before = A.launch_counts()
+    got = A.kv_cached_attention(q, kcache, pos_rows, rows, ptr_k, v_slots, ptr_v, mask, 1,
+                                _splits=splits)
+    torch.cuda.synchronize()
+    after = A.launch_counts()
+    assert after["kv_cached_attention"] == before["kv_cached_attention"] + 1
+    assert after["attention_merge"] == before["attention_merge"] + (splits > 1)
+    want = A.kv_cached_attention_plain(q.float(), kcache, pos_rows, rows, ptr_k,
+                                       v_slots.float(), ptr_v.float(), mask, 1)
+    assert got.shape == (B, Nq, DV) and got.dtype == dt
+    assert (got.float() - want).abs().max().item() <= _tol(want, dt)
 
 
 @pytest.mark.parametrize("widths", [(128, 64), (256, 96), (64, 64)],

@@ -16,8 +16,7 @@ torch.set_num_threads(2)
 PKG = Path(medsam2_tpu_torch.__file__).parent
 ROOT = PKG.parent
 # the port's own entry points beside the package
-SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_port_propagation.py",
-           ROOT / "scripts" / "profile_port_train.py"]
+SCRIPTS = [ROOT / "chip_smoke.py", *sorted((ROOT / "scripts").glob("profile_port_*.py"))]
 JAX_IMPORT = re.compile(r"^\s*(from|import)\s+(jax|medsam2_tpu)\b", re.MULTILINE)
 
 
