@@ -19,8 +19,9 @@ Phases, each printing its own line:
      passes) against their twins at the training path's shapes, bf16 and
      fp32, with a kv mask holding stale frames, a ragged Nk and a batch whose
      keys are all masked; times of kernel, twin and
-     ``F.scaled_dot_product_attention`` forward and backward (the forwards
-     by CUDA-graph replay);
+     ``F.scaled_dot_product_attention`` forward and backward (kernels and
+     library calls by CUDA-graph replay; the library backward is its
+     captured forward + backward less its forward);
   4. sam2_hiera_t @512 fp32 propagation on the card (kernels) against the same
      seeded model on the CPU (plain twins), low-res logits to 1e-3;
   5. sam2_hiera_t @1024 bf16, 8 frames, 1 object: init_state -> add_new_points
@@ -36,7 +37,9 @@ Phases, each printing its own line:
      second, peak memory;
   8. the Hiera encoder kernels (window attention and its rank-3 form, fused
      LN-MLP, fused window block) against their twins at the hiera_t @1024
-     shapes, bf16 and fp32, with kernel, twin, library and bound times;
+     shapes, bf16 and fp32, with kernel, twin, library and bound times
+     (kernels and library calls by CUDA-graph replay, an eager loop where a
+     call cannot be captured, labelled so);
   9. sam2_hiera_t @512 fp32 (TF32 off), the three encoder switches on:
      ``SAM2ImagePredictor.set_image`` + ``predict`` (points, box) on the card
      against the same seeded model on the CPU, low-res logits to 1e-3;
@@ -221,6 +224,17 @@ def graph_ms(fn, reps: int = 10, replays: int = 5) -> float:
     torch.cuda.synchronize()
     del graph
     return start.elapsed_time(end) / (reps * replays)
+
+
+def device_ms(fn, reps: int = 10):
+    """(ms, how): device time per call by CUDA-graph replays ("graph"), or,
+    where the call cannot be captured, by an eager loop ("eager", host work
+    included once the host falls behind)."""
+    try:
+        return graph_ms(fn, reps), "graph"
+    except RuntimeError:
+        torch.cuda.synchronize()
+        return cuda_ms(fn, reps=20), "eager"
 
 
 def rand(rng, shape, dtype, scale=1.0):
@@ -486,19 +500,21 @@ def phase_train_kernels():
                 ok = ok and dq[0].abs().max().item() == 0 and dk[0].abs().max().item() == 0
             # times: kernels, twins, and the library call forward and backward
             ms_fwd = graph_ms(lambda: A._flash_forward(q, k, v, mask, scale, True))
-            ms_dkv = cuda_ms(lambda: A.flash_attention_bwd_dkv(q, k, v, mask, do, want_lse,
-                                                               dvec), reps=10)
-            ms_dq = cuda_ms(lambda: A.flash_attention_bwd_dq(q, k, v, mask, do, want_lse,
-                                                             dvec), reps=10)
+            ms_dkv = graph_ms(lambda: A.flash_attention_bwd_dkv(q, k, v, mask, do, want_lse,
+                                                                dvec))
+            ms_dq = graph_ms(lambda: A.flash_attention_bwd_dq(q, k, v, mask, do, want_lse,
+                                                              dvec))
             plain_fwd = cuda_ms(lambda: A.flash_attention_lse_plain(q, k, v, mask), reps=3)
             plain_bwd = cuda_ms(lambda: A.flash_attention_bwd_plain(q, k, v, mask, o, want_lse,
                                                                     do), reps=3)
             bias = None if mask is None else mask[:, None, None, :]
             lib_fwd = graph_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias))
+            # the library backward: forward + backward captured together, less
+            # the forward (an eager loop where autograd cannot be captured)
             qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
-            lib_out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=bias)
-            lib_bwd = cuda_ms(lambda: torch.autograd.grad(lib_out, (qg, kg, vg), do,
-                                                          retain_graph=True), reps=10)
+            lib_fb, lib_how = device_ms(lambda: torch.autograd.grad(
+                F.scaled_dot_product_attention(qg, kg, vg, attn_mask=bias), (qg, kg, vg), do))
+            lib_bwd = max(lib_fb - lib_fwd, 1e-6)
             keys, flops_fwd, bytes_fwd = flash_work(B, H, Nq, Nk, D, Dv, mask, q.element_size())
             it = q.element_size()
             rows = 8.0 * B * H * Nq                              # lse and dvec, fp32
@@ -516,9 +532,12 @@ def phase_train_kernels():
                   f"fwd+lse {rates(ms_fwd, flops_fwd, b_fwd[0], lib_fwd, grid)} | "
                   f"fwd+lse err {err_out:.3e} lse err {err_lse:.3e} | grad err rel max|grad| "
                   f"dq {errs['dq']:.3e} dk {errs['dk']:.3e} dv {errs['dv']:.3e} "
-                  f"(tol {tol_grad:.0e}) | kernel fwd+lse {ms_fwd:.3f} dkv {ms_dkv:.3f} "
-                  f"dq {ms_dq:.3f} ms | plain fwd {plain_fwd:.3f} bwd {plain_bwd:.3f} ms | "
-                  f"sdpa fwd {lib_fwd:.3f} bwd {lib_bwd:.3f} ms | bound fwd {b_fwd[0]:.4f} "
+                  f"(tol {tol_grad:.0e}) | kernel (graph) fwd+lse {ms_fwd:.4f} dkv {ms_dkv:.4f} "
+                  f"dq {ms_dq:.4f} ms, dkv+dq {ms_dkv + ms_dq:.4f} ms = "
+                  f"{(ms_dkv + ms_dq) / lib_bwd:.2f}x sdpa bwd | share of bound dkv "
+                  f"{b_dkv[0] / ms_dkv:.1%} dq {b_dq[0] / ms_dq:.1%} | plain fwd {plain_fwd:.3f} bwd {plain_bwd:.3f} ms | "
+                  f"sdpa fwd {lib_fwd:.4f} bwd {lib_bwd:.4f} ms ({lib_how} fwd+bwd "
+                  f"{lib_fb:.4f} less graph fwd) | bound fwd {b_fwd[0]:.4f} "
                   f"dkv {b_dkv[0]:.4f} dq {b_dq[0]:.4f} ms ({b_dkv[1]}) "
                   f"{'ok' if ok else 'FAIL'}")
             if not ok:
@@ -532,7 +551,7 @@ def phase_train_kernels():
                     max_abs_err=abs_dq, ms=ms_dq, plain_ms=plain_bwd, bound_ms=b_dq[0],
                     bound_by=b_dq[1], library_ms=lib_bwd)
             del q, k, v, do, out, lse, want_out, want_lse, o, dk, dv, dq, wq, wk, wv
-            del qg, kg, vg, lib_out
+            del qg, kg, vg
     torch.cuda.empty_cache()
     return best
 
@@ -815,14 +834,17 @@ def block_params(rng, C, dtype):
     return FB.BlockParams(g1, b1, wq, bq, wp, bp, g2, b2, w1, bm1, w2, bm2)
 
 
-def _check(name, label, dtype, got, want, ms, plain_ms, lib_ms, bnd, best, main):
+def _check(name, label, dtype, got, want, timed, plain_ms, lib_ms, bnd, best, main):
+    """``timed``: the kernel's (ms, how) from :func:`device_ms`; ``lib_ms``
+    a graph-replay time or None."""
+    ms, how = timed
     err = (got.float() - want.float()).abs().max().item()
     tol = tolerance(want.float(), dtype)
     ok = err <= tol and bool(torch.isfinite(got).all())
-    lib = f"{lib_ms:.3f} ms" if lib_ms is not None else "none"
+    lib = f"{lib_ms:.4f} ms (graph), {ms / lib_ms:.2f}x" if lib_ms is not None else "none"
     print(f"[8 encoder kernel] {name} {label} {dtype} max_abs_err {err:.3e} (tol {tol:.3e}) "
-          f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms library {lib} bound {bnd[0]:.4f} ms "
-          f"({bnd[1]}) {'ok' if ok else 'FAIL'}")
+          f"kernel {ms:.4f} ms ({how}) plain {plain_ms:.3f} ms library {lib} bound "
+          f"{bnd[0]:.4f} ms ({bnd[1]}), {bnd[0] / ms:.1%} of bound {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name} {label} {dtype}: err {err} (tol {tol})")
     if dtype == torch.bfloat16 and main:
@@ -848,13 +870,13 @@ def phase_encoder_kernels():
             q, k, v = qkv.reshape(1, Hp // ws, ws, Hp // ws, ws, 3, heads, 96).permute(
                 5, 0, 1, 3, 6, 2, 4, 7).reshape(3, nw, heads, n, 96).unbind(0)
             q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), reps=20)
+            lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(q, k, v))
             bnd = bound(4.0 * nw * heads * n * n * 96, it * Hp * Hp * 4 * C, dtype)
             plain_ms = cuda_ms(lambda: WA.window_attention_plain(qkv, heads, ws), reps=5)
             for name, fn in (("window_attention", WA.window_attention),
                              ("window_attention_v2", WA.window_attention_v2)):
                 got = fn(qkv, heads, ws)
-                ms = cuda_ms(lambda: fn(qkv, heads, ws), reps=20)
+                ms = device_ms(lambda: fn(qkv, heads, ws))
                 _check(name, f"[1,{Hp},{Hp},{3 * C}] ws {ws} heads {heads}", dtype, got, want,
                        ms, plain_ms, lib_ms, bnd, best, main)
             del qkv, q, k, v, want
@@ -868,7 +890,7 @@ def phase_encoder_kernels():
             args = (x, g, b, w1, b1, w2, b2)
             got = FM.ln_mlp_residual(*args)
             want = FM.ln_mlp_residual_plain(*args)
-            ms = cuda_ms(lambda: FM.ln_mlp_residual(*args), reps=20)
+            ms = device_ms(lambda: FM.ln_mlp_residual(*args))
             plain_ms = cuda_ms(lambda: FM.ln_mlp_residual_plain(*args), reps=5)
             bnd = bound(16.0 * N * C * C, it * (2 * N * C + 8 * C * C + 7 * C), dtype)
             _check("fused_mlp", f"{N}x{C}x{4 * C}", dtype, got, want, ms, plain_ms, None, bnd,
@@ -883,7 +905,7 @@ def phase_encoder_kernels():
             N, n = Bn * ws * ws, ws * ws
             got = FB.fused_window_block(wins, p, heads)
             want = FB.fused_window_block_plain(wins.reshape(-1, C), p, heads, n).reshape(wins.shape)
-            ms = cuda_ms(lambda: FB.fused_window_block(wins, p, heads), reps=20)
+            ms = device_ms(lambda: FB.fused_window_block(wins, p, heads))
             plain_ms = cuda_ms(lambda: FB.fused_window_block_plain(wins.reshape(-1, C), p, heads,
                                                                    n), reps=5)
             bnd = bound(2.0 * N * C * 12 * C + 4.0 * N * n * C,

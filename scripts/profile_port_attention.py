@@ -1,5 +1,6 @@
-"""Time the bf16 attention wrappers (B1 flash forward, B2 kv-cached) of one
-copy of the port at the main path's shapes, on one GPU.
+"""Time the bf16 attention wrappers (B1 flash forward, B2 kv-cached, the
+B3/B4 backward pair, B5 window attention) of one copy of the port at the
+main path's shapes, on one GPU.
 
     python3 scripts/profile_port_attention.py [ROOT ...] [--graph]
 
@@ -7,7 +8,8 @@ Each ROOT is a directory holding a ``medsam2_tpu_torch`` package (default:
 this checkout); each runs in its own process, in the order given, so
 ``parent change change parent`` compares two trees on one card in turns.
 The shapes, inputs and timers are ``chip_smoke.py``'s of this checkout
-(phase 3's flash and kv-cached cases, phase 3b's training cases with LSE),
+(phase 3's flash and kv-cached cases, phase 3b's training cases with LSE
+and their backward passes, phase 8's window-attention cases),
 run against each ROOT's package. Times are CUDA-event milliseconds per
 wrapper call over an eager loop of calls (host work included once the host
 falls behind the card), or with ``--graph`` over replays of a CUDA graph of
@@ -45,9 +47,20 @@ def measure(root: str, graph: bool) -> None:
         mask = s.train_mask(kind, B, Nk)
         res[f"flash+lse {label}"] = timed(
             lambda: A._flash_forward(q, k, v, mask, D ** -0.5, True))
+        do = s.rand(rng, (B, H, Nq, Dv), bf16)
+        o, lse = A.flash_attention_lse_plain(q.float(), k.float(), v.float(), mask)
+        dvec = (do.float() * o.to(bf16).float()).sum(-1)
+        res[f"bwd dkv {label}"] = timed(
+            lambda: A.flash_attention_bwd_dkv(q, k, v, mask, do, lse, dvec))
+        res[f"bwd dq {label}"] = timed(
+            lambda: A.flash_attention_bwd_dq(q, k, v, mask, do, lse, dvec))
     for B in (1, 2):
         args, _ = s.kv_inputs(rng, B, bf16)
         res[f"kv_cached @1024 B={B}"] = timed(lambda: A.kv_cached_attention(*args))
+    for Hp, heads, ws in ((70, 4, 14), (35, 8, 7)):
+        qkv = s.rand(rng, (1, Hp, Hp, 3 * 96 * heads), bf16)
+        res[f"window [1,{Hp},{Hp},{3 * 96 * heads}] ws {ws}"] = timed(
+            lambda: s.WA.window_attention(qkv, heads, ws))
     for name, ms in res.items():
         print(f"{root:>16} {name:48s} {ms:.4f} ms", flush=True)
 
