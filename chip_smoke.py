@@ -6,8 +6,10 @@ on one NVIDIA GPU.
 Phases, each printing its own line:
   1. device: the card's name and power limit (nvidia-smi);
   2. build: compile the CUDA kernels from ``medsam2_tpu_torch/csrc``, and
-     count the HGMMA (wgmma) instructions of every bf16 flash / kv-cached
-     instantiation in the library's SASS (none fails the phase);
+     count the HGMMA (wgmma) instructions of every bf16 flash, kv-cached,
+     dQ and window-attention instantiation in the library's SASS, with
+     their registers and spills (none, or a spilling dQ or window
+     instantiation, fails the phase);
   3. the propagation kernels (flash forward, kv-cached, and the split-kv
      merge) against their plain PyTorch twins at the propagation path's
      shapes and hiera_l's global attention, bf16 and fp32: device times of
@@ -16,9 +18,10 @@ Phases, each printing its own line:
      call, the twin's time per eager call, TF/s, the share of the bound, the
      ratio to the library call and the grid (blocks, kv splits);
   3b. the training kernels (flash forward with LSE, the dK/dV and dQ backward
-     passes) against their twins at the training path's shapes, bf16 and
-     fp32, with a kv mask holding stale frames, a ragged Nk and a batch whose
-     keys are all masked; times of kernel, twin and
+     passes, the dQ pass at forced kv split counts, and the dQ split sum)
+     against their twins at the training path's shapes, bf16 and fp32, with
+     a kv mask holding stale frames, a ragged Nk and a batch whose keys are
+     all masked; times of kernel, twin and
      ``F.scaled_dot_product_attention`` forward and backward (kernels and
      library calls by CUDA-graph replay; the library backward is its
      captured forward + backward less its forward);
@@ -38,8 +41,7 @@ Phases, each printing its own line:
   8. the Hiera encoder kernels (window attention and its rank-3 form, fused
      LN-MLP, fused window block) against their twins at the hiera_t @1024
      shapes, bf16 and fp32, with kernel, twin, library and bound times
-     (kernels and library calls by CUDA-graph replay, an eager loop where a
-     call cannot be captured, labelled so);
+     (kernels and library calls by CUDA-graph replay);
   9. sam2_hiera_t @512 fp32 (TF32 off), the three encoder switches on:
      ``SAM2ImagePredictor.set_image`` + ``predict`` (points, box) on the card
      against the same seeded model on the CPU, low-res logits to 1e-3;
@@ -104,19 +106,23 @@ KERNELS = {
                             replaces="medsam2_tpu/ops/attention.py:49"),
     "flash_attention_bwd_dkv": dict(source="medsam2_tpu_torch/csrc/flash_attention_bwd.cu",
                                     replaces="medsam2_tpu/ops/attention.py:227"),
-    "flash_attention_bwd_dq": dict(source="medsam2_tpu_torch/csrc/flash_attention_bwd.cu",
+    "flash_attention_bwd_dq": dict(source="medsam2_tpu_torch/csrc/flash_bwd_dq_sm90.cu",
                                    replaces="medsam2_tpu/ops/attention.py:271"),
+    # the split-kv second pass of B4: the TPU kernel carried the dQ sum over
+    # kv tiles across its sequential grid, the card splits it over blocks
+    "flash_attention_bwd_dq_sum": dict(source="medsam2_tpu_torch/csrc/flash_bwd_dq_sm90.cu",
+                                       replaces="medsam2_tpu/ops/attention.py:271"),
     "kv_cached_attention": dict(source="medsam2_tpu_torch/csrc/kv_cached_attention.cu",
                                 replaces="medsam2_tpu/ops/attention.py:454"),
     # the split-kv second pass of B1 and B2: the TPU kernels carried the sum
     # over kv tiles across their sequential grid, the card splits it over blocks
     "attention_merge": dict(source="medsam2_tpu_torch/csrc/flash_attention.cu",
                             replaces="medsam2_tpu/ops/attention.py:49"),
-    "window_attention": dict(source="medsam2_tpu_torch/csrc/window_attention.cu",
+    "window_attention": dict(source="medsam2_tpu_torch/csrc/window_attention_sm90.cu",
                              replaces="medsam2_tpu/ops/window_attention.py:45"),
     # B6 has its own Pallas kernel; the port serves it with B5's CUDA kernel
     # (launches counted under window_attention), and no path calls it
-    "window_attention_v2": dict(source="medsam2_tpu_torch/csrc/window_attention.cu",
+    "window_attention_v2": dict(source="medsam2_tpu_torch/csrc/window_attention_sm90.cu",
                                 replaces="medsam2_tpu/ops/window_attention.py:85"),
     "fused_mlp": dict(source="medsam2_tpu_torch/csrc/fused_mlp.cu",
                       replaces="medsam2_tpu/ops/fused_mlp.py:58"),
@@ -125,6 +131,10 @@ KERNELS = {
 }
 ENCODER_SWITCHES = ("MEDSAM2_FUSED_BLOCK", "MEDSAM2_FUSED_WINDOW", "MEDSAM2_FUSED_MLP")
 NO_ENCODER_LAUNCHES = {"window_attention": 0, "fused_mlp": 0, "fused_block": 0}
+# bf16 kernels whose SASS must hold HGMMA (wgmma): (mangled-name pattern,
+# instantiations): B1 (25 (D, Dv) pairs), B2, B4 (2 pairs), B5 (ws 1 to 14)
+SM90_KERNELS = (("flash_sm90_kernel", 25), ("kv_cached_sm90_kernel", 1),
+                ("flash_bwd_dq_sm90_kernel", 2), ("window_sm90_kernel", 14))
 
 
 def tolerance(want: torch.Tensor, dtype) -> float:
@@ -166,6 +176,16 @@ def merges(bh: int, nq: int, n_keys: int) -> int:
     here apart from the wrapper's ``split_count``, so that a change to that
     rule fails the exact launch counts of phases 5 and 7."""
     blocks = bh * -(-nq // 128)
+    return int(2 * blocks <= sm_count() and n_keys > 64)
+
+
+def dq_sums(bh: int, nq: int, n_keys: int, dv: int) -> int:
+    """1 if a bf16 dQ launch of this shape splits its kv range (and so runs
+    the split sum once), else 0: its blocks hold 64 query rows at Dv = 256
+    and 128 otherwise, and it splits as the forward does (2 blocks per SM
+    fit in one wave and more than one 64-key tile). Worked out here apart
+    from the wrapper's ``dq_block_rows`` and ``split_count``."""
+    blocks = bh * -(-nq // (64 if dv == 256 else 128))
     return int(2 * blocks <= sm_count() and n_keys > 64)
 
 
@@ -226,17 +246,6 @@ def graph_ms(fn, reps: int = 10, replays: int = 5) -> float:
     return start.elapsed_time(end) / (reps * replays)
 
 
-def device_ms(fn, reps: int = 10):
-    """(ms, how): device time per call by CUDA-graph replays ("graph"), or,
-    where the call cannot be captured, by an eager loop ("eager", host work
-    included once the host falls behind)."""
-    try:
-        return graph_ms(fn, reps), "graph"
-    except RuntimeError:
-        torch.cuda.synchronize()
-        return cuda_ms(fn, reps=20), "eager"
-
-
 def rand(rng, shape, dtype, scale=1.0):
     return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)).to(DEV, dtype)
 
@@ -250,17 +259,32 @@ def phase_device() -> str:
     return line
 
 
+def ptxas_report(log: str) -> dict:
+    """{mangled kernel name: (registers, spill-store bytes)} from nvcc's
+    ``-Xptxas -v`` report."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = (0, 0)
+        elif name and "spill stores" in line:
+            out[name] = (out[name][0], int(re.search(r"(\d+) bytes spill stores", line).group(1)))
+        elif name and "Used" in line and "registers" in line:
+            out[name] = (int(re.search(r"Used (\d+) registers", line).group(1)), out[name][1])
+    return out
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     lib = _build.build()
     _build.load_library()
     secs = time.perf_counter() - t0
-    log = (lib.parent / "ptxas.log").read_text()
-    regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
-    spilled = [int(s) for s in re.findall(r"(\d+) bytes spill stores", log) if int(s)]
-    print(f"[2 build] {secs:.1f} s -> {lib} | {len(regs)} kernel instantiations, "
-          f"max {max(regs)} registers, {len(spilled)} with spill stores "
-          f"(max {max(spilled, default=0)} bytes)")
+    report = ptxas_report((lib.parent / "ptxas.log").read_text())
+    spilled = {n: sp for n, (_, sp) in report.items() if sp}
+    print(f"[2 build] {secs:.1f} s -> {lib} | {len(report)} kernel instantiations, "
+          f"max {max(r for r, _ in report.values())} registers, {len(spilled)} with spill "
+          f"stores (max {max(spilled.values(), default=0)} bytes)")
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
                           check=True, timeout=300).stdout
@@ -268,19 +292,28 @@ def phase_build() -> None:
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            name = m.group(1) if ("flash_sm90_kernel" in m.group(1)
-                                  or "kv_cached_sm90_kernel" in m.group(1)) else None
+            name = m.group(1) if any(k in m.group(1) for k, _ in SM90_KERNELS) else None
             if name:
                 hgmma[name] = 0
         elif name and "HGMMA" in line:
             hgmma[name] += 1
-    short = {re.sub(r".*(flash_sm90_kernelILi\d+ELi\d+E|kv_cached_sm90_kernel).*", r"\1", n): c
-             for n, c in hgmma.items()}
-    ok = len(hgmma) == 26 and min(hgmma.values()) > 0
-    print(f"[2 sass] HGMMA instructions per bf16 B1/B2 instantiation ({len(hgmma)} of 26): "
-          f"{short} {'ok' if ok else 'FAIL'}")
-    if not ok:
-        raise AssertionError(f"wgmma missing from the bf16 attention kernels: {short}")
+    failed = []
+    for kind, count in SM90_KERNELS:
+        mine = {n: c for n, c in hgmma.items() if kind in n}
+        regs = {n: report.get(n, (None, None)) for n in mine}
+        ok = len(mine) == count and min(mine.values(), default=0) > 0
+        # the kernels this PR's checks hold to no spills: the bf16 dQ pass and
+        # the window attention
+        if kind in ("flash_bwd_dq_sm90_kernel", "window_sm90_kernel"):
+            ok = ok and all(sp == 0 for _, sp in regs.values())
+        short = {re.sub(r"^_Z\w*?" + kind, "", n)[:24] or kind: (c, *regs[n])
+                 for n, c in mine.items()}
+        print(f"[2 sass] {kind}: {len(mine)} of {count} instantiations, (HGMMA, registers, "
+              f"spill bytes) {short} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(kind)
+    if failed:
+        raise AssertionError(f"wgmma missing or spills in the bf16 kernels: {failed}")
 
 
 def flash_work(B, H, Nq, Nk, D, Dv, mask, itemsize):
@@ -498,6 +531,14 @@ def phase_train_kernels():
             ok = ok and max(errs.values()) <= tol_grad
             if kind == "dead":
                 ok = ok and dq[0].abs().max().item() == 0 and dk[0].abs().max().item() == 0
+            # the bf16 dQ pass at forced split counts (the wrapper's pick is
+            # 4 for the self-attention, 8 for the cross-attention)
+            split_errs = {}
+            if dtype == torch.bfloat16 and kind != "dead":
+                for sp in (1, 2, 3, 7):
+                    split_errs[sp] = rel_err(A.flash_attention_bwd_dq(
+                        q, k, v, mask, do, want_lse, dvec, _splits=sp), wq)
+                ok = ok and max(split_errs.values()) <= tol_grad
             # times: kernels, twins, and the library call forward and backward
             ms_fwd = graph_ms(lambda: A._flash_forward(q, k, v, mask, scale, True))
             ms_dkv = graph_ms(lambda: A.flash_attention_bwd_dkv(q, k, v, mask, do, want_lse,
@@ -510,9 +551,9 @@ def phase_train_kernels():
             bias = None if mask is None else mask[:, None, None, :]
             lib_fwd = graph_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias))
             # the library backward: forward + backward captured together, less
-            # the forward (an eager loop where autograd cannot be captured)
+            # the forward
             qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
-            lib_fb, lib_how = device_ms(lambda: torch.autograd.grad(
+            lib_fb = graph_ms(lambda: torch.autograd.grad(
                 F.scaled_dot_product_attention(qg, kg, vg, attn_mask=bias), (qg, kg, vg), do))
             lib_bwd = max(lib_fb - lib_fwd, 1e-6)
             keys, flops_fwd, bytes_fwd = flash_work(B, H, Nq, Nk, D, Dv, mask, q.element_size())
@@ -532,12 +573,14 @@ def phase_train_kernels():
                   f"fwd+lse {rates(ms_fwd, flops_fwd, b_fwd[0], lib_fwd, grid)} | "
                   f"fwd+lse err {err_out:.3e} lse err {err_lse:.3e} | grad err rel max|grad| "
                   f"dq {errs['dq']:.3e} dk {errs['dk']:.3e} dv {errs['dv']:.3e} "
-                  f"(tol {tol_grad:.0e}) | kernel (graph) fwd+lse {ms_fwd:.4f} dkv {ms_dkv:.4f} "
+                  f"(tol {tol_grad:.0e}), dq at forced splits "
+                  f"{ {sp: f'{e:.3e}' for sp, e in split_errs.items()} } | dq grid "
+                  f"{dq_grid(B * H, Nq, Nk, Dv, dtype)} | kernel (graph) fwd+lse {ms_fwd:.4f} dkv {ms_dkv:.4f} "
                   f"dq {ms_dq:.4f} ms, dkv+dq {ms_dkv + ms_dq:.4f} ms = "
                   f"{(ms_dkv + ms_dq) / lib_bwd:.2f}x sdpa bwd | share of bound dkv "
                   f"{b_dkv[0] / ms_dkv:.1%} dq {b_dq[0] / ms_dq:.1%} | plain fwd {plain_fwd:.3f} bwd {plain_bwd:.3f} ms | "
-                  f"sdpa fwd {lib_fwd:.4f} bwd {lib_bwd:.4f} ms ({lib_how} fwd+bwd "
-                  f"{lib_fb:.4f} less graph fwd) | bound fwd {b_fwd[0]:.4f} "
+                  f"sdpa fwd {lib_fwd:.4f} bwd {lib_bwd:.4f} ms (graph fwd+bwd "
+                  f"{lib_fb:.4f} less fwd) | bound fwd {b_fwd[0]:.4f} "
                   f"dkv {b_dkv[0]:.4f} dq {b_dq[0]:.4f} ms ({b_dkv[1]}) "
                   f"{'ok' if ok else 'FAIL'}")
             if not ok:
@@ -549,11 +592,47 @@ def phase_train_kernels():
                     bound_by=b_dkv[1], library_ms=lib_bwd)
                 best["flash_attention_bwd_dq"] = dict(
                     max_abs_err=abs_dq, ms=ms_dq, plain_ms=plain_bwd, bound_ms=b_dq[0],
-                    bound_by=b_dq[1], library_ms=lib_bwd)
+                    bound_by=b_dq[1], library_ms=lib_bwd,
+                    ms_includes_sum=dq_grid(B * H, Nq, Nk, Dv, dtype)[1] > 1)
             del q, k, v, do, out, lse, want_out, want_lse, o, dk, dv, dq, wq, wk, wv
             del qg, kg, vg
+    best["flash_attention_bwd_dq_sum"] = dq_sum_kernel(rng)
     torch.cuda.empty_cache()
     return best
+
+
+def dq_grid(bh: int, nq: int, nk: int, dv: int, dtype):
+    """(blocks, kv splits) of a dQ launch: bf16 one block per
+    ``dq_block_rows`` query rows and head, split by the one-wave rule; fp32
+    one block per 32 rows."""
+    if dtype != torch.bfloat16:
+        return bh * -(-nq // 32), 1
+    q_tiles = bh * -(-nq // A.dq_block_rows(dv))
+    splits = A.split_count(q_tiles, -(-nk // 64), sm_count())
+    return q_tiles * splits, splits
+
+
+def dq_sum_kernel(rng) -> dict:
+    """The dQ split sum at the training cross-attention's split (8 partials
+    of [2 * 1024, 256] fp32)."""
+    S, rows, D = dq_grid(2, 1024, 10316, 64, torch.bfloat16)[1], 2048, 256
+    parts = rand(rng, (S, rows, D), torch.float32)
+    got = A.flash_attention_bwd_dq_sum(parts, 0.0625)
+    want = A.flash_attention_bwd_dq_sum_plain(parts, 0.0625)
+    err = (got - want).abs().max().item()
+    tol = 1e-6 * want.abs().max().item()
+    ms = graph_ms(lambda: A.flash_attention_bwd_dq_sum(parts, 0.0625))
+    plain_ms = cuda_ms(lambda: A.flash_attention_bwd_dq_sum_plain(parts, 0.0625), reps=10)
+    bound_ms, bound_by = bound(0.0, 4.0 * (S + 1) * rows * D, torch.float32)
+    ok = err <= tol
+    print(f"[3b train kernel] flash_attention_bwd_dq_sum {S} splits x [{rows}, {D}] fp32 "
+          f"max_abs_err {err:.3e} (tol {tol:.3e}) kernel {ms:.4f} ms (graph) plain "
+          f"{plain_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of bound "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"flash_attention_bwd_dq_sum: err {err}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None)
 
 
 def volume(T: int, size: int, seed: int) -> np.ndarray:
@@ -639,7 +718,7 @@ def phase_full_width(power_line: str):
     tok = (cfg.image_size // 16) ** 2
     want = {"flash_attention": n_global * encoded + n_layers * tracked,
             "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0,
-            "kv_cached_attention": n_layers * tracked,
+            "flash_attention_bwd_dq_sum": 0, "kv_cached_attention": n_layers * tracked,
             "attention_merge": n_global * encoded * merges(4, tok, tok)
             + n_layers * tracked * (merges(1, tok, tok) + merges(1, tok, 8 * tok + 64)),
             **NO_ENCODER_LAUNCHES}
@@ -688,7 +767,10 @@ def train_launches(cfg, rcfg, bf16: bool) -> dict:
     self-attention, whose input is the frozen encoder's output: 2L - 1. In
     bf16 every forward whose grid leaves SMs idle splits its kv range and
     runs the merge: the global attention [1, 4, tok, 96] and the memory
-    attention over O objects [O, 1, tok, *] (tok = 1024 @512)."""
+    attention over O objects [O, 1, tok, *] (tok = 1024 @512). A bf16 dQ
+    launch that splits runs the split sum: per tracked frame 2L - 1
+    self-attention backwards (the sam pull skips one) and 2L
+    cross-attention ones, over at least one memory frame of tok keys."""
     T = rcfg.video_length
     tracked = T - len(rcfg.prompt_frames)
     L = cfg.memory_attention.num_layers
@@ -697,9 +779,12 @@ def train_launches(cfg, rcfg, bf16: bool) -> dict:
     tok, O = (cfg.image_size // 16) ** 2, rcfg.num_objects
     merge = (n_global * T * merges(4, tok, tok) + tracked * L * 2 * merges(O, tok, tok)
              if bf16 else 0)
+    dq_sum = (tracked * ((2 * L - 1) * dq_sums(O, tok, tok, 256) + 2 * L * dq_sums(O, tok, tok, 64))
+              if bf16 else 0)
     return {"flash_attention": n_global * T + tracked * 2 * L,
             "flash_attention_bwd_dkv": bwd, "flash_attention_bwd_dq": bwd,
-            "kv_cached_attention": 0, "attention_merge": merge, **NO_ENCODER_LAUNCHES}
+            "flash_attention_bwd_dq_sum": dq_sum, "kv_cached_attention": 0,
+            "attention_merge": merge, **NO_ENCODER_LAUNCHES}
 
 
 def train_grads(model):
@@ -834,16 +919,15 @@ def block_params(rng, C, dtype):
     return FB.BlockParams(g1, b1, wq, bq, wp, bp, g2, b2, w1, bm1, w2, bm2)
 
 
-def _check(name, label, dtype, got, want, timed, plain_ms, lib_ms, bnd, best, main):
-    """``timed``: the kernel's (ms, how) from :func:`device_ms`; ``lib_ms``
-    a graph-replay time or None."""
-    ms, how = timed
+def _check(name, label, dtype, got, want, ms, plain_ms, lib_ms, bnd, best, main):
+    """``ms`` and ``lib_ms`` (None without a library call): graph-replay
+    device times."""
     err = (got.float() - want.float()).abs().max().item()
     tol = tolerance(want.float(), dtype)
     ok = err <= tol and bool(torch.isfinite(got).all())
     lib = f"{lib_ms:.4f} ms (graph), {ms / lib_ms:.2f}x" if lib_ms is not None else "none"
     print(f"[8 encoder kernel] {name} {label} {dtype} max_abs_err {err:.3e} (tol {tol:.3e}) "
-          f"kernel {ms:.4f} ms ({how}) plain {plain_ms:.3f} ms library {lib} bound "
+          f"kernel {ms:.4f} ms (graph) plain {plain_ms:.3f} ms library {lib} bound "
           f"{bnd[0]:.4f} ms ({bnd[1]}), {bnd[0] / ms:.1%} of bound {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name} {label} {dtype}: err {err} (tol {tol})")
@@ -876,9 +960,12 @@ def phase_encoder_kernels():
             for name, fn in (("window_attention", WA.window_attention),
                              ("window_attention_v2", WA.window_attention_v2)):
                 got = fn(qkv, heads, ws)
-                ms = device_ms(lambda: fn(qkv, heads, ws))
-                _check(name, f"[1,{Hp},{Hp},{3 * C}] ws {ws} heads {heads}", dtype, got, want,
-                       ms, plain_ms, lib_ms, bnd, best, main)
+                ms = graph_ms(lambda: fn(qkv, heads, ws))
+                parts, _, wgs = WA.window_query_parts(ws)
+                grid = (f"{nw * heads * parts} CTAs of {wgs} warpgroups" if dtype == torch.bfloat16
+                        else "fp32 FMA")
+                _check(name, f"[1,{Hp},{Hp},{3 * C}] ws {ws} heads {heads} ({grid})", dtype, got,
+                       want, ms, plain_ms, lib_ms, bnd, best, main)
             del qkv, q, k, v, want
         # B7: the MLP tails of hiera_t @1024 (rows x C, hidden 4C), and a
         # ragged row count
@@ -890,7 +977,7 @@ def phase_encoder_kernels():
             args = (x, g, b, w1, b1, w2, b2)
             got = FM.ln_mlp_residual(*args)
             want = FM.ln_mlp_residual_plain(*args)
-            ms = device_ms(lambda: FM.ln_mlp_residual(*args))
+            ms = graph_ms(lambda: FM.ln_mlp_residual(*args))
             plain_ms = cuda_ms(lambda: FM.ln_mlp_residual_plain(*args), reps=5)
             bnd = bound(16.0 * N * C * C, it * (2 * N * C + 8 * C * C + 7 * C), dtype)
             _check("fused_mlp", f"{N}x{C}x{4 * C}", dtype, got, want, ms, plain_ms, None, bnd,
@@ -905,7 +992,7 @@ def phase_encoder_kernels():
             N, n = Bn * ws * ws, ws * ws
             got = FB.fused_window_block(wins, p, heads)
             want = FB.fused_window_block_plain(wins.reshape(-1, C), p, heads, n).reshape(wins.shape)
-            ms = device_ms(lambda: FB.fused_window_block(wins, p, heads))
+            ms = graph_ms(lambda: FB.fused_window_block(wins, p, heads))
             plain_ms = cuda_ms(lambda: FB.fused_window_block_plain(wins.reshape(-1, C), p, heads,
                                                                    n), reps=5)
             bnd = bound(2.0 * N * C * 12 * C + 4.0 * N * n * C,

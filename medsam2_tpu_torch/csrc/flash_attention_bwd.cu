@@ -30,16 +30,18 @@
 // What bounds it on the H100: 2*Nq*Nk*(2*D + 2*Dv) flops for dkv and
 // 2*Nq*Nk*(2*D + Dv) for dq (S and dP are recomputed in each) against
 // O((Nq + Nk) * (D + Dv)) bytes: far above the ~295 flop/byte ridge at the
-// training shapes, so tensor-core issue rate bounds both. Unlike the forward,
-// nothing is rescaled per row, so the dK/dV and dQ accumulators stay in WMMA
-// accumulator fragments (registers) and only the K/V/Q/dO tiles, S, dP and
-// the rounded P/dS live in shared memory: at D = Dv = 256 bf16 with 64-row
-// tiles that is 189 KB. bf16 runs WMMA (mma.sync 16x16x16) on 8 warps; fp32
-// runs plain FMA on 32-row tiles with no TF32 (the JAX package pins
-// Precision.HIGHEST for fp32). A wgmma + TMA pipeline, and more than the
-// (BH x 16) blocks the dq pass has at the training shapes, are later work.
+// training shapes, so tensor-core issue rate bounds both. The bf16 dq pass
+// is the wgmma + TMA design of flash_bwd_dq_sm90.cu, with split-kv. In this
+// file, nothing is rescaled per row, so the dK/dV and dQ accumulators stay in
+// WMMA accumulator fragments (registers) and only the K/V/Q/dO tiles, S, dP
+// and the rounded P/dS live in shared memory: at D = Dv = 256 bf16 with
+// 64-row tiles that is 189 KB. bf16 dkv runs WMMA (mma.sync 16x16x16) on 8
+// warps; fp32 runs plain FMA on 32-row tiles with no TF32 (the JAX package
+// pins Precision.HIGHEST for fp32).
 
 #include "attention_tile.cuh"
+#include "flash_bwd_sm90.cuh"
+#include "hopper_attention.cuh"
 
 namespace medsam2 {
 namespace {
@@ -404,9 +406,10 @@ struct BwdArgs {
   const void* dout;
   const float* lse;
   const float* dvec;
-  float* da;  // dK (dkv pass) or dQ (dq pass)
-  float* db;  // dV (dkv pass)
-  int BH, H, Nq, Nk, rows_out;
+  float* da;    // dK (dkv pass) or dQ (dq pass)
+  float* db;    // dV (dkv pass)
+  float* part;  // bf16 dq pass with splits > 1: [splits, BH * Nq, D] partials
+  int BH, H, Nq, Nk, rows_out, splits;
   float scale;
   cudaStream_t stream;
 };
@@ -424,15 +427,16 @@ struct BwdLaunch {
     const T* v = static_cast<const T*>(a.v);
     const T* dout = static_cast<const T*>(a.dout);
     cudaError_t e;
+    static unsigned long long smem_set = 0;
     if constexpr (DKV) {
       auto kern = flash_bwd_dkv_kernel<T, D, DV>;
-      e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::bytes);
+      e = hopper::allow_smem(reinterpret_cast<const void*>(kern), (int)L::bytes, smem_set);
       if (e != cudaSuccess) return e;
       kern<<<grid, kBwdThreads, L::bytes, a.stream>>>(q, k, v, a.mask, dout, a.lse, a.dvec, a.da,
                                                        a.db, a.H, a.Nq, a.Nk, a.rows_out, a.scale);
     } else {
       auto kern = flash_bwd_dq_kernel<T, D, DV>;
-      e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::bytes);
+      e = hopper::allow_smem(reinterpret_cast<const void*>(kern), (int)L::bytes, smem_set);
       if (e != cudaSuccess) return e;
       kern<<<grid, kBwdThreads, L::bytes, a.stream>>>(q, k, v, a.mask, dout, a.lse, a.dvec, a.da,
                                                        a.H, a.Nq, a.Nk, a.rows_out, a.scale);
@@ -450,12 +454,32 @@ cudaError_t dispatch_bwd_dims(int d, int dv, Fn&& fn) {
   return cudaErrorInvalidValue;
 }
 
+// The bf16 dq pass on Hopper (flash_bwd_dq_sm90.cu).
+struct DqSm90 {
+  const BwdArgs& a;
+  template <int D, int DV>
+  cudaError_t operator()() const {
+    return hopper::flash_bwd_dq_sm90<D, DV>({a.q, a.k, a.v, a.mask, a.dout, a.lse, a.dvec, a.da,
+                                             a.part, a.BH, a.H, a.Nq, a.Nk, a.rows_out,
+                                             a.splits, a.scale, a.stream});
+  }
+};
+
 template <bool DKV>
 int launch_bwd(const BwdArgs& a, int D, int Dv, int dtype) {
   if (a.BH <= 0 || a.H <= 0 || a.BH % a.H != 0 || a.Nq <= 0 || a.Nk <= 0 || a.rows_out % 64 != 0)
     return (int)cudaErrorInvalidValue;
   if (a.rows_out < (DKV ? a.Nk : a.Nq)) return (int)cudaErrorInvalidValue;
-  if (dtype == 1) return (int)dispatch_bwd_dims(D, Dv, BwdLaunch<bf16, DKV>{a});
+  // only the bf16 dq pass splits its kv range
+  const bool sm90 = !DKV && dtype == 1;
+  if (a.splits < 1 || (a.splits > 1 && (!sm90 || a.part == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 1) {
+    if constexpr (DKV)
+      return (int)dispatch_bwd_dims(D, Dv, BwdLaunch<bf16, true>{a});
+    else
+      return (int)dispatch_bwd_dims(D, Dv, DqSm90{a});
+  }
   if (dtype == 0) return (int)dispatch_bwd_dims(D, Dv, BwdLaunch<float, DKV>{a});
   return (int)cudaErrorInvalidValue;
 }
@@ -475,19 +499,24 @@ extern "C" int medsam2_flash_attention_bwd_dkv(const void* q, const void* k, con
                                                int Nk_out, int D, int Dv, float scale, int dtype,
                                                void* stream) {
   using namespace medsam2;
-  const BwdArgs a{q,  k,  v, mask, dout, lse, dvec, dk, dv, BH, H, Nq, Nk, Nk_out,
+  const BwdArgs a{q,  k,  v,  mask,   dout, lse, dvec, dk, dv, nullptr, BH, H, Nq, Nk, Nk_out, 1,
                   scale, static_cast<cudaStream_t>(stream)};
   return launch_bwd<true>(a, D, Dv, dtype);
 }
 
-// As above; dq [BH, Nq_out, D] float32, Nq_out >= Nq a multiple of 64.
+// As above; dq [BH, Nq_out, D] float32, Nq_out >= Nq a multiple of 64. The
+// bf16 pass may split its kv tiles over `splits` blocks per query tile: it
+// then writes unscaled partials to part [splits, BH * Nq, D] float32 (dq
+// untouched), which medsam2_flash_attention_bwd_dq_sum adds; fp32 takes
+// splits = 1 only.
 extern "C" int medsam2_flash_attention_bwd_dq(const void* q, const void* k, const void* v,
                                               const float* mask, const void* dout,
                                               const float* lse, const float* dvec, float* dq,
-                                              int BH, int H, int Nq, int Nk, int Nq_out, int D,
-                                              int Dv, float scale, int dtype, void* stream) {
+                                              float* part, int BH, int H, int Nq, int Nk,
+                                              int Nq_out, int D, int Dv, float scale, int splits,
+                                              int dtype, void* stream) {
   using namespace medsam2;
-  const BwdArgs a{q,  k,  v, mask, dout, lse, dvec, dq, nullptr, BH, H, Nq, Nk, Nq_out,
-                  scale, static_cast<cudaStream_t>(stream)};
+  const BwdArgs a{q,  k,  v,  mask,   dout, lse, dvec, dq, nullptr, part, BH, H, Nq, Nk, Nq_out,
+                  splits, scale, static_cast<cudaStream_t>(stream)};
   return launch_bwd<false>(a, D, Dv, dtype);
 }

@@ -196,6 +196,44 @@ __device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t desc_a, uint64_t
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
+// Narrower S = Q K^T products (N = 16, 32 or 48 keys), both operands K-major in
+// shared memory: the window kernel's last key group.
+__device__ __forceinline__ void wgmma_ss_n16(float* d, uint64_t desc_a, uint64_t desc_b,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+__device__ __forceinline__ void wgmma_ss_n32(float* d, uint64_t desc_a, uint64_t desc_b,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, "
+      "0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+__device__ __forceinline__ void wgmma_ss_n48(float* d, uint64_t desc_a, uint64_t desc_b,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23}, %24, %25, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
 // D[64 x N] += A[64 x 16] * B[16 x N], A from registers (bf16 pairs), B from
 // shared memory MN-major (transposed); N = 64, 32 or 16.
 __device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a, uint64_t desc_b) {
@@ -506,15 +544,15 @@ inline EncodeTiledFn encode_tiled() {
 }
 
 // A 3D map over a contiguous bf16 tensor [d2][d1][d0] with box
-// {box0, box1, 1}, swizzled as a chunk box0 columns wide. Out-of-range
+// {box0, box1, box2}, swizzled as a chunk box0 columns wide. Out-of-range
 // elements read as zero. Returns false when the driver refuses it.
 inline bool make_map(CUtensorMap* map, const void* base, uint64_t d0, uint64_t d1, uint64_t d2,
-                     uint32_t box0, uint32_t box1) {
+                     uint32_t box0, uint32_t box1, uint32_t box2 = 1) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[3] = {d0, d1 > 0 ? d1 : 1, d2 > 0 ? d2 : 1};
   const cuuint64_t strides[2] = {d0 * 2, d0 * dims[1] * 2};
-  const cuuint32_t box[3] = {box0, box1, 1};
+  const cuuint32_t box[3] = {box0, box1, box2};
   const cuuint32_t elem[3] = {1, 1, 1};
   const CUtensorMapSwizzle sw = box0 == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
                                 : box0 == 32 ? CU_TENSOR_MAP_SWIZZLE_64B

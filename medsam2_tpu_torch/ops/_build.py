@@ -108,7 +108,10 @@ def load_library() -> ctypes.CDLL:
     fn.argtypes = [vp] * 9 + [i] * 7 + [f, i, vp]
     fn.restype = i
     fn = lib.medsam2_flash_attention_bwd_dq
-    fn.argtypes = [vp] * 8 + [i] * 7 + [f, i, vp]
+    fn.argtypes = [vp] * 9 + [i] * 7 + [f, i, i, vp]
+    fn.restype = i
+    fn = lib.medsam2_flash_attention_bwd_dq_sum
+    fn.argtypes = [vp, vp, i, i, i, f, vp]
     fn.restype = i
     fn = lib.medsam2_kv_cached_attention_fwd
     fn.argtypes = [vp] * 11 + [i] * 10 + [f, i, i, vp]

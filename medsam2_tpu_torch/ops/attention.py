@@ -24,7 +24,10 @@ roped-key cache goes through :func:`kv_cached_attention`.
   SMs idle, the wrapper splits the kv range over several blocks, each of
   which writes a normalised fp32 partial output and its LSE, and
   :func:`attention_merge` (``csrc/flash_attention.cu``) combines them;
-  :func:`attention_merge_plain` is its twin.
+  :func:`attention_merge_plain` is its twin. The bf16 dQ pass runs the same
+  design (``csrc/flash_bwd_dq_sm90.cu``), splits its kv range by the same
+  rule, and :func:`flash_attention_bwd_dq_sum` adds its fp32 partials in
+  split order (twin :func:`flash_attention_bwd_dq_sum_plain`).
 
 There is no fallback: a CUDA tensor either reaches its kernel or the wrapper
 raises. Shapes follow the JAX package: q [B, H, Nq, D], k [B, H, Nk, D],
@@ -118,6 +121,18 @@ def flash_attention_plain(q, k, v, kv_mask=None, scale=None):
     return flash_attention_lse_plain(q, k, v, kv_mask, scale)[0]
 
 
+def bwd_scores_plain(q, k, v, kv_mask, lse, do, dvec, scale):
+    """P and dS of the backward kernels in plain PyTorch: S = Q K^T * scale,
+    P = exp(min(S - lse, 0)) * mask (fp32), dP = dO V^T and
+    dS = P (dP - dvec) rounded to the input dtype. dvec [..., Nq] fp32.
+    Returns (p, ds), both fp32."""
+    dt = q.dtype
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    p = torch.exp(torch.clamp(s - lse.float()[..., None], max=0.0)) * _mask_float(kv_mask, k)
+    dp = torch.matmul(do.to(dt).float(), v.float().transpose(-1, -2))
+    return p, (p * (dp - dvec.float()[..., None])).to(dt).float()
+
+
 def flash_attention_bwd_plain(q, k, v, kv_mask, o, lse, do, scale=None):
     """The backward kernels' math in plain PyTorch (``_bwd_dkv_kernel`` and
     ``_bwd_dq_kernel``, ``medsam2_tpu/ops/attention.py:227-301``):
@@ -127,16 +142,11 @@ def flash_attention_bwd_plain(q, k, v, kv_mask, o, lse, do, scale=None):
     Returns (dq, dk, dv) in the input dtypes."""
     scale = _default_scale(q, scale)
     dt = q.dtype
-    qf, kf, vf = q.float(), k.float(), v.float()
-    do_c = do.to(dt).float()
-    dvec = (do.float() * o.float()).sum(dim=-1, keepdim=True)
-    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
-    p = torch.exp(torch.clamp(s - lse.float()[..., None], max=0.0)) * _mask_float(kv_mask, k)
-    dv = torch.matmul(p.to(dt).float().transpose(-1, -2), do_c)
-    dp = torch.matmul(do_c, vf.transpose(-1, -2))
-    ds = (p * (dp - dvec)).to(dt).float()
-    dq = torch.matmul(ds, kf) * scale
-    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
+    dvec = (do.float() * o.float()).sum(dim=-1)
+    p, ds = bwd_scores_plain(q, k, v, kv_mask, lse, do, dvec, scale)
+    dv = torch.matmul(p.to(dt).float().transpose(-1, -2), do.to(dt).float())
+    dq = torch.matmul(ds, k.float()) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), q.float()) * scale
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -327,11 +337,55 @@ def _padded_rows(n: int) -> int:
     return -(-n // _BWD_ROWS) * _BWD_ROWS
 
 
-def _flash_bwd_launch(which: str, q, k, v, kv_mask, do, lse, dvec, scale):
+def dq_block_rows(Dv: int) -> int:
+    """Query rows of one block of the bf16 dQ pass
+    (``csrc/flash_bwd_dq_sm90.cu``): two consumer warpgroups of 64 rows, one
+    at Dv = 256, where Q and dO of 128 rows would leave no room for a
+    two-stage kv ring."""
+    return 64 if Dv == 256 else 128
+
+
+def flash_attention_bwd_dq_sum_plain(parts, scale: float):
+    """The dQ split sum's math: ``scale`` times the fp32 partials [S, ..., D]
+    added in split order, ((p0 + p1) + p2) + ..."""
+    acc = parts[0].float()
+    for part in parts[1:]:
+        acc = acc + part.float()
+    return acc * scale
+
+
+def flash_attention_bwd_dq_sum(parts, scale: float):
+    """Add the bf16 dQ pass's split-kv partials (see
+    :func:`flash_attention_bwd_dq_sum_plain`), in fp32. On the card it
+    launches ``csrc/flash_bwd_dq_sm90.cu``'s sum kernel (fixed order, no
+    atomics); on the CPU it runs the twin. parts [S, ..., D] fp32 ->
+    [..., D] fp32."""
+    if not _check_device(parts, "flash_attention_bwd_dq_sum"):
+        return flash_attention_bwd_dq_sum_plain(parts, scale)
+    S, D = parts.shape[0], parts.shape[-1]
+    if parts.dtype != torch.float32 or D % 4:
+        raise TypeError("flash_attention_bwd_dq_sum: the kernel adds fp32 partials, D a "
+                        "multiple of 4")
+    lead = parts.shape[1:-1]
+    rows = math.prod(lead)
+    src = _aligned(parts.reshape(S, rows, D))
+    out = torch.empty(rows, D, device=parts.device, dtype=torch.float32)
+    from medsam2_tpu_torch.ops._build import load_library
+
+    rc = load_library().medsam2_flash_attention_bwd_dq_sum(
+        src.data_ptr(), out.data_ptr(), S, rows, D, ctypes.c_float(scale), _stream(parts))
+    _raise_on_error(rc, "flash_attention_bwd_dq_sum")
+    flash_attention_bwd_dq_sum.launches += 1
+    return out.reshape(*lead, D)
+
+
+def _flash_bwd_launch(which: str, q, k, v, kv_mask, do, lse, dvec, scale, _splits=None):
     """One launch of ``csrc/flash_attention_bwd.cu``'s ``which`` pass: "dkv"
     (one block per kv tile) returns (dk, dv), "dq" (one block per q tile)
     returns (dq,), each in its input's dtype. The kernels write fp32 into
-    buffers padded to whole tiles."""
+    buffers padded to whole tiles. The bf16 dq pass splits its kv range
+    when its blocks leave SMs idle (``_splits`` forces the count, for tests)
+    and then adds the partials with :func:`flash_attention_bwd_dq_sum`."""
     name = f"flash_attention_bwd_{which}"
     B, H, Nq, Nk, D, Dv, code = _flash_shapes(q, k, v, name)
     if (D, Dv) not in BWD_HEAD_DIMS:
@@ -341,9 +395,19 @@ def _flash_bwd_launch(which: str, q, k, v, kv_mask, do, lse, dvec, scale):
         raise ValueError(f"{name}: do {tuple(do.shape)} / lse {tuple(lse.shape)} / "
                          f"dvec {tuple(dvec.shape)} disagree with q {tuple(q.shape)}")
     n, like = (Nk, (k, v)) if which == "dkv" else (Nq, (q,))
+    splits = 1
+    if which == "dq":
+        splits = _splits_for(q, B * H * -(-Nq // dq_block_rows(Dv)), -(-Nk // _SM90_TILE),
+                             _splits, name)
+    elif _splits not in (None, 1):
+        raise ValueError(f"{name}: only the bf16 dq pass splits the kv range")
+    part = (torch.empty(splits, B * H * Nq, D, device=q.device, dtype=torch.float32)
+            if splits > 1 else None)
     rows = _padded_rows(n)
-    outs = [torch.empty(B * H, rows, t.shape[-1], device=q.device, dtype=torch.float32)
-            for t in like]
+    # a split dq pass writes only its partials
+    outs = [] if part is not None else [
+        torch.empty(B * H, rows, t.shape[-1], device=q.device, dtype=torch.float32)
+        for t in like]
     mask = _mask_arg(kv_mask, B, Nk, q.device, name)
     ins = (_aligned(q.reshape(B * H, Nq, D)), _aligned(k.reshape(B * H, Nk, D)),
            _aligned(v.reshape(B * H, Nk, Dv)))
@@ -352,16 +416,25 @@ def _flash_bwd_launch(which: str, q, k, v, kv_mask, do, lse, dvec, scale):
                         _aligned(dvec.to(torch.float32).reshape(B * H, Nq)))
     from medsam2_tpu_torch.ops._build import load_library
 
-    rc = getattr(load_library(), "medsam2_" + name)(
-        *(t.data_ptr() for t in ins), _ptr(mask),
-        do_.data_ptr(), lse_.data_ptr(), dvec_.data_ptr(), *(o.data_ptr() for o in outs),
-        B * H, H, Nq, Nk, rows, D, Dv, ctypes.c_float(_default_scale(q, scale)), code,
-        _stream(q))
+    scale = _default_scale(q, scale)
+    lib = load_library()
+    args = [*(t.data_ptr() for t in ins), _ptr(mask), do_.data_ptr(), lse_.data_ptr(),
+            dvec_.data_ptr(), *(_ptr(o) for o in (outs or [None]))]
+    if which == "dkv":
+        rc = lib.medsam2_flash_attention_bwd_dkv(*args, B * H, H, Nq, Nk, rows, D, Dv,
+                                                 ctypes.c_float(scale), code, _stream(q))
+    else:
+        rc = lib.medsam2_flash_attention_bwd_dq(*args, _ptr(part), B * H, H, Nq, Nk, rows, D,
+                                                Dv, ctypes.c_float(scale), splits, code,
+                                                _stream(q))
     _raise_on_error(rc, name)
     if which == "dkv":
         flash_attention_bwd_dkv.launches += 1
     else:
         flash_attention_bwd_dq.launches += 1
+    if part is not None:
+        dq = flash_attention_bwd_dq_sum(part, scale)
+        return (dq.reshape(B, H, Nq, D).to(q.dtype),)
     return tuple(o[:, :n].reshape(B, H, n, o.shape[-1]).to(t.dtype) for o, t in zip(outs, like))
 
 
@@ -372,10 +445,11 @@ def flash_attention_bwd_dkv(q, k, v, kv_mask, do, lse, dvec, scale=None):
     return _flash_bwd_launch("dkv", q, k, v, kv_mask, do, lse, dvec, scale)
 
 
-def flash_attention_bwd_dq(q, k, v, kv_mask, do, lse, dvec, scale=None):
+def flash_attention_bwd_dq(q, k, v, kv_mask, do, lse, dvec, scale=None, _splits=None):
     """dQ of flash attention on the card (replaces the Pallas
-    ``_bwd_dq_kernel``). Arguments as :func:`flash_attention_bwd_dkv`."""
-    return _flash_bwd_launch("dq", q, k, v, kv_mask, do, lse, dvec, scale)[0]
+    ``_bwd_dq_kernel``). Arguments as :func:`flash_attention_bwd_dkv`;
+    ``_splits`` forces the bf16 pass's kv split count (tests)."""
+    return _flash_bwd_launch("dq", q, k, v, kv_mask, do, lse, dvec, scale, _splits)[0]
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -521,7 +595,7 @@ def kv_cached_attention(q, kcache, pos_rows, row_of_slot, ptr_k, v_slots,
 
 # Launch counts: each wrapper adds one where it launches its kernel.
 _COUNTED = (flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dq,
-            kv_cached_attention, attention_merge)
+            flash_attention_bwd_dq_sum, kv_cached_attention, attention_merge)
 for _fn in _COUNTED:
     _fn.launches = 0
 

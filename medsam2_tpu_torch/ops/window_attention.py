@@ -7,8 +7,10 @@ window attends within itself, fp32 logits and softmax, probabilities cast to
 the input dtype before the PV product, fp32 accumulation.
 
 - :func:`window_attention` replaces the Pallas ``_window_attn_kernel``. CUDA
-  tensors launch ``csrc/window_attention.cu`` (head dim 96, ws^2 <= 196);
-  CPU tensors run :func:`window_attention_plain`.
+  tensors launch ``csrc/window_attention.cu`` (head dim 96, ws^2 <= 196):
+  bf16 runs the wgmma + TMA kernel of ``csrc/window_attention_sm90.cu``,
+  one CTA per (window, head, query part) as :func:`window_query_parts`
+  says, fp32 an FMA kernel; CPU tensors run :func:`window_attention_plain`.
 - :func:`window_attention_v2` replaces ``_window_attn_kernel_3d``, the same
   function over the free reshape [B*Hp, Wp, 3C]; it launches the same
   kernel.
@@ -31,6 +33,19 @@ from medsam2_tpu_torch.ops.attention import (_aligned, _check_device, _dtype_cod
 # Widths csrc/window_attention.cu is instantiated for.
 WINDOW_HEAD_DIM = 96
 MAX_WINDOW_TOKENS = 196
+
+
+def window_query_parts(window_size: int):
+    """The bf16 kernel's grid rule (``csrc/window_attention_sm90.cu``
+    ``WinCfg``): each (window, head) splits its n = ws^2 query rows into
+    ceil(n / 128) parts of whole window rows, so that a CTA holds at most 128
+    query rows, 64 per consumer warpgroup. Returns (parts, window rows per
+    part, consumer warpgroups). At ws 14 the 100 (window, head) pairs of
+    hiera_t @1024 give 200 CTAs of 98 rows, two an SM: one wave on 132 SMs."""
+    n = window_size * window_size
+    parts = -(-n // 128)
+    rows = -(-window_size // parts)
+    return parts, rows, -(-(rows * window_size) // 64)
 
 
 def _check_shape(qkv, num_heads: int, window_size: int, name: str):

@@ -1,16 +1,16 @@
 """Plant known faults in copies of the port's attention kernels and show that
-``chip_smoke.py`` phase 3 and the ``cuda`` kernel tests catch each, on one GPU.
+``chip_smoke.py`` and the ``cuda`` kernel tests catch each, on one GPU.
 
     python3 scripts/profile_port_planted_faults.py [FAULT ...] [--dir DIR]
 
 For each fault (default: all) the package, the tests and ``chip_smoke.py``
 are copied to ``<DIR>/planted_<fault>`` (default DIR: ``build/planted`` of
-this checkout, which git ignores), one line of one CUDA source is
-changed there, and the copy runs phase 3 (build, then the propagation
-kernels against their twins) and the attention cases of
-``tests/test_torch_kernels_cuda.py``. Each must fail; the script prints the
-phase-3 lines, the failing tests, and exits non-zero if a fault went
-unnoticed. The checkout itself is never changed.
+this checkout, which git ignores), one passage of one CUDA source is
+changed there, and the copy runs the fault's phase (build, then phase 3 for
+the propagation kernels, 3b for the backward, 8 for the encoder kernels)
+and the fault's cases of ``tests/test_torch_kernels_cuda.py``. Each must
+fail; the script prints the phase's lines, the failing tests, and exits
+non-zero if a fault went unnoticed. The checkout itself is never changed.
 """
 
 import argparse
@@ -20,25 +20,47 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-# name: (source, text, replacement)
+# (phase function of chip_smoke.py, its line prefix, the tests' -k filter)
+PROPAGATION = ("phase_kernels", "[3 kernel]", "flash or kv_cached or merge")
+BACKWARD = ("phase_train_kernels", "[3b train kernel]", "dq or lse_and_backward")
+WINDOW = ("phase_encoder_kernels", "[8 encoder kernel] window", "window")
+# name: (source, text, replacement, check)
 FAULTS = {
     # B1/B2: O is not rescaled by alpha when the running max grows
     "alpha": ("medsam2_tpu_torch/csrc/hopper_attention.cuh",
               "      o[4 * j] *= al_a;\n      o[4 * j + 1] *= al_a;\n"
-              "      o[4 * j + 2] *= al_b;\n      o[4 * j + 3] *= al_b;\n", ""),
+              "      o[4 * j + 2] *= al_b;\n      o[4 * j + 3] *= al_b;\n", "", PROPAGATION),
     # the merge drops the last split's partial output
     "merge_last": ("medsam2_tpu_torch/csrc/flash_attention.cu",
                    "    for (int s = 0; s < splits; ++s) {\n      const size_t prow",
-                   "    for (int s = 0; s < splits - 1; ++s) {\n      const size_t prow"),
+                   "    for (int s = 0; s < splits - 1; ++s) {\n      const size_t prow",
+                   PROPAGATION),
     # B2 keys without their positional rows
     "no_pos": ("medsam2_tpu_torch/csrc/kv_cached_attention.cu",
                "za[e] = __floats2bfloat162_rn(fx.x + fy.x, fx.y + fy.y);",
-               "za[e] = __floats2bfloat162_rn(fx.x + 0.f * fy.x, fx.y + 0.f * fy.y);"),
+               "za[e] = __floats2bfloat162_rn(fx.x + 0.f * fy.x, fx.y + 0.f * fy.y);",
+               PROPAGATION),
+    # B4: the split sum drops the last split's partial dQ
+    "dq_sum_last": ("medsam2_tpu_torch/csrc/flash_bwd_dq_sm90.cu",
+                    "for (int s = 1; s < splits; ++s) {",
+                    "for (int s = 1; s < splits - 1; ++s) {", BACKWARD),
+    # B4: dS of masked keys is not zeroed (P not multiplied by the mask)
+    "dq_no_mask": ("medsam2_tpu_torch/csrc/flash_bwd_dq_sm90.cu",
+                   "const float2 m2 = *reinterpret_cast<const float2*>(mk + 8 * j + 2 * quad);",
+                   "const float2 m2 = make_float2(1.f, 1.f);", BACKWARD),
+    # B5: logits of the padded key columns (n to NK) are not masked
+    "win_pad_unmasked": ("medsam2_tpu_torch/csrc/window_attention_sm90.cu",
+                         "      if (col >= G::kN) sc[g][4 * j] = sc[g][4 * j + 2] = kNegInf;\n"
+                         "      if (col + 1 >= G::kN) sc[g][4 * j + 1] = sc[g][4 * j + 3] = "
+                         "kNegInf;\n", "", WINDOW),
+    # B5: the second query part loads its query rows one window row too high
+    "win_part_offset": ("medsam2_tpu_torch/csrc/window_attention_sm90.cu",
+                        "y0 + part * G::kHY);", "y0 + part * (G::kHY - 1));", WINDOW),
 }
 
 
 def run(name: str, base: Path) -> bool:
-    path, old, new = FAULTS[name]
+    path, old, new, (phase, prefix, tests_k) = FAULTS[name]
     d = base / f"planted_{name}"
     shutil.rmtree(d, ignore_errors=True)
     d.mkdir(parents=True)
@@ -51,25 +73,28 @@ def run(name: str, base: Path) -> bool:
     f = d / path
     text = f.read_text()
     if text.count(old) != 1:
-        raise SystemExit(f"{name}: the line to change is not in {path} exactly once")
+        raise SystemExit(f"{name}: the passage to change is not in {path} exactly once")
     f.write_text(text.replace(old, new))
     print(f"==== fault {name}: {path}", flush=True)
     smoke = subprocess.run(
-        [sys.executable, "-c", "import chip_smoke as s; s.phase_build(); s.phase_kernels()"],
-        cwd=d, capture_output=True, text=True, timeout=600)
+        [sys.executable, "-c", f"import chip_smoke as s; s.phase_build(); s.{phase}()"],
+        cwd=d, capture_output=True, text=True, timeout=900)
     for line in smoke.stdout.splitlines():
-        if line.startswith("[3 kernel]"):
-            print("   ", line, flush=True)
+        if line.startswith(prefix) or line.startswith("[2 sass]") and "FAIL" in line:
+            print("   ", line[:400], flush=True)
+    raised = smoke.stderr.strip().splitlines()
+    if raised:
+        print("    raised:", raised[-1][:300], flush=True)
     tests = subprocess.run(
         [sys.executable, "-m", "pytest", "--noconftest", "-q", "-m", "cuda", "-p",
-         "no:cacheprovider", "tests/test_torch_kernels_cuda.py", "-k",
-         "flash or kv_cached or merge", "-rf"],
-        cwd=d, capture_output=True, text=True, timeout=600)
+         "no:cacheprovider", "tests/test_torch_kernels_cuda.py", "-k", tests_k, "-rf"],
+        cwd=d, capture_output=True, text=True, timeout=900)
     out = tests.stdout.strip().splitlines()
-    print(f"   phase 3 exit {smoke.returncode}; tests: {out[-1] if out else tests.stderr[-300:]}")
+    print(f"   {phase} exit {smoke.returncode}; tests: "
+          f"{out[-1] if out else tests.stderr[-300:]}")
     for line in out:
         if line.startswith("FAILED"):
-            print("     ", line, flush=True)
+            print("     ", line[:200], flush=True)
     return smoke.returncode != 0 and tests.returncode != 0
 
 

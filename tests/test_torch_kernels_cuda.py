@@ -169,14 +169,57 @@ def test_flash_autograd_launches_backward_pair(dev):
     after = A.launch_counts()
     assert {n: after[n] - before[n] for n in after} == {
         "flash_attention": 1, "flash_attention_bwd_dkv": 1, "flash_attention_bwd_dq": 1,
-        "kv_cached_attention": 0, "attention_merge": 0, "window_attention": 0, "fused_mlp": 0,
-        "fused_block": 0}
+        "flash_attention_bwd_dq_sum": 0, "kv_cached_attention": 0, "attention_merge": 0,
+        "window_attention": 0, "fused_mlp": 0, "fused_block": 0}
     got = [t.grad.clone() for t in (q, k, v)]
     for t in (q, k, v):
         t.grad = None
     (A.sdpa_plain(q, k, v, kv_mask=mask) * w).sum().backward()
     for g, t in zip(got, (q, k, v)):
         assert _rel_err(g, t.grad) <= TOL_GRAD_F32
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 7])
+@pytest.mark.parametrize("case", [
+    (2, 1, 1024, 1024, 256, 256, None),        # memory self-attention @512 (16 kv tiles)
+    (2, 1, 1024, 10316, 256, 64, "stale"),     # memory cross-attention @512 (162 tiles)
+    (2, 1, 100, 420, 256, 64, "row0_dead"),    # 7 tiles, ragged, batch 0 fully masked
+], ids=["self512", "cross512", "ragged_dead"])
+def test_dq_kernel_split_counts_match_twin(dev, case, splits):
+    """The bf16 dQ pass at forced kv split counts: the partials and their
+    sum (one sum launch whenever it splits) against the twin."""
+    B, H, Nq, Nk, D, Dv, kind = case
+    rng = np.random.default_rng(12)
+    dt = torch.bfloat16
+    q, k = _t(rng, (B, H, Nq, D), dev, dt), _t(rng, (B, H, Nk, D), dev, dt)
+    v, do = _t(rng, (B, H, Nk, Dv), dev, dt), _t(rng, (B, H, Nq, Dv), dev, dt)
+    mask = _bwd_mask(rng, B, Nk, kind, dev)
+    o, lse = A.flash_attention_lse_plain(q.float(), k.float(), v.float(), mask)
+    o = o.to(dt)
+    dvec = (do.float() * o.float()).sum(-1)
+    before = A.launch_counts()
+    got = A.flash_attention_bwd_dq(q, k, v, mask, do, lse, dvec, _splits=splits)
+    torch.cuda.synchronize()
+    after = A.launch_counts()
+    assert after["flash_attention_bwd_dq"] == before["flash_attention_bwd_dq"] + 1
+    assert after["flash_attention_bwd_dq_sum"] == before["flash_attention_bwd_dq_sum"] + (splits > 1)
+    want = A.flash_attention_bwd_plain(q, k, v, mask, o, lse, do)[0]
+    assert got.shape == want.shape and got.dtype == dt
+    assert _rel_err(got, want) <= TOL_GRAD_BF16
+    if kind == "row0_dead":
+        assert got[0].abs().max().item() == 0.0
+
+
+def test_dq_sum_kernel_matches_twin(dev):
+    rng = np.random.default_rng(13)
+    parts = _t(rng, (5, 2, 3, 77, 256), dev, torch.float32)
+    before = A.launch_counts()["flash_attention_bwd_dq_sum"]
+    got = A.flash_attention_bwd_dq_sum(parts, 0.0625)
+    torch.cuda.synchronize()
+    assert A.launch_counts()["flash_attention_bwd_dq_sum"] == before + 1
+    want = A.flash_attention_bwd_dq_sum_plain(parts, 0.0625)
+    assert got.shape == (2, 3, 77, 256) and got.dtype == torch.float32
+    assert (got - want).abs().max().item() <= 1e-6 * want.abs().max().item()
 
 
 def test_backward_kernels_reject_unbuilt_widths(dev):
@@ -347,6 +390,20 @@ WINDOW_CASES = [
     (1, 35, 35, 8, 7),
     (2, 14, 21, 1, 7),
 ]
+
+
+@pytest.mark.parametrize("ws", list(range(1, 15)))
+def test_window_attention_every_window_size_bf16(dev, ws):
+    """Every window size the bf16 kernel is built for (1 to 14, one
+    instantiation each): two images of 2 x 3 windows, 2 heads."""
+    rng = np.random.default_rng(14)
+    qkv = _t(rng, (2, 2 * ws, 3 * ws, 3 * 96 * 2), dev, torch.bfloat16)
+    before = A.launch_counts()["window_attention"]
+    got = WA.window_attention(qkv, 2, ws)
+    torch.cuda.synchronize()
+    assert A.launch_counts()["window_attention"] == before + 1
+    want = WA.window_attention_plain(qkv.float(), 2, ws)
+    assert (got.float() - want).abs().max().item() <= _tol(want, torch.bfloat16)
 
 
 def _linear_w(rng, out_dim, in_dim, dev):
