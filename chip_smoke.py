@@ -614,25 +614,46 @@ def dq_grid(bh: int, nq: int, nk: int, dv: int, dtype):
 
 def dq_sum_kernel(rng) -> dict:
     """The dQ split sum at the training cross-attention's split (8 partials
-    of [2 * 1024, 256] fp32)."""
+    of [2 * 1024, 256] fp32), against its twin and one library call,
+    ``torch.tensordot`` of the scale vector with the partials. The timed calls
+    take five copies of the partials in turn (84 MB, more than the 50 MB L2),
+    so each reads them from HBM as the bound assumes; replays of one copy,
+    which stays in L2, are printed beside that."""
     S, rows, D = dq_grid(2, 1024, 10316, 64, torch.bfloat16)[1], 2048, 256
     parts = rand(rng, (S, rows, D), torch.float32)
-    got = A.flash_attention_bwd_dq_sum(parts, 0.0625)
-    want = A.flash_attention_bwd_dq_sum_plain(parts, 0.0625)
+    scale = 0.0625
+    got = A.flash_attention_bwd_dq_sum(parts, scale)
+    want = A.flash_attention_bwd_dq_sum_plain(parts, scale)
+    w = torch.full((S,), scale, device=parts.device)
+    lib = torch.tensordot(w, parts, dims=1)
     err = (got - want).abs().max().item()
+    err_lib = (lib - want).abs().max().item()
     tol = 1e-6 * want.abs().max().item()
-    ms = graph_ms(lambda: A.flash_attention_bwd_dq_sum(parts, 0.0625))
-    plain_ms = cuda_ms(lambda: A.flash_attention_bwd_dq_sum_plain(parts, 0.0625), reps=10)
+    copies = [parts] + [parts.clone() for _ in range(4)]
+    turn = [0]
+
+    def cycled(fn):
+        def call():
+            turn[0] += 1
+            return fn(copies[turn[0] % len(copies)])
+        return call
+
+    ms = graph_ms(cycled(lambda p: A.flash_attention_bwd_dq_sum(p, scale)))
+    lib_ms = graph_ms(cycled(lambda p: torch.tensordot(w, p, dims=1)))
+    ms_l2 = graph_ms(lambda: A.flash_attention_bwd_dq_sum(parts, scale))
+    plain_ms = cuda_ms(lambda: A.flash_attention_bwd_dq_sum_plain(parts, scale), reps=10)
     bound_ms, bound_by = bound(0.0, 4.0 * (S + 1) * rows * D, torch.float32)
     ok = err <= tol
     print(f"[3b train kernel] flash_attention_bwd_dq_sum {S} splits x [{rows}, {D}] fp32 "
-          f"max_abs_err {err:.3e} (tol {tol:.3e}) kernel {ms:.4f} ms (graph) plain "
-          f"{plain_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of bound "
-          f"{'ok' if ok else 'FAIL'}")
+          f"max_abs_err {err:.3e} (tol {tol:.3e}; tensordot's {err_lib:.3e}) kernel {ms:.4f} ms "
+          f"(graph, from HBM; {ms_l2:.4f} ms with one L2-resident copy) tensordot "
+          f"{lib_ms:.4f} ms ({ms / lib_ms:.2f}x) plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms "
+          f"({bound_by}), {bound_ms / ms:.1%} of bound {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"flash_attention_bwd_dq_sum: err {err}")
+    del copies
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=None)
+                library_ms=lib_ms)
 
 
 def volume(T: int, size: int, seed: int) -> np.ndarray:

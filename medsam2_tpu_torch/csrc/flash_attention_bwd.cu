@@ -31,13 +31,14 @@
 // 2*Nq*Nk*(2*D + Dv) for dq (S and dP are recomputed in each) against
 // O((Nq + Nk) * (D + Dv)) bytes: far above the ~295 flop/byte ridge at the
 // training shapes, so tensor-core issue rate bounds both. The bf16 dq pass
-// is the wgmma + TMA design of flash_bwd_dq_sm90.cu, with split-kv. In this
-// file, nothing is rescaled per row, so the dK/dV and dQ accumulators stay in
-// WMMA accumulator fragments (registers) and only the K/V/Q/dO tiles, S, dP
-// and the rounded P/dS live in shared memory: at D = Dv = 256 bf16 with
-// 64-row tiles that is 189 KB. bf16 dkv runs WMMA (mma.sync 16x16x16) on 8
-// warps; fp32 runs plain FMA on 32-row tiles with no TF32 (the JAX package
-// pins Precision.HIGHEST for fp32).
+// is the wgmma + TMA design of flash_bwd_dq_sm90.cu, with split-kv; this
+// file's dq kernel serves fp32 only. Here nothing is rescaled per row, so the
+// accumulators stay in registers (WMMA accumulator fragments for the bf16
+// dK/dV, plain registers for fp32) and only the K/V/Q/dO tiles, S, dP and the
+// rounded P/dS live in shared memory: at D = Dv = 256 bf16 with 64-row tiles
+// that is 189 KB. bf16 dkv runs WMMA (mma.sync 16x16x16) on 8 warps; fp32
+// runs plain FMA on 32-row tiles with no TF32 (the JAX package pins
+// Precision.HIGHEST for fp32).
 
 #include "attention_tile.cuh"
 #include "flash_bwd_sm90.cuh"
@@ -352,13 +353,15 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
   acc_v.store(dv + out_row * DV, 1.f);
 }
 
-template <typename T, int D, int DV>
+// fp32 only: the bf16 dq pass is flash_bwd_dq_sm90.cu.
+template <int D, int DV>
 __global__ void __launch_bounds__(kBwdThreads, 1)
-    flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const float* __restrict__ mask,
-                        const T* __restrict__ dout, const float* __restrict__ lse,
+    flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, const float* __restrict__ mask,
+                        const float* __restrict__ dout, const float* __restrict__ lse,
                         const float* __restrict__ dvec, float* __restrict__ dq, int H, int Nq,
                         int Nk, int Nq_out, float scale) {
+  using T = float;
   using L = BwdSmem<T, D, DV>;
   constexpr int BM = L::BM;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -389,11 +392,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
     __syncthreads();
     probs_and_dscores<T, D, DV, false>(t, scale);
     __syncthreads();
-    if constexpr (L::kBf16) {
-      acc.template mma<L::LDP, L::LDD>(t.dsb, t.k);  // dQ += dS K
-    } else {
-      acc.template mma<L::LDS, L::LDD>(t.dp, t.k);
-    }
+    acc.template mma<L::LDS, L::LDD>(t.dp, t.k);  // dQ += dS K
   }
   acc.store(dq + ((size_t)bh * Nq_out + q0) * D, scale);
 }
@@ -435,7 +434,8 @@ struct BwdLaunch {
       kern<<<grid, kBwdThreads, L::bytes, a.stream>>>(q, k, v, a.mask, dout, a.lse, a.dvec, a.da,
                                                        a.db, a.H, a.Nq, a.Nk, a.rows_out, a.scale);
     } else {
-      auto kern = flash_bwd_dq_kernel<T, D, DV>;
+      static_assert(std::is_same<T, float>::value, "the bf16 dq pass is DqSm90");
+      auto kern = flash_bwd_dq_kernel<D, DV>;
       e = hopper::allow_smem(reinterpret_cast<const void*>(kern), (int)L::bytes, smem_set);
       if (e != cudaSuccess) return e;
       kern<<<grid, kBwdThreads, L::bytes, a.stream>>>(q, k, v, a.mask, dout, a.lse, a.dvec, a.da,

@@ -16,7 +16,9 @@
 // main loop with the backward's arithmetic:
 // - Warpgroup 0 is the producer: one warp TMA-loads the block's Q and dO
 //   rows once, then streams K and V 64-key tiles through the mbarrier ring
-//   with each tile's mask values, skipping a tile whose keys are all masked.
+//   with each tile's mask values, skipping a tile whose keys are all masked
+//   (the forward's produce_kv; the block's layout is the forward's Layout
+//   with dO in its staging region).
 // - Each consumer warpgroup owns 64 query rows. Per kv tile: S = Q K^T and
 //   dP = dO V^T by wgmma with both operands in shared memory (V K-major
 //   there), P and dS in fp32 registers (exp2 in log2 units, the mask as a
@@ -41,60 +43,20 @@ namespace medsam2 {
 namespace hopper {
 namespace {
 
-template <int D, int DV>
-struct DqLayout {
-  static constexpr int kNC = DV == 256 ? 1 : 2;  // consumer warpgroups
-  static constexpr int kRows = 64 * kNC;
-  static constexpr int kThreads = 128 * (kNC + 1);
-  static constexpr int kQBytes = kRows * Cols<D>::kPad * 2;
-  static constexpr int kOBytes = kRows * Cols<DV>::kPad * 2;
-  static constexpr int kKBytes = kBK * Cols<D>::kPad * 2;
-  static constexpr int kVBytes = kBK * Cols<DV>::kPad * 2;
-  static constexpr int kMisc = 2048;  // masks, tile indices, barriers
-  static constexpr int kFixed = round1024(kQBytes) + round1024(kOBytes) + kMisc + 1024;
-  static constexpr int kStageBytes = round1024(kKBytes) + round1024(kVBytes);
-  static constexpr int kFit = (kSmemLimit - kFixed) / kStageBytes;
-  static constexpr int kStages = kFit > 4 ? 4 : kFit;
-  static_assert(kStages >= 2, "two kv stages do not fit");
-  static constexpr int q_off = 0;
-  static constexpr int do_off = round1024(kQBytes);
-  static constexpr int k_off = do_off + round1024(kOBytes);
-  static constexpr int v_off = k_off + kStages * round1024(kKBytes);
-  static constexpr int mask_off = v_off + kStages * round1024(kVBytes);
-  static constexpr int idx_off = mask_off + 4 * kBK * 4;
-  static constexpr int bar_off = idx_off + 64;
-  static constexpr int bytes = mask_off + kMisc + 1024;
-  static_assert(bytes <= kSmemLimit, "block does not fit the 227 KB a block may use");
-};
+// Query rows a block: 128 (two consumer warpgroups) at DV = 64, 64 (one) at
+// DV = 256.
+template <int DV>
+__host__ __device__ constexpr int dq_rows() { return DV == 256 ? 64 : 128; }
+template <int DV>
+__host__ __device__ constexpr int dq_out_bytes() { return dq_rows<DV>() * Cols<DV>::kPad * 2; }
+// threads a block: the consumers and the producer warpgroup
+template <int DV>
+__host__ __device__ constexpr int dq_threads() { return 128 * (dq_rows<DV>() / 64 + 1); }
 
-template <class L>
-struct DqShared {
-  unsigned char* base;
-  __device__ explicit DqShared(unsigned char* raw)
-      : base(reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(raw) + 1023) &
-                                              ~uintptr_t(1023))) {}
-  __device__ unsigned char* q() const { return base + L::q_off; }
-  __device__ unsigned char* dout() const { return base + L::do_off; }
-  __device__ unsigned char* k(int s) const { return base + L::k_off + s * round1024(L::kKBytes); }
-  __device__ unsigned char* v(int s) const { return base + L::v_off + s * round1024(L::kVBytes); }
-  __device__ float* mask(int s) const {
-    return reinterpret_cast<float*>(base + L::mask_off) + s * kBK;
-  }
-  __device__ int* tile(int s) const { return reinterpret_cast<int*>(base + L::idx_off) + s; }
-  __device__ uint64_t* full(int s) const { return reinterpret_cast<uint64_t*>(base + L::bar_off) + s; }
-  __device__ uint64_t* empty(int s) const {
-    return reinterpret_cast<uint64_t*>(base + L::bar_off) + 4 + s;
-  }
-  __device__ uint64_t* qbar() const { return reinterpret_cast<uint64_t*>(base + L::bar_off) + 8; }
-  __device__ void init_barriers() const {
-    for (int s = 0; s < L::kStages; ++s) {
-      mbar_init(full(s), 1);
-      mbar_init(empty(s), 128 * L::kNC);
-    }
-    mbar_init(qbar(), 1);
-    fence_barrier_init();
-  }
-};
+// The forward's layout at dq_rows query rows, with the dO tile of those rows
+// in its staging region.
+template <int D, int DV>
+using DqLayout = Layout<D, DV, round1024(dq_out_bytes<DV>()), dq_rows<DV>()>;
 
 struct DqMaps {
   CUtensorMap q64, q_rem, o64, o_rem, k64, k_rem, v64, v_rem;
@@ -110,7 +72,7 @@ struct DqArgs {
 };
 
 template <int D, int DV, class L>
-__device__ __forceinline__ void dq_consume(const DqShared<L>& sh, int wg, const DqArgs& a, int bh,
+__device__ __forceinline__ void dq_consume(const Shared<L>& sh, int wg, const DqArgs& a, int bh,
                                            int q0, int split) {
   using CD = Cols<D>;
   using CV = Cols<DV>;
@@ -132,7 +94,7 @@ __device__ __forceinline__ void dq_consume(const DqShared<L>& sh, int wg, const 
 #pragma unroll
   for (int i = 0; i < kA; ++i) acc[i] = 0.f;
   const uint32_t q_addr = smem_u32(sh.q());
-  const uint32_t do_addr = smem_u32(sh.dout());
+  const uint32_t do_addr = smem_u32(sh.staging());  // dO
   mbar_wait(sh.qbar(), 0);
 
   Ring ring;
@@ -242,61 +204,31 @@ __device__ __forceinline__ void dq_consume(const DqShared<L>& sh, int wg, const 
 }
 
 template <int D, int DV>
-__global__ void __launch_bounds__(DqLayout<D, DV>::kThreads, 1)
+__global__ void __launch_bounds__(dq_threads<DV>(), 1)
     flash_bwd_dq_sm90_kernel(const __grid_constant__ DqMaps maps, const float* __restrict__ mask,
                              const DqArgs args, int H, int Nk, int tiles_per_split) {
   using L = DqLayout<D, DV>;
   extern __shared__ unsigned char smem_raw[];
-  const DqShared<L> sh(smem_raw);
+  const Shared<L> sh(smem_raw);
   const int bh = blockIdx.z;
   const int split = blockIdx.y;
   const int q0 = blockIdx.x * L::kRows;
-  if (threadIdx.x == 0) sh.init_barriers();
+  if (threadIdx.x == 0) sh.init_barriers(1);
   __syncthreads();
 
   if (threadIdx.x < 128) {
     // ---- producer: one warp issues every load ----
-    if constexpr (L::kNC == 2) regs_dec<40>();
+    if constexpr (L::kConsumers == 2) regs_dec<40>();
     if (threadIdx.x >= 32) return;
     const int lane = threadIdx.x;
     if (lane == 0) {
-      mbar_arrive_expect_tx(sh.qbar(), L::kQBytes + L::kOBytes);
+      mbar_arrive_expect_tx(sh.qbar(), L::kQBytes + dq_out_bytes<DV>());
       tma_tile<D>(sh.q(), L::kRows, &maps.q64, &maps.q_rem, sh.qbar(), q0, bh);
-      tma_tile<DV>(sh.dout(), L::kRows, &maps.o64, &maps.o_rem, sh.qbar(), q0, bh);
+      tma_tile<DV>(sh.staging(), L::kRows, &maps.o64, &maps.o_rem, sh.qbar(), q0, bh);
     }
-    const float* mrow = mask != nullptr ? mask + (size_t)(bh / H) * Nk : nullptr;
-    const int n_tiles = (Nk + kBK - 1) / kBK;
-    const int t0 = split * tiles_per_split;
-    const int t1 = min(n_tiles, t0 + tiles_per_split);
-    Ring ring;
-    for (int t = t0; t < t1; ++t) {
-      const int k0 = t * kBK;
-      const int c0 = k0 + lane;
-      const int c1 = c0 + 32;
-      const float m0 = c0 < Nk ? (mrow != nullptr ? mrow[c0] : 1.f) : 0.f;
-      const float m1 = c1 < Nk ? (mrow != nullptr ? mrow[c1] : 1.f) : 0.f;
-      if (!__any_sync(0xffffffffu, m0 > 0.f || m1 > 0.f)) continue;  // every key masked
-      const int s = ring.stage;
-      mbar_wait(sh.empty(s), ring.phase ^ 1u);
-      sh.mask(s)[lane] = m0;
-      sh.mask(s)[lane + 32] = m1;
-      if (lane == 0) *sh.tile(s) = t;
-      __syncwarp();
-      if (lane == 0) {
-        mbar_arrive_expect_tx(sh.full(s), L::kKBytes + L::kVBytes);
-        tma_tile<D>(sh.k(s), kBK, &maps.k64, &maps.k_rem, sh.full(s), k0, bh);
-        tma_tile<DV>(sh.v(s), kBK, &maps.v64, &maps.v_rem, sh.full(s), k0, bh);
-      }
-      ring.advance<L::kStages>();
-    }
-    const int s = ring.stage;
-    mbar_wait(sh.empty(s), ring.phase ^ 1u);
-    if (lane == 0) {
-      *sh.tile(s) = -1;  // range done
-      mbar_arrive(sh.full(s));
-    }
+    produce_kv<D, DV>(sh, maps, mask, H, Nk, bh, split, tiles_per_split, lane);
   } else {
-    if constexpr (L::kNC == 2) regs_inc<232>();
+    if constexpr (L::kConsumers == 2) regs_inc<232>();
     dq_consume<D, DV>(sh, threadIdx.x / 128 - 1, args, bh, q0, split);
   }
 }
@@ -341,7 +273,7 @@ cudaError_t flash_bwd_dq_sm90(const DqCall& a) {
                     a.splits > 1 ? a.part : nullptr, a.BH, a.Nq, a.rows_out, a.scale,
                     a.scale * kLog2e};
   const dim3 grid((a.Nq + L::kRows - 1) / L::kRows, a.splits, a.BH);
-  kern<<<grid, L::kThreads, L::bytes, a.stream>>>(maps, a.mask, args, a.H, a.Nk, per_split);
+  kern<<<grid, dq_threads<DV>(), L::bytes, a.stream>>>(maps, a.mask, args, a.H, a.Nk, per_split);
   return cudaGetLastError();
 }
 

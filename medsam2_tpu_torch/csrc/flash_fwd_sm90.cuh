@@ -75,37 +75,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       mbar_arrive_expect_tx(sh.qbar(), L::kQBytes);
       tma_tile<D>(sh.q(), kBQ, &maps.q64, &maps.q_rem, sh.qbar(), q0, bh);
     }
-    const float* mrow = mask != nullptr ? mask + (size_t)(bh / H) * Nk : nullptr;
-    const int n_tiles = (Nk + kBK - 1) / kBK;
-    const int t0 = split * tiles_per_split;
-    const int t1 = min(n_tiles, t0 + tiles_per_split);
-    Ring ring;
-    for (int t = t0; t < t1; ++t) {
-      const int k0 = t * kBK;
-      const int c0 = k0 + lane;
-      const int c1 = c0 + 32;
-      const float m0 = c0 < Nk ? (mrow != nullptr ? mrow[c0] : 1.f) : 0.f;
-      const float m1 = c1 < Nk ? (mrow != nullptr ? mrow[c1] : 1.f) : 0.f;
-      if (!__any_sync(0xffffffffu, m0 > 0.f || m1 > 0.f)) continue;  // every key masked
-      const int s = ring.stage;
-      mbar_wait(sh.empty(s), ring.phase ^ 1u);
-      sh.mask(s)[lane] = m0;
-      sh.mask(s)[lane + 32] = m1;
-      if (lane == 0) *sh.tile(s) = t;
-      __syncwarp();
-      if (lane == 0) {
-        mbar_arrive_expect_tx(sh.full(s), L::kKBytes + L::kVBytes);
-        tma_tile<D>(sh.k(s), kBK, &maps.k64, &maps.k_rem, sh.full(s), k0, bh);
-        tma_tile<DV>(sh.v(s), kBK, &maps.v64, &maps.v_rem, sh.full(s), k0, bh);
-      }
-      ring.advance<L::kStages>();
-    }
-    const int s = ring.stage;
-    mbar_wait(sh.empty(s), ring.phase ^ 1u);
-    if (lane == 0) {
-      *sh.tile(s) = -1;  // range done
-      mbar_arrive(sh.full(s));
-    }
+    produce_kv<D, DV>(sh, maps, mask, H, Nk, bh, split, tiles_per_split, lane);
   } else {
     regs_inc<232>();
     consume<D, DV>(sh, threadIdx.x / 128 - 1, scale_log2, oa, bh * Nq + q0, min(kBQ, Nq - q0),

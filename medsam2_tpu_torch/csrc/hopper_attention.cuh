@@ -1,6 +1,7 @@
 // The Hopper (sm_90a) main loop shared by the bf16 flash forward
 // (flash_fwd_sm90_*.cu) and the bf16 storage-order kv-cached attention
-// (kv_cached_attention.cu). fp32 keeps the FMA design of attention_tile.cuh:
+// (kv_cached_attention.cu); the bf16 flash-backward dQ pass
+// (flash_bwd_dq_sm90.cu) shares its layout, ring and producer loop. fp32 keeps the FMA design of attention_tile.cuh:
 // wgmma has no full-fp32 mode and the JAX package pins Precision.HIGHEST.
 //
 // Block: three warpgroups, 384 threads, one block per SM.
@@ -45,7 +46,6 @@ using bf16 = __nv_bfloat16;
 constexpr int kBQ = 128;       // query rows per block
 constexpr int kBK = 64;        // kv rows per tile
 constexpr int kThreads = 384;  // producer warpgroup + two consumer warpgroups
-constexpr int kConsumerThreads = 256;
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
@@ -67,10 +67,14 @@ struct Cols {
 };
 
 // Shared-memory layout of one block (bytes from a 1024-aligned base).
-// STAGING: extra bytes for the kv-cached producer's two staging tiles.
-template <int D, int DV, int STAGING>
+// STAGING: extra bytes for the kv-cached producer's two staging tiles or the
+// dQ pass's dO tile. ROWS: query rows a block, 64 per consumer warpgroup.
+template <int D, int DV, int STAGING, int ROWS = kBQ>
 struct Layout {
-  static constexpr int kQBytes = kBQ * Cols<D>::kPad * 2;
+  static constexpr int kRows = ROWS;
+  static constexpr int kConsumers = ROWS / 64;  // consumer warpgroups
+  static_assert(ROWS == 64 || ROWS == 128, "one or two consumer warpgroups");
+  static constexpr int kQBytes = ROWS * Cols<D>::kPad * 2;
   static constexpr int kKBytes = kBK * Cols<D>::kPad * 2;
   static constexpr int kVBytes = kBK * Cols<DV>::kPad * 2;
   static constexpr int kMisc = 2048;  // masks, tile indices, barriers
@@ -303,7 +307,7 @@ struct Shared {
   __device__ void init_barriers(int full_count) const {
     for (int s = 0; s < L::kStages; ++s) {
       mbar_init(full(s), full_count);
-      mbar_init(empty(s), kConsumerThreads);
+      mbar_init(empty(s), 128 * L::kConsumers);
     }
     mbar_init(qbar(), 1);
     mbar_init(stgbar(), 1);
@@ -335,6 +339,48 @@ __device__ __forceinline__ void tma_tile(unsigned char* dst, int rows, const CUt
 #pragma unroll
   for (int c = 0; c < C::kChunks; ++c)
     tma_load_3d(dst + C::offset(c, rows), c < C::kFull ? map64 : map_rem, bar, 64 * c, row0, z);
+}
+
+// The producer warp's kv stream (`lane`: its lane) for slice bh: the 64-key
+// tiles of the block's split, each with its mask values (keys at or past Nk
+// get 0) and its index, a tile whose keys are all masked skipped; then a
+// tile index of -1. Maps: the K and V maps k64, k_rem, v64, v_rem of
+// [BH, Nk, D] and [BH, Nk, DV]; mask [BH / H, Nk] or null.
+template <int D, int DV, class L, class Maps>
+__device__ __forceinline__ void produce_kv(const Shared<L>& sh, const Maps& maps,
+                                           const float* mask, int H, int Nk, int bh, int split,
+                                           int tiles_per_split, int lane) {
+  const float* mrow = mask != nullptr ? mask + (size_t)(bh / H) * Nk : nullptr;
+  const int n_tiles = (Nk + kBK - 1) / kBK;
+  const int t0 = split * tiles_per_split;
+  const int t1 = min(n_tiles, t0 + tiles_per_split);
+  Ring ring;
+  for (int t = t0; t < t1; ++t) {
+    const int k0 = t * kBK;
+    const int c0 = k0 + lane;
+    const int c1 = c0 + 32;
+    const float m0 = c0 < Nk ? (mrow != nullptr ? mrow[c0] : 1.f) : 0.f;
+    const float m1 = c1 < Nk ? (mrow != nullptr ? mrow[c1] : 1.f) : 0.f;
+    if (!__any_sync(0xffffffffu, m0 > 0.f || m1 > 0.f)) continue;  // every key masked
+    const int s = ring.stage;
+    mbar_wait(sh.empty(s), ring.phase ^ 1u);
+    sh.mask(s)[lane] = m0;
+    sh.mask(s)[lane + 32] = m1;
+    if (lane == 0) *sh.tile(s) = t;
+    __syncwarp();
+    if (lane == 0) {
+      mbar_arrive_expect_tx(sh.full(s), L::kKBytes + L::kVBytes);
+      tma_tile<D>(sh.k(s), kBK, &maps.k64, &maps.k_rem, sh.full(s), k0, bh);
+      tma_tile<DV>(sh.v(s), kBK, &maps.v64, &maps.v_rem, sh.full(s), k0, bh);
+    }
+    ring.advance<L::kStages>();
+  }
+  const int s = ring.stage;
+  mbar_wait(sh.empty(s), ring.phase ^ 1u);
+  if (lane == 0) {
+    *sh.tile(s) = -1;  // range done
+    mbar_arrive(sh.full(s));
+  }
 }
 
 // Where a block writes its rows.
@@ -384,7 +430,7 @@ __device__ __forceinline__ void consume(const Shared<L>& sh, int wg, float scale
     for (int c = 0; c < CD::kChunks; ++c) {
       const int w = CD::width(c);
       const uint32_t pitch = 2 * w;
-      const uint32_t qa = q_addr + CD::offset(c, kBQ) + wg * 64 * pitch;
+      const uint32_t qa = q_addr + CD::offset(c, L::kRows) + wg * 64 * pitch;
       const uint32_t ka = k_addr + CD::offset(c, kBK);
 #pragma unroll
       for (int i = 0; i < w / 16; ++i)

@@ -6,9 +6,10 @@
 For each fault (default: all) the package, the tests and ``chip_smoke.py``
 are copied to ``<DIR>/planted_<fault>`` (default DIR: ``build/planted`` of
 this checkout, which git ignores), one passage of one CUDA source is
-changed there, and the copy runs the fault's phase (build, then phase 3 for
-the propagation kernels, 3b for the backward, 8 for the encoder kernels)
-and the fault's cases of ``tests/test_torch_kernels_cuda.py``. Each must
+changed there, and the copy builds the kernels, runs the fault's phase
+(3 for the propagation kernels, 3b for the backward, 8 for the encoder
+kernels; not phase 2's SASS check, so that a fault is caught on values) and
+the fault's cases of ``tests/test_torch_kernels_cuda.py``. Each must
 fail; the script prints the phase's lines, the failing tests, and exits
 non-zero if a fault went unnoticed. The checkout itself is never changed.
 """
@@ -48,11 +49,13 @@ FAULTS = {
     "dq_no_mask": ("medsam2_tpu_torch/csrc/flash_bwd_dq_sm90.cu",
                    "const float2 m2 = *reinterpret_cast<const float2*>(mk + 8 * j + 2 * quad);",
                    "const float2 m2 = make_float2(1.f, 1.f);", BACKWARD),
-    # B5: logits of the padded key columns (n to NK) are not masked
+    # B5: logits of the first 8 padded key columns (n to n + 8) are not
+    # masked; the same comparisons, so the same registers
     "win_pad_unmasked": ("medsam2_tpu_torch/csrc/window_attention_sm90.cu",
                          "      if (col >= G::kN) sc[g][4 * j] = sc[g][4 * j + 2] = kNegInf;\n"
-                         "      if (col + 1 >= G::kN) sc[g][4 * j + 1] = sc[g][4 * j + 3] = "
-                         "kNegInf;\n", "", WINDOW),
+                         "      if (col + 1 >= G::kN) sc",
+                         "      if (col >= G::kN + 8) sc[g][4 * j] = sc[g][4 * j + 2] = kNegInf;\n"
+                         "      if (col + 1 >= G::kN + 8) sc", WINDOW),
     # B5: the second query part loads its query rows one window row too high
     "win_part_offset": ("medsam2_tpu_torch/csrc/window_attention_sm90.cu",
                         "y0 + part * G::kHY);", "y0 + part * (G::kHY - 1));", WINDOW),
@@ -77,10 +80,11 @@ def run(name: str, base: Path) -> bool:
     f.write_text(text.replace(old, new))
     print(f"==== fault {name}: {path}", flush=True)
     smoke = subprocess.run(
-        [sys.executable, "-c", f"import chip_smoke as s; s.phase_build(); s.{phase}()"],
+        [sys.executable, "-c", "import chip_smoke as s; s._build.build(); "
+         f"s._build.load_library(); s.{phase}()"],
         cwd=d, capture_output=True, text=True, timeout=900)
     for line in smoke.stdout.splitlines():
-        if line.startswith(prefix) or line.startswith("[2 sass]") and "FAIL" in line:
+        if line.startswith(prefix):
             print("   ", line[:400], flush=True)
     raised = smoke.stderr.strip().splitlines()
     if raised:
