@@ -7,9 +7,9 @@ Phases, each printing its own line:
   1. device: the card's name and power limit (nvidia-smi);
   2. build: compile the CUDA kernels from ``medsam2_tpu_torch/csrc``, and
      count the HGMMA (wgmma) instructions of every bf16 flash, kv-cached,
-     dQ and window-attention instantiation in the library's SASS, with
-     their registers and spills (none, or a spilling dQ or window
-     instantiation, fails the phase);
+     dQ, dK/dV, window-attention and encoder-linear instantiation in the
+     library's SASS, with their registers and spills (none, or a spilling
+     dQ, dK/dV, window or linear instantiation, fails the phase);
   3. the propagation kernels (flash forward, kv-cached, and the split-kv
      merge) against their plain PyTorch twins at the propagation path's
      shapes and hiera_l's global attention, bf16 and fp32: device times of
@@ -18,7 +18,8 @@ Phases, each printing its own line:
      call, the twin's time per eager call, TF/s, the share of the bound, the
      ratio to the library call and the grid (blocks, kv splits);
   3b. the training kernels (flash forward with LSE, the dK/dV and dQ backward
-     passes, the dQ pass at forced kv split counts, and the dQ split sum)
+     passes, the dQ pass at forced kv split counts and the dK/dV pass at
+     forced q split counts, and the two split sums)
      against their twins at the training path's shapes, bf16 and fp32, with
      a kv mask holding stale frames, a ragged Nk and a batch whose keys are
      all masked; times of kernel, twin and
@@ -40,8 +41,9 @@ Phases, each printing its own line:
      second, peak memory;
   8. the Hiera encoder kernels (window attention and its rank-3 form, fused
      LN-MLP, fused window block) against their twins at the hiera_t @1024
-     shapes, bf16 and fp32, with kernel, twin, library and bound times
-     (kernels and library calls by CUDA-graph replay);
+     shapes and the hiera_b+ / hiera_l widths, bf16 and fp32, with kernel,
+     twin, library and bound times (kernels and library calls by CUDA-graph
+     replay);
   9. sam2_hiera_t @512 fp32 (TF32 off), the three encoder switches on:
      ``SAM2ImagePredictor.set_image`` + ``predict`` (points, box) on the card
      against the same seeded model on the CPU, low-res logits to 1e-3;
@@ -49,7 +51,11 @@ Phases, each printing its own line:
      off and on (the A/B), ``predict``, the 64-prompt grid decode (masks/s),
      ``SAM2AutomaticMaskGenerator.generate`` at 32 points per side with the
      default and the loaded thresholds and its stage split, peak memory, and
-     the exact launch counts of one ``set_image`` with the switches on.
+     the exact launch counts of one ``set_image`` with the switches on;
+  11. sam2_hiera_b+ and sam2_hiera_l @1024 bf16 at full depth: ``set_image``
+     with the switches on against off (exact launch counts from the JAX
+     dispatch rules, image embeddings within tolerance), and sam2_hiera_l
+     @512 fp32 (TF32 off) with the switches on, card against the CPU.
 Then one JSON line of per-kernel results, the card's name and power limit,
 and, last, the device line. Any failure raises and exits non-zero; without a
 CUDA device nothing runs.
@@ -75,7 +81,7 @@ import torch.nn.functional as F  # noqa: E402
 from medsam2_tpu_torch.api import automatic_mask_generator as amg_api  # noqa: E402
 from medsam2_tpu_torch.api.image_predictor import SAM2ImagePredictor  # noqa: E402
 from medsam2_tpu_torch.api.video_predictor import SAM2VideoPredictor  # noqa: E402
-from medsam2_tpu_torch.configs import sam2_hiera_t  # noqa: E402
+from medsam2_tpu_torch.configs import sam2_hiera_b_plus, sam2_hiera_l, sam2_hiera_t  # noqa: E402
 from medsam2_tpu_torch.core.sam2_model import TRAINABLE_GROUPS, SAM2Model  # noqa: E402
 from medsam2_tpu_torch.ops import _build  # noqa: E402
 from medsam2_tpu_torch.ops import attention as A  # noqa: E402
@@ -104,8 +110,12 @@ HBM_BYTES_PER_S = 3.35e12
 KERNELS = {
     "flash_attention": dict(source="medsam2_tpu_torch/csrc/flash_attention.cu",
                             replaces="medsam2_tpu/ops/attention.py:49"),
-    "flash_attention_bwd_dkv": dict(source="medsam2_tpu_torch/csrc/flash_attention_bwd.cu",
+    "flash_attention_bwd_dkv": dict(source="medsam2_tpu_torch/csrc/flash_bwd_dkv_sm90.cu",
                                     replaces="medsam2_tpu/ops/attention.py:227"),
+    # the split-q second pass of B3: the TPU kernel carried the dK/dV sums
+    # over q tiles across its sequential grid, the card splits them over blocks
+    "flash_attention_bwd_dkv_sum": dict(source="medsam2_tpu_torch/csrc/flash_bwd_dq_sm90.cu",
+                                        replaces="medsam2_tpu/ops/attention.py:227"),
     "flash_attention_bwd_dq": dict(source="medsam2_tpu_torch/csrc/flash_bwd_dq_sm90.cu",
                                    replaces="medsam2_tpu/ops/attention.py:271"),
     # the split-kv second pass of B4: the TPU kernel carried the dQ sum over
@@ -124,7 +134,7 @@ KERNELS = {
     # (launches counted under window_attention), and no path calls it
     "window_attention_v2": dict(source="medsam2_tpu_torch/csrc/window_attention_sm90.cu",
                                 replaces="medsam2_tpu/ops/window_attention.py:85"),
-    "fused_mlp": dict(source="medsam2_tpu_torch/csrc/fused_mlp.cu",
+    "fused_mlp": dict(source="medsam2_tpu_torch/csrc/encoder_gemm.cu",
                       replaces="medsam2_tpu/ops/fused_mlp.py:58"),
     "fused_block": dict(source="medsam2_tpu_torch/csrc/fused_block.cu",
                         replaces="medsam2_tpu/ops/fused_block.py:90"),
@@ -132,9 +142,16 @@ KERNELS = {
 ENCODER_SWITCHES = ("MEDSAM2_FUSED_BLOCK", "MEDSAM2_FUSED_WINDOW", "MEDSAM2_FUSED_MLP")
 NO_ENCODER_LAUNCHES = {"window_attention": 0, "fused_mlp": 0, "fused_block": 0}
 # bf16 kernels whose SASS must hold HGMMA (wgmma): (mangled-name pattern,
-# instantiations): B1 (25 (D, Dv) pairs), B2, B4 (2 pairs), B5 (ws 1 to 14)
+# instantiations): B1 (25 (D, Dv) pairs), B2, B4 and B3 (2 pairs each), B5
+# (ws 1 to 14 at d 96, 4 at d 56, 3 at d 72), the encoder linear of B7 / B8
+# (64- and 128-wide tiles) and B7's one-kernel form (C 96, 112, 144, 192, 224)
 SM90_KERNELS = (("flash_sm90_kernel", 25), ("kv_cached_sm90_kernel", 1),
-                ("flash_bwd_dq_sm90_kernel", 2), ("window_sm90_kernel", 14))
+                ("flash_bwd_dq_sm90_kernel", 2), ("flash_bwd_dkv_sm90_kernel", 2),
+                ("window_sm90_kernel", 21), ("linear_sm90_kernel", 2),
+                ("mlp_fused_sm90_kernel", 5))
+# the ones a spill fails
+NO_SPILL = ("flash_bwd_dq_sm90_kernel", "flash_bwd_dkv_sm90_kernel", "window_sm90_kernel",
+            "linear_sm90_kernel", "mlp_fused_sm90_kernel")
 
 
 def tolerance(want: torch.Tensor, dtype) -> float:
@@ -187,6 +204,62 @@ def dq_sums(bh: int, nq: int, n_keys: int, dv: int) -> int:
     from the wrapper's ``dq_block_rows`` and ``split_count``."""
     blocks = bh * -(-nq // (64 if dv == 256 else 128))
     return int(2 * blocks <= sm_count() and n_keys > 64)
+
+
+def dkv_sums(bh: int, nq: int, n_keys: int) -> int:
+    """1 if a bf16 dK/dV launch of this shape splits its q range (and so
+    runs the split sum once), else 0: one block per 64 keys and head, split
+    as the forward does (2 blocks per SM fit in one wave and more than one
+    64-row q tile). Worked out here apart from the wrapper's constants and
+    ``split_count``."""
+    blocks = bh * -(-n_keys // 64)
+    return int(2 * blocks <= sm_count() and nq > 64)
+
+
+def encoder_launches(cfg) -> dict:
+    """Launches of the three encoder kernels in one ``set_image`` with the
+    switches on, from the JAX package's dispatch rules restated here apart
+    from the wrappers (``hiera._block_apply`` / ``_block_apply_windows``,
+    ``fused_block.fused_window_block_supported``, ``fused_mlp.ln_mlp_residual``,
+    MEDSAM2_FUSED_MLP_MAXC unset): a plain windowed block (no q-pooling, no
+    width change) whose extent the window divides, with a row block r of
+    1024 ... 16 rows (r a multiple of the window's n rows dividing the
+    block's rows, r * r * 4 <= 4 MiB), runs whole as the fused block; a
+    windowed block without q-pooling whose extent needs padding takes the
+    window attention; every block but a fused one ends in the MLP tail, fused
+    where its rows tile by 128."""
+    hw = cfg.image_size // cfg.trunk.patch_stride[0]
+    counts = {"window_attention": 0, "fused_mlp": 0, "fused_block": 0}
+    for spec in cfg.trunk.block_schedule():
+        ws, qs, C = spec["window_size"], spec["q_stride"], spec["dim_out"]
+        if qs is not None:
+            hw //= qs[0]
+        rows, n = hw * hw, ws * ws
+        if (qs is None and spec["dim"] == C and ws > 0 and hw % ws == 0
+                and C % spec["num_heads"] == 0
+                and any(r % n == 0 and rows % r == 0 and r * r * 4 <= 4 << 20
+                        for r in (1024, 512, 256, 128, 64, 32, 16))):
+            counts["fused_block"] += 1
+            continue
+        if qs is None and ws > 0 and hw % ws:
+            counts["window_attention"] += 1
+        counts["fused_mlp"] += int(rows % 128 == 0)
+    return counts
+
+
+def global_flash(cfg) -> int:
+    """Flash launches of one ``set_image``: the global-attention blocks
+    whose sequence reaches the JAX package's flash gate (``attention._use_flash``:
+    q and kv lengths >= 1024, head dim >= 64; hiera_b+'s d 56 stays under
+    it)."""
+    hw = cfg.image_size // cfg.trunk.patch_stride[0]
+    n = 0
+    for spec in cfg.trunk.block_schedule():
+        if spec["q_stride"] is not None:
+            hw //= spec["q_stride"][0]
+        if spec["window_size"] == 0:
+            n += int(hw * hw >= 1024 and spec["dim_out"] // spec["num_heads"] >= 64)
+    return n
 
 
 def rates(ms: float, flops: float, bound_ms: float, lib_ms: float, grid) -> str:
@@ -302,9 +375,7 @@ def phase_build() -> None:
         mine = {n: c for n, c in hgmma.items() if kind in n}
         regs = {n: report.get(n, (None, None)) for n in mine}
         ok = len(mine) == count and min(mine.values(), default=0) > 0
-        # the kernels this PR's checks hold to no spills: the bf16 dQ pass and
-        # the window attention
-        if kind in ("flash_bwd_dq_sm90_kernel", "window_sm90_kernel"):
+        if kind in NO_SPILL:
             ok = ok and all(sp == 0 for _, sp in regs.values())
         short = {re.sub(r"^_Z\w*?" + kind, "", n)[:24] or kind: (c, *regs[n])
                  for n, c in mine.items()}
@@ -531,14 +602,20 @@ def phase_train_kernels():
             ok = ok and max(errs.values()) <= tol_grad
             if kind == "dead":
                 ok = ok and dq[0].abs().max().item() == 0 and dk[0].abs().max().item() == 0
-            # the bf16 dQ pass at forced split counts (the wrapper's pick is
-            # 4 for the self-attention, 8 for the cross-attention)
-            split_errs = {}
+            # the bf16 dQ pass at forced kv split counts (the wrapper's pick is
+            # 4 for the self-attention, 8 for the cross-attention) and the
+            # dK/dV pass at forced q split counts (its pick: 4 for the
+            # self-attention, 1 for the cross-attention)
+            split_errs, dkv_split_errs = {}, {}
             if dtype == torch.bfloat16 and kind != "dead":
                 for sp in (1, 2, 3, 7):
                     split_errs[sp] = rel_err(A.flash_attention_bwd_dq(
                         q, k, v, mask, do, want_lse, dvec, _splits=sp), wq)
+                    sk, sv = A.flash_attention_bwd_dkv(q, k, v, mask, do, want_lse, dvec,
+                                                       _splits=sp)
+                    dkv_split_errs[sp] = max(rel_err(sk, wk), rel_err(sv, wv))
                 ok = ok and max(split_errs.values()) <= tol_grad
+                ok = ok and max(dkv_split_errs.values()) <= tol_grad
             # times: kernels, twins, and the library call forward and backward
             ms_fwd = graph_ms(lambda: A._flash_forward(q, k, v, mask, scale, True))
             ms_dkv = graph_ms(lambda: A.flash_attention_bwd_dkv(q, k, v, mask, do, want_lse,
@@ -574,8 +651,10 @@ def phase_train_kernels():
                   f"fwd+lse err {err_out:.3e} lse err {err_lse:.3e} | grad err rel max|grad| "
                   f"dq {errs['dq']:.3e} dk {errs['dk']:.3e} dv {errs['dv']:.3e} "
                   f"(tol {tol_grad:.0e}), dq at forced splits "
-                  f"{ {sp: f'{e:.3e}' for sp, e in split_errs.items()} } | dq grid "
-                  f"{dq_grid(B * H, Nq, Nk, Dv, dtype)} | kernel (graph) fwd+lse {ms_fwd:.4f} dkv {ms_dkv:.4f} "
+                  f"{ {sp: f'{e:.3e}' for sp, e in split_errs.items()} }, dk/dv at forced "
+                  f"splits { {sp: f'{e:.3e}' for sp, e in dkv_split_errs.items()} } | dq grid "
+                  f"{dq_grid(B * H, Nq, Nk, Dv, dtype)} dkv grid "
+                  f"{dkv_grid(B * H, Nq, Nk, dtype)} | kernel (graph) fwd+lse {ms_fwd:.4f} dkv {ms_dkv:.4f} "
                   f"dq {ms_dq:.4f} ms, dkv+dq {ms_dkv + ms_dq:.4f} ms = "
                   f"{(ms_dkv + ms_dq) / lib_bwd:.2f}x sdpa bwd | share of bound dkv "
                   f"{b_dkv[0] / ms_dkv:.1%} dq {b_dq[0] / ms_dq:.1%} | plain fwd {plain_fwd:.3f} bwd {plain_bwd:.3f} ms | "
@@ -584,12 +663,16 @@ def phase_train_kernels():
                   f"dkv {b_dkv[0]:.4f} dq {b_dq[0]:.4f} ms ({b_dkv[1]}) "
                   f"{'ok' if ok else 'FAIL'}")
             if not ok:
-                raise AssertionError(f"train kernels {label} {dtype}: out {err_out} "
-                                     f"lse {err_lse} grads {errs}")
+                fmt = lambda d: {k: f"{v:.3e}" for k, v in d.items()}  # noqa: E731
+                raise AssertionError(f"train kernels {label} {dtype}: dk/dv at forced splits "
+                                     f"{fmt(dkv_split_errs)} dq at forced splits "
+                                     f"{fmt(split_errs)} grads {fmt(errs)} out {err_out:.3e} "
+                                     f"lse {err_lse:.3e}")
             if dtype == torch.bfloat16 and kind == "stale":
                 best["flash_attention_bwd_dkv"] = dict(
                     max_abs_err=abs_dkv, ms=ms_dkv, plain_ms=plain_bwd, bound_ms=b_dkv[0],
-                    bound_by=b_dkv[1], library_ms=lib_bwd)
+                    bound_by=b_dkv[1], library_ms=lib_bwd,
+                    ms_includes_sum=dkv_grid(B * H, Nq, Nk, dtype)[1] > 1)
                 best["flash_attention_bwd_dq"] = dict(
                     max_abs_err=abs_dq, ms=ms_dq, plain_ms=plain_bwd, bound_ms=b_dq[0],
                     bound_by=b_dq[1], library_ms=lib_bwd,
@@ -597,8 +680,59 @@ def phase_train_kernels():
             del q, k, v, do, out, lse, want_out, want_lse, o, dk, dv, dq, wq, wk, wv
             del qg, kg, vg
     best["flash_attention_bwd_dq_sum"] = dq_sum_kernel(rng)
+    best["flash_attention_bwd_dkv_sum"] = dkv_sum_kernel(rng)
     torch.cuda.empty_cache()
     return best
+
+
+def dkv_grid(bh: int, nq: int, nk: int, dtype):
+    """(blocks, q splits) of a dK/dV launch: bf16 one block per 64 keys and
+    head, split by the one-wave rule; fp32 one block per 32 keys."""
+    if dtype != torch.bfloat16:
+        return bh * -(-nk // 32), 1
+    kv_tiles = bh * -(-nk // A.DKV_BLOCK_KEYS)
+    splits = A.split_count(kv_tiles, -(-nq // A.DKV_Q_TILE), sm_count())
+    return kv_tiles * splits, splits
+
+
+def dkv_sum_kernel(rng) -> dict:
+    """The dK/dV split sum at the training self-attention's split (4
+    partials of [2 * 1024, 256] fp32 each for dK and dV), against its twin
+    and one library call, ``torch.tensordot`` of the scale vector with the
+    partials (once for dK and once for dV). The timed calls take five copies
+    in turn (84 MB, more than the 50 MB L2), as ``dq_sum_kernel``."""
+    S, rows, D = dkv_grid(2, 1024, 1024, torch.bfloat16)[1], 2048, 256
+    pk, pv = rand(rng, (S, rows, D), torch.float32), rand(rng, (S, rows, D), torch.float32)
+    scale = 0.0625
+    gk, gv = A.flash_attention_bwd_dkv_sum(pk, pv, scale)
+    wk, wv = A.flash_attention_bwd_dkv_sum_plain(pk, pv, scale)
+    err = max((gk - wk).abs().max().item(), (gv - wv).abs().max().item())
+    tol = 1e-6 * max(wk.abs().max().item(), wv.abs().max().item())
+    ws_k, ws_v = torch.full((S,), scale, device=DEV), torch.ones(S, device=DEV)
+    copies = [(pk, pv)] + [(pk.clone(), pv.clone()) for _ in range(4)]
+    turn = [0]
+
+    def cycled(fn):
+        def call():
+            turn[0] += 1
+            return fn(*copies[turn[0] % len(copies)])
+        return call
+
+    ms = graph_ms(cycled(lambda a, b: A.flash_attention_bwd_dkv_sum(a, b, scale)))
+    lib_ms = graph_ms(cycled(lambda a, b: (torch.tensordot(ws_k, a, dims=1),
+                                           torch.tensordot(ws_v, b, dims=1))))
+    plain_ms = cuda_ms(lambda: A.flash_attention_bwd_dkv_sum_plain(pk, pv, scale), reps=10)
+    bound_ms, bound_by = bound(0.0, 4.0 * (S + 1) * rows * 2 * D, torch.float32)
+    ok = err <= tol
+    print(f"[3b train kernel] flash_attention_bwd_dkv_sum {S} splits x 2 x [{rows}, {D}] fp32 "
+          f"max_abs_err {err:.3e} (tol {tol:.3e}) kernel {ms:.4f} ms (graph, from HBM) "
+          f"tensordot x2 {lib_ms:.4f} ms ({ms / lib_ms:.2f}x) plain {plain_ms:.4f} ms bound "
+          f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of bound {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"flash_attention_bwd_dkv_sum: err {err}")
+    del copies
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=lib_ms)
 
 
 def dq_grid(bh: int, nq: int, nk: int, dv: int, dtype):
@@ -739,7 +873,8 @@ def phase_full_width(power_line: str):
     tok = (cfg.image_size // 16) ** 2
     want = {"flash_attention": n_global * encoded + n_layers * tracked,
             "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0,
-            "flash_attention_bwd_dq_sum": 0, "kv_cached_attention": n_layers * tracked,
+            "flash_attention_bwd_dq_sum": 0, "flash_attention_bwd_dkv_sum": 0,
+            "kv_cached_attention": n_layers * tracked,
             "attention_merge": n_global * encoded * merges(4, tok, tok)
             + n_layers * tracked * (merges(1, tok, tok) + merges(1, tok, 8 * tok + 64)),
             **NO_ENCODER_LAUNCHES}
@@ -791,7 +926,10 @@ def train_launches(cfg, rcfg, bf16: bool) -> dict:
     attention over O objects [O, 1, tok, *] (tok = 1024 @512). A bf16 dQ
     launch that splits runs the split sum: per tracked frame 2L - 1
     self-attention backwards (the sam pull skips one) and 2L
-    cross-attention ones, over at least one memory frame of tok keys."""
+    cross-attention ones, over at least one memory frame of tok keys. A bf16
+    dK/dV launch that splits its q range runs its split sum: the
+    self-attention's O x tok keys, and the cross-attention's keys, at least
+    the (max_cond_frames + num_maskmem - 1) attended frames of tok tokens."""
     T = rcfg.video_length
     tracked = T - len(rcfg.prompt_frames)
     L = cfg.memory_attention.num_layers
@@ -802,9 +940,13 @@ def train_launches(cfg, rcfg, bf16: bool) -> dict:
              if bf16 else 0)
     dq_sum = (tracked * ((2 * L - 1) * dq_sums(O, tok, tok, 256) + 2 * L * dq_sums(O, tok, tok, 64))
               if bf16 else 0)
+    cross_keys = (rcfg.max_cond_frames + cfg.num_maskmem - 1) * tok
+    dkv_sum = (tracked * ((2 * L - 1) * dkv_sums(O, tok, tok) + 2 * L * dkv_sums(O, tok, cross_keys))
+               if bf16 else 0)
     return {"flash_attention": n_global * T + tracked * 2 * L,
             "flash_attention_bwd_dkv": bwd, "flash_attention_bwd_dq": bwd,
-            "flash_attention_bwd_dq_sum": dq_sum, "kv_cached_attention": 0,
+            "flash_attention_bwd_dq_sum": dq_sum, "flash_attention_bwd_dkv_sum": dkv_sum,
+            "kv_cached_attention": 0,
             "attention_merge": merge, **NO_ENCODER_LAUNCHES}
 
 
@@ -959,24 +1101,27 @@ def _check(name, label, dtype, got, want, ms, plain_ms, lib_ms, bnd, best, main)
 
 def phase_encoder_kernels():
     """Phase 8: B5/B6, B7 and B8 against their twins at the hiera_t @1024
-    shapes. Returns the bf16 main-shape results per kernel."""
+    shapes and the hiera_b+ / hiera_l widths @1024. Returns the bf16
+    main-shape results per kernel."""
     rng = np.random.default_rng(8)
     best = {}
     for dtype in (torch.bfloat16, torch.float32):
         set_tf32(False)
         it = 2 if dtype == torch.bfloat16 else 4
-        # B5 / B6: blocks 4/6/8 (64 -> 70, ws 14, 4 heads) and 11 (32 -> 35,
-        # ws 7, 8 heads); d 96
-        for (Hp, heads, ws, main) in ((70, 4, 14, True), (35, 8, 7, False)):
-            C = 96 * heads
+        # B5 / B6: hiera_t blocks 4/6/8 (64 -> 70, ws 14, 4 heads) and 11
+        # (32 -> 35, ws 7, 8 heads), d 96; hiera_b+ stage 3 (ws 14, 8 heads)
+        # and 4 (ws 7, 16 heads), d 56
+        for (Hp, heads, ws, d, main) in ((70, 4, 14, 96, True), (35, 8, 7, 96, False),
+                                         (70, 8, 14, 56, False), (35, 16, 7, 56, False)):
+            C = d * heads
             qkv = rand(rng, (1, Hp, Hp, 3 * C), dtype)
             want = WA.window_attention_plain(qkv.float(), heads, ws)
             nw, n = (Hp // ws) ** 2, ws * ws
-            q, k, v = qkv.reshape(1, Hp // ws, ws, Hp // ws, ws, 3, heads, 96).permute(
-                5, 0, 1, 3, 6, 2, 4, 7).reshape(3, nw, heads, n, 96).unbind(0)
+            q, k, v = qkv.reshape(1, Hp // ws, ws, Hp // ws, ws, 3, heads, d).permute(
+                5, 0, 1, 3, 6, 2, 4, 7).reshape(3, nw, heads, n, d).unbind(0)
             q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
             lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(q, k, v))
-            bnd = bound(4.0 * nw * heads * n * n * 96, it * Hp * Hp * 4 * C, dtype)
+            bnd = bound(4.0 * nw * heads * n * n * d, it * Hp * Hp * 4 * C, dtype)
             plain_ms = cuda_ms(lambda: WA.window_attention_plain(qkv, heads, ws), reps=5)
             for name, fn in (("window_attention", WA.window_attention),
                              ("window_attention_v2", WA.window_attention_v2)):
@@ -985,13 +1130,15 @@ def phase_encoder_kernels():
                 parts, _, wgs = WA.window_query_parts(ws)
                 grid = (f"{nw * heads * parts} CTAs of {wgs} warpgroups" if dtype == torch.bfloat16
                         else "fp32 FMA")
-                _check(name, f"[1,{Hp},{Hp},{3 * C}] ws {ws} heads {heads} ({grid})", dtype, got,
-                       want, ms, plain_ms, lib_ms, bnd, best, main)
+                _check(name, f"[1,{Hp},{Hp},{3 * C}] ws {ws} heads {heads} d {d} ({grid})", dtype,
+                       got, want, ms, plain_ms, lib_ms, bnd, best, main)
             del qkv, q, k, v, want
-        # B7: the MLP tails of hiera_t @1024 (rows x C, hidden 4C), and a
-        # ragged row count
+        # B7: the MLP tails of hiera_t @1024 (rows x C, hidden 4C), a ragged
+        # row count, and the stage 2-4 tails of hiera_b+ and hiera_l @1024
         for N, C, main in ((16384, 192, True), (65536, 96, False), (4096, 384, False),
-                           (1024, 768, False), (1000, 96, False)):
+                           (1024, 768, False), (1000, 96, False), (16384, 224, False),
+                           (4096, 448, False), (1024, 896, False), (16384, 288, False),
+                           (4096, 576, False), (1024, 1152, False)):
             x = rand(rng, (N, C), dtype)
             g, b = 1 + 0.1 * rand(rng, (C,), dtype), 0.1 * rand(rng, (C,), dtype)
             (w1, b1), (w2, b2) = linear_params(rng, 4 * C, C, dtype), linear_params(rng, C, 4 * C, dtype)
@@ -1004,12 +1151,16 @@ def phase_encoder_kernels():
             _check("fused_mlp", f"{N}x{C}x{4 * C}", dtype, got, want, ms, plain_ms, None, bnd,
                    best, main)
             del x, args, got, want
-        # B8: blocks 0 (ws 8, C 96, 1 head) and 2 (ws 4, C 192, 2 heads) @1024,
-        # and a ragged 64-row group (5 ws-4 windows)
-        for Bn, ws, C, main in ((1024, 8, 96, True), (1024, 4, 192, False), (5, 4, 192, False)):
+        # B8: hiera_t blocks 0 (ws 8, C 96, 1 head) and 2 (ws 4, C 192, 2
+        # heads) @1024, a ragged 64-row group (5 ws-4 windows), and every
+        # hiera_b+ / hiera_l width @1024 (the launch sequence)
+        for Bn, ws, C, heads, main in ((1024, 8, 96, 1, True), (1024, 4, 192, 2, False),
+                                       (5, 4, 192, 2, False), (1024, 8, 112, 2, False),
+                                       (1024, 4, 224, 4, False), (1024, 8, 144, 2, False),
+                                       (1024, 4, 288, 4, False), (16, 16, 576, 8, False),
+                                       (16, 8, 1152, 16, False)):
             wins = rand(rng, (Bn, ws, ws, C), dtype)
             p = block_params(rng, C, dtype)
-            heads = C // 96
             N, n = Bn * ws * ws, ws * ws
             got = FB.fused_window_block(wins, p, heads)
             want = FB.fused_window_block_plain(wins.reshape(-1, C), p, heads, n).reshape(wins.shape)
@@ -1018,8 +1169,9 @@ def phase_encoder_kernels():
                                                                    n), reps=5)
             bnd = bound(2.0 * N * C * 12 * C + 4.0 * N * n * C,
                         it * (2 * N * C + 12 * C * C + 13 * C), dtype)
-            _check("fused_block", f"N {N} C {C} ws {ws} heads {heads}", dtype, got, want, ms,
-                   plain_ms, None, bnd, best, main)
+            route = "one kernel" if FB.one_kernel(C, heads, n) else "launch sequence"
+            _check("fused_block", f"N {N} C {C} ws {ws} heads {heads} ({route})", dtype, got,
+                   want, ms, plain_ms, None, bnd, best, main)
             del wins, p, got, want
     torch.cuda.empty_cache()
     return best
@@ -1061,8 +1213,8 @@ def phase_image_parity():
             outs[dev.type] = (res, counts, time.perf_counter() - t0)
             del pred
     (cres, counts, tc), (pres, _, tp) = outs["cuda"], outs["cpu"]
-    want = {**{k: 0 for k in counts}, "flash_attention": 3, "window_attention": 4,
-            "fused_mlp": 10, "fused_block": 2}
+    want = {**{k: 0 for k in counts}, "flash_attention": global_flash(cfg),
+            **encoder_launches(cfg)}
     errs = {k: max(np.abs(cres[k][2] - pres[k][2]).max(), np.abs(cres[k][1] - pres[k][1]).max())
             for k in IMAGE_PROMPTS}
     ok = max(errs.values()) <= 1e-3 and counts == want and all(
@@ -1155,8 +1307,8 @@ def phase_image_full_width(power_line: str):
         torch.cuda.reset_peak_memory_stats()
         gen_res = {k: timed_generate(g, img) for k, g in gens.items()}
         peak_amg = torch.cuda.max_memory_allocated() / 2 ** 30
-    want = {**{k: 0 for k in counts}, "flash_attention": len(cfg.trunk.global_att_blocks),
-            "window_attention": 4, "fused_mlp": 10, "fused_block": 2}
+    want = {**{k: 0 for k in counts}, "flash_attention": global_flash(cfg),
+            **encoder_launches(cfg)}
     finite = bool(np.isfinite(low).all()) and masks.shape == (3, 1024, 1024)
     loaded_n = len(gen_res["loaded"][2])
     ok = counts == want and finite and loaded_n > 0
@@ -1176,6 +1328,85 @@ def phase_image_full_width(power_line: str):
     return counts
 
 
+# bf16 image embeddings with the switches on against off, relative to their
+# largest |value|: the two paths round the residual stream at different
+# places ((x + y) + b against x + (y + b)), one bf16 ulp (2^-8) a block,
+# which over 24 or 48 blocks adds up like a random walk to sqrt(48) * 2^-8 =
+# 2.7e-2; a kernel fault misses by O(1)
+TOL_BL_EMBED = 5e-2
+
+
+def phase_bl_set_image(power_line: str):
+    """Phase 11: sam2_hiera_b+ and sam2_hiera_l @1024 bf16 at full depth,
+    set_image with the switches on against off, exact launch counts; then
+    sam2_hiera_l @512 fp32 with the switches on, card against the CPU.
+    Returns the summed launch counts of the two bf16 set_image calls."""
+    set_tf32(False)
+    img = test_image(1024, seed=11)
+    total = {}
+    for label, make in (("sam2_hiera_b+", sam2_hiera_b_plus), ("sam2_hiera_l", sam2_hiera_l)):
+        cfg = make()
+        pred = SAM2ImagePredictor(SAM2Model(cfg, seed=0, device=DEV))
+        times, embeds = {"0": [], "1": []}, {}
+        for value in ("0", "1", "1", "0"):
+            with encoder_switches(value):
+                pred.set_image(img)
+                for _ in range(3):
+                    times[value].append(_sync_s(lambda: pred.set_image(img))[0] * 1e3)
+                embeds[value] = pred._features["image_embed"].float()
+        with encoder_switches("1"):
+            A.reset_launch_counts()
+            pred.set_image(img)
+            torch.cuda.synchronize()
+            counts = A.launch_counts()
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+        want = {**{k: 0 for k in counts}, "flash_attention": global_flash(cfg),
+                **encoder_launches(cfg)}
+        err = rel_err(embeds["1"], embeds["0"])
+        finite = bool(torch.isfinite(embeds["1"]).all())
+        ok = counts == want and finite and err <= TOL_BL_EMBED
+        print(f"[11 b+/l set_image] {label} @1024 bf16, {len(cfg.trunk.block_schedule())} "
+              f"blocks | set_image switches off {np.median(times['0']):.2f} ms on "
+              f"{np.median(times['1']):.2f} ms (median of 6 each, off/on/on/off) | image "
+              f"embedding on vs off err rel max|embed| {err:.3e} (tol {TOL_BL_EMBED:.0e}) finite "
+              f"{finite} | launches {counts} expected {want} | {power_line} "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{label} set_image: launches {counts} vs {want}, err {err}, "
+                                 f"finite {finite}")
+        del pred, embeds
+        torch.cuda.empty_cache()
+    # hiera_l @512 fp32, switches on: kernels on the card, twins on the CPU
+    cfg = sam2_hiera_l(image_size=512, compute_dtype="float32")
+    img = test_image(400, seed=12)[:, :360]
+    outs = {}
+    with encoder_switches("1"):
+        for dev in (DEV, torch.device("cpu")):
+            pred = SAM2ImagePredictor(SAM2Model(cfg, seed=0, device=dev))
+            A.reset_launch_counts()
+            t0 = time.perf_counter()
+            pred.set_image(img)
+            counts = A.launch_counts()
+            res = {k: pred.predict(**kw) for k, kw in IMAGE_PROMPTS.items()}
+            outs[dev.type] = (res, counts, time.perf_counter() - t0)
+            del pred
+    (cres, counts, tc), (pres, _, tp) = outs["cuda"], outs["cpu"]
+    want = {**{k: 0 for k in counts}, "flash_attention": global_flash(cfg),
+            **encoder_launches(cfg)}
+    errs = {k: max(np.abs(cres[k][2] - pres[k][2]).max(), np.abs(cres[k][1] - pres[k][1]).max())
+            for k in IMAGE_PROMPTS}
+    ok = max(errs.values()) <= 1e-3 and counts == want and all(
+        np.isfinite(cres[k][2]).all() for k in IMAGE_PROMPTS)
+    print(f"[11 b+/l set_image] sam2_hiera_l @512 fp32 TF32 off, switches on: set_image + "
+          f"predict (points, box) cuda (kernels, launches {counts}, expected {want}) vs cpu "
+          f"(twins): low-res logits and IoU max_abs_err {errs} (tol 1e-3) | cuda {tc:.1f} s "
+          f"cpu {tp:.1f} s {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"hiera_l image parity: errs {errs}, launches {counts} vs {want}")
+    torch.cuda.empty_cache()
+    return total
+
 
 def main() -> None:
     power_line = phase_device()
@@ -1189,6 +1420,7 @@ def main() -> None:
     best.update(phase_encoder_kernels())
     phase_image_parity()
     paths["2d serving"] = phase_image_full_width(power_line)
+    paths["2d serving b+/l"] = phase_bl_set_image(power_line)
     rows = []
     for name in KERNELS:
         by_path = {p: c[name] for p, c in paths.items() if c.get(name)}

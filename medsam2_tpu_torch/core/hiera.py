@@ -22,7 +22,10 @@ default, and run where its default dispatch (chained windows on,
   on the padded qkv (the normed input is zero-padded before the qkv linear,
   so padded tokens carry qkv = bias and attend, as in the partition path);
 - ``MEDSAM2_FUSED_MLP=1``: every other block's ``x + mlp(norm2(x))`` tail is
-  :func:`~medsam2_tpu_torch.ops.fused_mlp.ln_mlp_residual`.
+  :func:`~medsam2_tpu_torch.ops.fused_mlp.ln_mlp_residual` where the JAX
+  package's ``ln_mlp_residual`` takes its kernel: a row count that tiles by
+  128 and C within ``MEDSAM2_FUSED_MLP_MAXC`` when that is set
+  (:func:`~medsam2_tpu_torch.ops.fused_mlp.fused_mlp_applies`).
 
 On the card a switched-on kernel launches; on the CPU the same call runs its
 plain twin.
@@ -102,7 +105,7 @@ class MultiScaleBlock(nn.Module):
 
     def _mlp_tail(self, x):
         """``x + mlp(norm2(x))``, through the fused kernel when switched on."""
-        if fused_mlp.fused_mlp_enabled():
+        if fused_mlp.fused_mlp_applies(x.numel() // x.shape[-1], x.shape[-1]):
             fc1, fc2 = self.mlp.layers
             return fused_mlp.ln_mlp_residual(x, self.norm2.weight, self.norm2.bias, fc1.weight,
                                              fc1.bias, fc2.weight, fc2.bias, self.norm2.eps)

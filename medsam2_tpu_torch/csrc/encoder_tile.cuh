@@ -1,5 +1,6 @@
-// Row-tile building blocks of the three Hiera encoder kernels
-// (window_attention.cu, fused_mlp.cu, fused_block.cu).
+// Row-tile building blocks of the fp32 window attention (window_attention.cu)
+// and of the one-kernel fused window block (fused_block.cu); encoder_gemm.cu
+// shares the rounding and GELU helpers.
 //
 // A thread block holds a tile of rows (tokens) in shared memory and runs
 // every product of its rows itself:
@@ -15,9 +16,9 @@
 //     applies GELU or accumulates, in the order the Pallas kernel does;
 //   - softmax_rows: fp32 softmax of a logit tile (masked logits -1e30),
 //     probabilities normalised and then rounded to the working type;
-//   - mlp_residual_rows: B7's body, x + fc2(gelu(fc1(LN(x)))) with the hidden
-//     width walked in chunks of 128, so the 4C hidden activations never reach
-//     device memory. fused_block.cu runs it as the second half of a block.
+//   - mlp_residual_rows: x + fc2(gelu(fc1(LN(x)))) with the hidden width
+//     walked in chunks of 128, so the 4C hidden activations never reach
+//     device memory: the second half of fused_block.cu's one-kernel block.
 #pragma once
 
 #include "attention_tile.cuh"

@@ -30,15 +30,12 @@
 // What bounds it on the H100: 2*Nq*Nk*(2*D + 2*Dv) flops for dkv and
 // 2*Nq*Nk*(2*D + Dv) for dq (S and dP are recomputed in each) against
 // O((Nq + Nk) * (D + Dv)) bytes: far above the ~295 flop/byte ridge at the
-// training shapes, so tensor-core issue rate bounds both. The bf16 dq pass
-// is the wgmma + TMA design of flash_bwd_dq_sm90.cu, with split-kv; this
-// file's dq kernel serves fp32 only. Here nothing is rescaled per row, so the
-// accumulators stay in registers (WMMA accumulator fragments for the bf16
-// dK/dV, plain registers for fp32) and only the K/V/Q/dO tiles, S, dP and the
-// rounded P/dS live in shared memory: at D = Dv = 256 bf16 with 64-row tiles
-// that is 189 KB. bf16 dkv runs WMMA (mma.sync 16x16x16) on 8 warps; fp32
-// runs plain FMA on 32-row tiles with no TF32 (the JAX package pins
-// Precision.HIGHEST for fp32).
+// training shapes, so tensor-core issue rate bounds both. The bf16 passes
+// are the wgmma + TMA designs of flash_bwd_dq_sm90.cu (split-kv) and
+// flash_bwd_dkv_sm90.cu (split-q); this file's kernels serve fp32 only: the
+// accumulators stay in registers and the K/V/Q/dO tiles, S and dP live in
+// shared memory, plain FMA on 32-row tiles with no TF32 (the JAX package
+// pins Precision.HIGHEST for fp32).
 
 #include "attention_tile.cuh"
 #include "flash_bwd_sm90.cuh"
@@ -50,46 +47,27 @@ namespace {
 constexpr int kBwdWarps = 8;
 constexpr int kBwdThreads = kBwdWarps * 32;
 
-template <typename T>
-struct BwdCfg;
-template <>
-struct BwdCfg<bf16> {
-  static constexpr int BM = 64;  // rows of every q and kv tile
-  static constexpr int PAD = 8;
-};
-template <>
-struct BwdCfg<float> {
-  static constexpr int BM = 32;
-  static constexpr int PAD = 4;
-};
-
-// Shared-memory layout (bytes) of one block of either kernel.
+// Shared-memory layout (bytes) of one block of either fp32 kernel.
 template <typename T, int D, int DV>
 struct BwdSmem {
-  static constexpr bool kBf16 = std::is_same<T, bf16>::value;
-  static constexpr int BM = BwdCfg<T>::BM;
-  static constexpr int PAD = BwdCfg<T>::PAD;
+  static_assert(std::is_same<T, float>::value, "the bf16 passes are the sm90 kernels");
+  static constexpr int BM = 32;  // rows of every q and kv tile
+  static constexpr int PAD = 4;
   static constexpr int LDD = D + PAD;   // Q and K rows (elements of T)
   static constexpr int LDV = DV + PAD;  // V and dO rows
   static constexpr int LDS = BM + 4;    // S and dP (floats)
-  static constexpr int LDP = BM + PAD;  // rounded P and dS (bf16)
   static constexpr size_t q_off = 0;
   static constexpr size_t k_off = q_off + align128(sizeof(T) * BM * LDD);
   static constexpr size_t do_off = k_off + align128(sizeof(T) * BM * LDD);
   static constexpr size_t v_off = do_off + align128(sizeof(T) * BM * LDV);
   static constexpr size_t s_off = v_off + align128(sizeof(T) * BM * LDV);
   static constexpr size_t dp_off = s_off + align128(sizeof(float) * BM * LDS);
-  static constexpr size_t pb_off = dp_off + align128(sizeof(float) * BM * LDS);
-  static constexpr size_t dsb_off = pb_off + (kBf16 ? align128(sizeof(T) * BM * LDP) : 0);
-  static constexpr size_t lse_off = dsb_off + (kBf16 ? align128(sizeof(T) * BM * LDP) : 0);
+  static constexpr size_t lse_off = dp_off + align128(sizeof(float) * BM * LDS);
   static constexpr size_t dvec_off = lse_off + align128(sizeof(float) * BM);
   static constexpr size_t mask_off = dvec_off + align128(sizeof(float) * BM);
   static constexpr size_t bytes = mask_off + align128(sizeof(float) * BM);
   static_assert(bytes <= 232448, "tile does not fit the 227 KB a block may use");
-  static_assert(!kBf16 || BM == 64, "the WMMA path maps 4 row tiles x 2 column halves to 8 warps");
-  static_assert(!kBf16 || (D % 32 == 0 && DV % 32 == 0),
-                "each warp owns half of the 16-wide column tiles");
-  static_assert(kBf16 || BM * BM % kBwdThreads == 0, "fp32 S tile split over the threads");
+  static_assert(BM * BM % kBwdThreads == 0, "fp32 S tile split over the threads");
 };
 
 template <typename T, int D, int DV>
@@ -101,8 +79,6 @@ struct BwdTiles {
   T* v;
   float* s;
   float* dp;
-  T* pb;
-  T* dsb;
   float* lse;
   float* dvec;
   float* mask;
@@ -113,8 +89,6 @@ struct BwdTiles {
         v(reinterpret_cast<T*>(base + L::v_off)),
         s(reinterpret_cast<float*>(base + L::s_off)),
         dp(reinterpret_cast<float*>(base + L::dp_off)),
-        pb(reinterpret_cast<T*>(base + L::pb_off)),
-        dsb(reinterpret_cast<T*>(base + L::dsb_off)),
         lse(reinterpret_cast<float*>(base + L::lse_off)),
         dvec(reinterpret_cast<float*>(base + L::dvec_off)),
         mask(reinterpret_cast<float*>(base + L::mask_off)) {}
@@ -145,55 +119,33 @@ __device__ __forceinline__ void stage_q_rows(float* lse_s, float* dvec_s, const 
 }
 
 // C[BM][BM] (fp32, row stride LDC) = A[BM][KD] . B[BM][KD]^T, both row-major
-// in shared memory. bf16: 16 tiles of 16x16, two per warp; fp32: FMA, each
-// thread BM*BM/256 outputs (a warp shares its row, lanes take the columns).
+// in shared memory, by FMA: each thread BM*BM/256 outputs (a warp shares its
+// row, lanes take the columns).
 template <typename T, int BM, int KD, int LDA, int LDB, int LDC>
 __device__ __forceinline__ void nt_product(const T* a, const T* b, float* c) {
-  if constexpr (std::is_same<T, bf16>::value) {
-    using namespace nvcuda;
-    const int warp = threadIdx.x / 32;
 #pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      const int tile = warp * 2 + u;
-      const int tr = tile / 4;
-      const int tc = tile % 4;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-      for (int ks = 0; ks < KD / 16; ++ks) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-        wmma::load_matrix_sync(fa, a + tr * 16 * LDA + ks * 16, LDA);
-        wmma::load_matrix_sync(fb, b + tc * 16 * LDB + ks * 16, LDB);
-        wmma::mma_sync(acc, fa, fb, acc);
-      }
-      wmma::store_matrix_sync(c + tr * 16 * LDC + tc * 16, acc, LDC, wmma::mem_row_major);
+  for (int e = 0; e < BM * BM / kBwdThreads; ++e) {
+    const int idx = threadIdx.x + kBwdThreads * e;
+    const int i = idx / BM;
+    const int j = idx % BM;
+    const float* ar = a + i * LDA;
+    const float* br = b + j * LDB;
+    float sum = 0.f;
+    for (int d = 0; d < KD; d += 4) {
+      const float4 x = *reinterpret_cast<const float4*>(ar + d);
+      const float4 y = *reinterpret_cast<const float4*>(br + d);
+      sum = fmaf(x.x, y.x, sum);
+      sum = fmaf(x.y, y.y, sum);
+      sum = fmaf(x.z, y.z, sum);
+      sum = fmaf(x.w, y.w, sum);
     }
-  } else {
-#pragma unroll
-    for (int e = 0; e < BM * BM / kBwdThreads; ++e) {
-      const int idx = threadIdx.x + kBwdThreads * e;
-      const int i = idx / BM;
-      const int j = idx % BM;
-      const float* ar = a + i * LDA;
-      const float* br = b + j * LDB;
-      float sum = 0.f;
-      for (int d = 0; d < KD; d += 4) {
-        const float4 x = *reinterpret_cast<const float4*>(ar + d);
-        const float4 y = *reinterpret_cast<const float4*>(br + d);
-        sum = fmaf(x.x, y.x, sum);
-        sum = fmaf(x.y, y.y, sum);
-        sum = fmaf(x.z, y.z, sum);
-        sum = fmaf(x.w, y.w, sum);
-      }
-      c[i * LDC + j] = sum;
-    }
+    c[i * LDC + j] = sum;
   }
 }
 
-// From S (or S^T) and dP (or dP^T) in shared memory: P and dS. KV_ROWS: rows
-// are keys and columns queries (the dkv pass), else the other way round.
-// bf16 writes the rounded P and dS beside them; fp32 overwrites S and dP.
+// From S (or S^T) and dP (or dP^T) in shared memory: P and dS, over S and
+// dP. KV_ROWS: rows are keys and columns queries (the dkv pass), else the
+// other way round.
 template <typename T, int D, int DV, bool KV_ROWS>
 __device__ __forceinline__ void probs_and_dscores(BwdTiles<T, D, DV>& t, float scale) {
   using L = BwdSmem<T, D, DV>;
@@ -205,13 +157,8 @@ __device__ __forceinline__ void probs_and_dscores(BwdTiles<T, D, DV>& t, float s
     const int ki = KV_ROWS ? i : j;
     const float p = expf(fminf(t.s[i * L::LDS + j] * scale - t.lse[qi], 0.f)) * t.mask[ki];
     const float ds = p * (t.dp[i * L::LDS + j] - t.dvec[qi]);
-    if constexpr (L::kBf16) {
-      t.pb[i * L::LDP + j] = from_float<T>(p);
-      t.dsb[i * L::LDP + j] = from_float<T>(ds);
-    } else {
-      t.s[i * L::LDS + j] = p;
-      t.dp[i * L::LDS + j] = ds;
-    }
+    t.s[i * L::LDS + j] = p;
+    t.dp[i * L::LDS + j] = ds;
   }
 }
 
@@ -219,52 +166,6 @@ __device__ __forceinline__ void probs_and_dscores(BwdTiles<T, D, DV>& t, float s
 // with A (P or dS) and B row-major in shared memory.
 template <typename T, int N>
 struct Acc;
-
-// bf16: WMMA accumulator fragments; warp w owns row tile w % 4 and the
-// column tiles of half (w / 4).
-template <int N>
-struct Acc<bf16, N> {
-  static constexpr int NT = N / 32;
-  nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float> f[NT];
-
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int u = 0; u < NT; ++u) nvcuda::wmma::fill_fragment(f[u], 0.f);
-  }
-
-  template <int LDA, int LDB>
-  __device__ __forceinline__ void mma(const bf16* a, const bf16* b) {
-    using namespace nvcuda;
-    const int warp = threadIdx.x / 32;
-    const int rt = warp % 4;
-    const int ct0 = (warp / 4) * NT;
-#pragma unroll
-    for (int ks = 0; ks < 64 / 16; ++ks) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-      wmma::load_matrix_sync(fa, a + rt * 16 * LDA + ks * 16, LDA);
-#pragma unroll
-      for (int u = 0; u < NT; ++u) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fb, b + ks * 16 * LDB + (ct0 + u) * 16, LDB);
-        wmma::mma_sync(f[u], fa, fb, f[u]);
-      }
-    }
-  }
-
-  // out: the block's first row of an fp32 [rows][N] buffer padded to 64 rows.
-  __device__ __forceinline__ void store(float* out, float scale) {
-    using namespace nvcuda;
-    const int warp = threadIdx.x / 32;
-    const int rt = warp % 4;
-    const int ct0 = (warp / 4) * NT;
-#pragma unroll
-    for (int u = 0; u < NT; ++u) {
-#pragma unroll
-      for (int i = 0; i < f[u].num_elements; ++i) f[u].x[i] *= scale;
-      wmma::store_matrix_sync(out + rt * 16 * N + (ct0 + u) * 16, f[u], N, wmma::mem_row_major);
-    }
-  }
-};
 
 // fp32: registers, BM = 32 rows; thread t owns elements t + 256 e of the
 // row-major tile (a warp shares its row, lanes take consecutive columns).
@@ -339,13 +240,8 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
       __syncthreads();
       probs_and_dscores<T, D, DV, true>(t, scale);
       __syncthreads();
-      if constexpr (L::kBf16) {
-        acc_v.template mma<L::LDP, L::LDV>(t.pb, t.dout);   // dV += P^T dO
-        acc_k.template mma<L::LDP, L::LDD>(t.dsb, t.q);     // dK += dS^T Q
-      } else {
-        acc_v.template mma<L::LDS, L::LDV>(t.s, t.dout);
-        acc_k.template mma<L::LDS, L::LDD>(t.dp, t.q);
-      }
+      acc_v.template mma<L::LDS, L::LDV>(t.s, t.dout);   // dV += P^T dO
+      acc_k.template mma<L::LDS, L::LDD>(t.dp, t.q);     // dK += dS^T Q
     }
   }
   const size_t out_row = (size_t)bh * Nk_out + k0;
@@ -405,9 +301,11 @@ struct BwdArgs {
   const void* dout;
   const float* lse;
   const float* dvec;
-  float* da;    // dK (dkv pass) or dQ (dq pass)
-  float* db;    // dV (dkv pass)
-  float* part;  // bf16 dq pass with splits > 1: [splits, BH * Nq, D] partials
+  float* da;      // dK (dkv pass) or dQ (dq pass)
+  float* db;      // dV (dkv pass)
+  float* part;    // bf16 with splits > 1: dQ [splits, BH * Nq, D] or dK
+                  // [splits, BH * rows_out, D] partials
+  float* part_b;  // bf16 dkv with splits > 1: dV [splits, BH * rows_out, Dv] partials
   int BH, H, Nq, Nk, rows_out, splits;
   float scale;
   cudaStream_t stream;
@@ -434,7 +332,6 @@ struct BwdLaunch {
       kern<<<grid, kBwdThreads, L::bytes, a.stream>>>(q, k, v, a.mask, dout, a.lse, a.dvec, a.da,
                                                        a.db, a.H, a.Nq, a.Nk, a.rows_out, a.scale);
     } else {
-      static_assert(std::is_same<T, float>::value, "the bf16 dq pass is DqSm90");
       auto kern = flash_bwd_dq_kernel<D, DV>;
       e = hopper::allow_smem(reinterpret_cast<const void*>(kern), (int)L::bytes, smem_set);
       if (e != cudaSuccess) return e;
@@ -454,6 +351,17 @@ cudaError_t dispatch_bwd_dims(int d, int dv, Fn&& fn) {
   return cudaErrorInvalidValue;
 }
 
+// The bf16 dkv pass on Hopper (flash_bwd_dkv_sm90.cu).
+struct DkvSm90 {
+  const BwdArgs& a;
+  template <int D, int DV>
+  cudaError_t operator()() const {
+    return hopper::flash_bwd_dkv_sm90<D, DV>({a.q, a.k, a.v, a.mask, a.dout, a.lse, a.dvec, a.da,
+                                              a.db, a.part, a.part_b, a.BH, a.H, a.Nq, a.Nk,
+                                              a.rows_out, a.splits, a.scale, a.stream});
+  }
+};
+
 // The bf16 dq pass on Hopper (flash_bwd_dq_sm90.cu).
 struct DqSm90 {
   const BwdArgs& a;
@@ -470,13 +378,13 @@ int launch_bwd(const BwdArgs& a, int D, int Dv, int dtype) {
   if (a.BH <= 0 || a.H <= 0 || a.BH % a.H != 0 || a.Nq <= 0 || a.Nk <= 0 || a.rows_out % 64 != 0)
     return (int)cudaErrorInvalidValue;
   if (a.rows_out < (DKV ? a.Nk : a.Nq)) return (int)cudaErrorInvalidValue;
-  // only the bf16 dq pass splits its kv range
-  const bool sm90 = !DKV && dtype == 1;
-  if (a.splits < 1 || (a.splits > 1 && (!sm90 || a.part == nullptr)))
+  // only the bf16 passes split (dq its kv range, dkv its q range)
+  if (a.splits < 1 ||
+      (a.splits > 1 && (dtype != 1 || a.part == nullptr || (DKV && a.part_b == nullptr))))
     return (int)cudaErrorInvalidValue;
   if (dtype == 1) {
     if constexpr (DKV)
-      return (int)dispatch_bwd_dims(D, Dv, BwdLaunch<bf16, true>{a});
+      return (int)dispatch_bwd_dims(D, Dv, DkvSm90{a});
     else
       return (int)dispatch_bwd_dims(D, Dv, DqSm90{a});
   }
@@ -491,16 +399,22 @@ int launch_bwd(const BwdArgs& a, int D, int Dv, int dtype) {
 // mask [BH / H, Nk] float or NULL, all contiguous and 16-byte aligned in one
 // dtype (0 = float32, 1 = bfloat16); dout [BH, Nq, Dv] in that dtype; lse and
 // dvec [BH, Nq] float32. dk [BH, Nk_out, D] and dv [BH, Nk_out, Dv] float32,
-// Nk_out >= Nk a multiple of 64. Returns the cudaError_t of the launch.
+// Nk_out >= Nk a multiple of 64. The bf16 pass may split its q tiles over
+// `splits` blocks per kv tile: it then writes unscaled partials to part_k
+// [splits, BH * Nk_out, D] and part_v [splits, BH * Nk_out, Dv] float32 (dk
+// and dv untouched), which medsam2_flash_attention_bwd_dkv_sum adds; fp32
+// takes splits = 1 only. Returns the cudaError_t of the launch.
 extern "C" int medsam2_flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
                                                const float* mask, const void* dout,
                                                const float* lse, const float* dvec, float* dk,
-                                               float* dv, int BH, int H, int Nq, int Nk,
-                                               int Nk_out, int D, int Dv, float scale, int dtype,
+                                               float* dv, float* part_k, float* part_v, int BH,
+                                               int H, int Nq, int Nk, int Nk_out, int D, int Dv,
+                                               float scale, int splits, int dtype,
                                                void* stream) {
   using namespace medsam2;
-  const BwdArgs a{q,  k,  v,  mask,   dout, lse, dvec, dk, dv, nullptr, BH, H, Nq, Nk, Nk_out, 1,
-                  scale, static_cast<cudaStream_t>(stream)};
+  const BwdArgs a{q,  k,  v,      mask,   dout, lse,    dvec,   dk,     dv,
+                  part_k, part_v, BH, H, Nq, Nk, Nk_out, splits, scale,
+                  static_cast<cudaStream_t>(stream)};
   return launch_bwd<true>(a, D, Dv, dtype);
 }
 
@@ -516,7 +430,7 @@ extern "C" int medsam2_flash_attention_bwd_dq(const void* q, const void* k, cons
                                               int Nq_out, int D, int Dv, float scale, int splits,
                                               int dtype, void* stream) {
   using namespace medsam2;
-  const BwdArgs a{q,  k,  v,  mask,   dout, lse, dvec, dq, nullptr, part, BH, H, Nq, Nk, Nq_out,
-                  splits, scale, static_cast<cudaStream_t>(stream)};
+  const BwdArgs a{q,  k,  v,  mask,   dout, lse, dvec, dq, nullptr, part, nullptr, BH, H, Nq, Nk,
+                  Nq_out, splits, scale, static_cast<cudaStream_t>(stream)};
   return launch_bwd<false>(a, D, Dv, dtype);
 }

@@ -233,22 +233,36 @@ __global__ void __launch_bounds__(dq_threads<DV>(), 1)
   }
 }
 
-// out[i] = scale * (((part[0][i] + part[1][i]) + part[2][i]) + ...), i over
-// rows * D floats taken four at a time.
+// One output of a split sum: out[i] = scale * (((part[0][i] + part[1][i]) +
+// part[2][i]) + ...), i over n4 float4s.
+struct SumSeg {
+  const float4* part;
+  float4* out;
+  size_t n4;
+  float scale;
+};
+
+// The split sums of the bf16 backward passes: dQ (segment a only), or dK
+// and dV of the dK/dV pass (segments a and b, one launch).
 __global__ void __launch_bounds__(256)
-    dq_split_sum_kernel(const float4* __restrict__ part, float4* __restrict__ out, int splits,
-                        size_t n4, float scale) {
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n4;
+    split_sum_kernel(const SumSeg a, const SumSeg b, int splits) {
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < a.n4 + b.n4;
        i += (size_t)gridDim.x * blockDim.x) {
-    float4 acc = part[i];
+    const bool in_a = i < a.n4;
+    const float4* part = in_a ? a.part : b.part;
+    const size_t n4 = in_a ? a.n4 : b.n4;
+    const size_t j = in_a ? i : i - a.n4;
+    const float scale = in_a ? a.scale : b.scale;
+    float4 acc = part[j];
     for (int s = 1; s < splits; ++s) {
-      const float4 x = part[s * n4 + i];
+      const float4 x = part[s * n4 + j];
       acc.x += x.x;
       acc.y += x.y;
       acc.z += x.z;
       acc.w += x.w;
     }
-    out[i] = make_float4(acc.x * scale, acc.y * scale, acc.z * scale, acc.w * scale);
+    (in_a ? a.out : b.out)[j] =
+        make_float4(acc.x * scale, acc.y * scale, acc.z * scale, acc.w * scale);
   }
 }
 
@@ -283,16 +297,45 @@ template cudaError_t flash_bwd_dq_sm90<256, 64>(const DqCall&);
 }  // namespace hopper
 }  // namespace medsam2
 
+namespace {
+
+int launch_split_sum(const medsam2::hopper::SumSeg& a, const medsam2::hopper::SumSeg& b,
+                     int splits, void* stream) {
+  const size_t n4 = a.n4 + b.n4;
+  const int blocks = (int)((n4 + 255) / 256 < 4096 ? (n4 + 255) / 256 : 4096);
+  medsam2::hopper::split_sum_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      a, b, splits);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
 // The split-kv sum of the bf16 dQ pass: part [splits, rows, D] fp32 ->
 // out [rows, D] fp32 = scale * the partials added in split order. D a
 // multiple of 4, both 16-byte aligned. Returns the cudaError_t of the launch.
 extern "C" int medsam2_flash_attention_bwd_dq_sum(const float* part, float* out, int splits,
                                                   int rows, int D, float scale, void* stream) {
-  using namespace medsam2::hopper;
+  using medsam2::hopper::SumSeg;
   if (splits <= 0 || rows <= 0 || D <= 0 || D % 4) return (int)cudaErrorInvalidValue;
-  const size_t n4 = (size_t)rows * D / 4;
-  const int blocks = (int)((n4 + 255) / 256 < 4096 ? (n4 + 255) / 256 : 4096);
-  dq_split_sum_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      reinterpret_cast<const float4*>(part), reinterpret_cast<float4*>(out), splits, n4, scale);
-  return (int)cudaGetLastError();
+  const SumSeg a{reinterpret_cast<const float4*>(part), reinterpret_cast<float4*>(out),
+                 (size_t)rows * D / 4, scale};
+  return launch_split_sum(a, SumSeg{nullptr, nullptr, 0, 0.f}, splits, stream);
+}
+
+// The split-q sum of the bf16 dK/dV pass, one launch: part_k [splits, rows,
+// D] -> dk [rows, D] = scale * the partials added in split order, part_v
+// [splits, rows, Dv] -> dv [rows, Dv] = their sum. D and Dv multiples of 4,
+// all 16-byte aligned. Returns the cudaError_t of the launch.
+extern "C" int medsam2_flash_attention_bwd_dkv_sum(const float* part_k, float* dk,
+                                                   const float* part_v, float* dv, int splits,
+                                                   int rows, int D, int Dv, float scale,
+                                                   void* stream) {
+  using medsam2::hopper::SumSeg;
+  if (splits <= 0 || rows <= 0 || D <= 0 || Dv <= 0 || D % 4 || Dv % 4)
+    return (int)cudaErrorInvalidValue;
+  const SumSeg a{reinterpret_cast<const float4*>(part_k), reinterpret_cast<float4*>(dk),
+                 (size_t)rows * D / 4, scale};
+  const SumSeg b{reinterpret_cast<const float4*>(part_v), reinterpret_cast<float4*>(dv),
+                 (size_t)rows * Dv / 4, 1.f};
+  return launch_split_sum(a, b, splits, stream);
 }

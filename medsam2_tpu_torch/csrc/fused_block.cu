@@ -27,8 +27,22 @@
 // Grid: ceil(N / 64) blocks of 256 threads; a ragged last group masks its
 // rows. Instantiated for C in {96, 192} (hiera_t / hiera_s stages 1-2),
 // head dim 96, windows of n rows with 64 % n == 0.
+//
+// Every other width (hiera_b+: C 112 / 224, head dim 56; hiera_l: C 144 /
+// 288 / 576 / 1152, head dim 72, windows of 16, 64 or 256 rows) runs as a
+// sequence of the port's own kernels, each intermediate rounded where the
+// Pallas kernel rounds it: LN1 (encoder_gemm.cu) -> qkv linear with its bias
+// -> the window attention kernel on the rows as [windows, ws, ws, 3C]
+// (window_attention_sm90.cu in bf16: each head's output rounded, as the
+// Pallas kernel's oh) -> proj linear with the (x + T(acc)) + bp epilogue
+// (its fp32 sum over all C input channels is the Pallas sum over heads of
+// each head's slice) -> the fused MLP's three launches. A [rows x C] fp32
+// accumulator of a 256-row window at C 576, or of 64 rows at C 1152, does not
+// fit on chip, which the one-kernel design needs.
 
+#include "encoder_gemm.cuh"
 #include "encoder_tile.cuh"
+#include "window_attention_sm90.cuh"
 
 namespace medsam2 {
 namespace {
@@ -165,27 +179,68 @@ cudaError_t dispatch(int C, const void* x, const void* const* prm, void* out, in
   }
 }
 
+// The block as a sequence of launches; work holds [N, C] LN rows, [N, 3C]
+// qkv, [N, C] head outputs, [N, C] x1 and [N, 4C] hidden rows.
+template <typename T>
+cudaError_t composite(const void* x_, const void* const* prm, void* out, void* work, int N,
+                      int C, int heads, int ws, float eps, cudaStream_t s) {
+  auto t = [&](int i) { return static_cast<const T*>(prm[i]); };
+  const T* x = static_cast<const T*>(x_);
+  T* normed = static_cast<T*>(work);
+  T* qkv = normed + (size_t)N * C;
+  T* att = qkv + (size_t)3 * N * C;
+  T* x1 = att + (size_t)N * C;
+  T* hidden = x1 + (size_t)N * C;
+  const int d = C / heads;
+  cudaError_t e = enc::layer_norm<T>(x, t(0), t(1), normed, N, C, eps, s);
+  if (e == cudaSuccess)
+    e = enc::linear<T>(normed, t(2), t(3), nullptr, qkv, N, 3 * C, C, enc::kEpiBias, s);
+  if (e == cudaSuccess) {
+    // float32(1 / sqrt(d)), as Pallas
+    const hopper::WinCall call{qkv, att, N / (ws * ws), ws, ws, C, heads, ws, d,
+                               (float)(1.0 / sqrt((double)d)), s};
+    e = std::is_same<T, bf16>::value ? hopper::window_sm90(call) : window_attention_f32(call);
+  }
+  if (e == cudaSuccess)
+    e = enc::linear<T>(att, t(4), t(5), x, x1, N, C, C, enc::kEpiResidual, s);
+  if (e == cudaSuccess)
+    e = enc::mlp_residual<T>(x1, t(6), t(7), t(8), t(9), t(10), t(11), normed, hidden,
+                             static_cast<T*>(out), N, C, 4 * C, eps, s);
+  return e;
+}
+
 }  // namespace
 }  // namespace medsam2
 
-// x [N, C] window-contiguous rows (n rows per window, N % n == 0,
-// 64 % n == 0); params in order: norm1 weight, bias [C]; qkv weight [3C, C],
-// bias [3C]; proj weight [C, C], bias [C]; norm2 weight, bias [C]; fc1
-// weight [4C, C], bias [4C]; fc2 weight [C, 4C], bias [C]. out [N, C].
-// All contiguous, 32-byte aligned, one dtype (0 = float32, 1 = bfloat16);
-// heads = C / 96. Returns the cudaError_t of the launch.
+// x [N, C] window-contiguous rows (n = ws * ws rows per window, N % n ==
+// 0); params in order: norm1 weight, bias [C]; qkv weight [3C, C], bias
+// [3C]; proj weight [C, C], bias [C]; norm2 weight, bias [C]; fc1 weight
+// [4C, C], bias [4C]; fc2 weight [C, 4C], bias [C]. out [N, C]. C in {96,
+// 192} with heads = C / 96 and 64 % n == 0 runs the one kernel and takes no
+// work; any other block runs the sequence, with work [N, 10 C] scratch and
+// (C / heads, ws) a pair the window kernel is built for. All contiguous,
+// 32-byte aligned, one dtype (0 = float32, 1 = bfloat16). Returns the
+// cudaError_t of the first launch that fails.
 extern "C" int medsam2_fused_block_fwd(const void* x, const void* g1, const void* b1,
                                        const void* wqkv, const void* bqkv, const void* wp,
                                        const void* bp, const void* g2, const void* b2,
                                        const void* w1, const void* b1m, const void* w2,
-                                       const void* b2m, void* out, int N, int C, int heads, int n,
-                                       float eps, int dtype, void* stream) {
+                                       const void* b2m, void* out, void* work, int N, int C,
+                                       int heads, int n, float eps, int dtype, void* stream) {
   using namespace medsam2;
-  if (N <= 0 || n <= 0 || N % n || 64 % n || heads * kBlkD != C) return (int)cudaErrorInvalidValue;
+  if (N <= 0 || n <= 0 || N % n || heads <= 0 || C % heads) return (int)cudaErrorInvalidValue;
   const void* prm[12] = {g1, b1, wqkv, bqkv, wp, bp, g2, b2, w1, b1m, w2, b2m};
-  const float scale = (float)(1.0 / sqrt((double)kBlkD));  // float32(1 / sqrt(d)), as Pallas
   const auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) return (int)dispatch<bf16>(C, x, prm, out, N, n, eps, scale, s);
-  if (dtype == 0) return (int)dispatch<float>(C, x, prm, out, N, n, eps, scale, s);
+  if ((C == 96 || C == 192) && heads * kBlkD == C && 64 % n == 0) {
+    const float scale = (float)(1.0 / sqrt((double)kBlkD));  // float32(1 / sqrt(d)), as Pallas
+    if (dtype == 1) return (int)dispatch<bf16>(C, x, prm, out, N, n, eps, scale, s);
+    if (dtype == 0) return (int)dispatch<float>(C, x, prm, out, N, n, eps, scale, s);
+    return (int)cudaErrorInvalidValue;
+  }
+  int ws = 1;
+  while (ws * ws < n) ++ws;
+  if (ws * ws != n || work == nullptr || C % 8) return (int)cudaErrorInvalidValue;
+  if (dtype == 1) return (int)composite<bf16>(x, prm, out, work, N, C, heads, ws, eps, s);
+  if (dtype == 0) return (int)composite<float>(x, prm, out, work, N, C, heads, ws, eps, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -25,7 +25,8 @@
 // ~n / 2 flops per byte in bf16 (98 at n = 196): device memory in bf16; fp32
 // runs without tensor cores and is bound by its FMA rate.
 //
-// Instantiated for d = 96 and n <= 196.
+// Instantiated for d in {56, 72, 96}: n <= 196 at d 96, n <= 256 at d 56
+// and 72 (hiera_l's ws 16 inside the fused block).
 
 #include "encoder_tile.cuh"
 #include "hopper_attention.cuh"
@@ -35,15 +36,16 @@ namespace medsam2 {
 namespace {
 
 constexpr int kWinThreads = 128;
-constexpr int kWinD = 96;
-constexpr int kWinMaxTokens = 196;  // ws 14
-constexpr int kWinMaxPad = 208;     // 196 rounded up to 16
 
-// Shared-memory layout of one fp32 block: QB query rows, the window's keys
-// and values padded to 16 rows, and the logit tile (also P after the softmax).
+// Shared-memory layout of one fp32 block at head dim D: QB query rows, the
+// window's keys and values padded to 16 rows, and the logit tile (also P
+// after the softmax).
+template <int D>
 struct WinSmem {
+  static constexpr int kMaxTokens = D == 96 ? 196 : 256;  // ws 14, ws 16
+  static constexpr int kWinMaxPad = (kMaxTokens + 15) / 16 * 16;
   static constexpr int QB = 32;
-  static constexpr int LDD = enc::ld<float>(kWinD);
+  static constexpr int LDD = enc::ld<float>(D);
   static constexpr int LDS = kWinMaxPad + 4;
   static constexpr size_t q_off = 0;
   static constexpr size_t k_off = q_off + align128(sizeof(float) * QB * LDD);
@@ -61,13 +63,14 @@ __device__ __forceinline__ size_t token_offset(int b, int wy, int wx, int t, int
   return (((size_t)b * Hp + y) * Wp + x) * ch;
 }
 
-// rows [t0, t0 + rows) of the window's tokens, channels [c0, c0 + 96), into
+// rows [t0, t0 + rows) of the window's tokens, channels [c0, c0 + D), into
 // dst with row stride LDD; tokens at or past n are zero.
+template <int D>
 __device__ __forceinline__ void gather_tokens(float* dst, const float* qkv, int b, int wy, int wx, int t0,
                                               int rows, int n, int c0, int ws, int Hp, int Wp,
                                               int C3) {
   constexpr int VEC = 4;
-  constexpr int CV = kWinD / VEC;
+  constexpr int CV = D / VEC;
   for (int i = threadIdx.x; i < rows * CV; i += kWinThreads) {
     const int r = i / CV;
     const int c = (i % CV) * VEC;
@@ -76,14 +79,15 @@ __device__ __forceinline__ void gather_tokens(float* dst, const float* qkv, int 
     if (t < n)
       val = *reinterpret_cast<const uint4*>(qkv + token_offset(b, wy, wx, t, ws, Hp, Wp, C3) +
                                             c0 + c);
-    *reinterpret_cast<uint4*>(dst + r * WinSmem::LDD + c) = val;
+    *reinterpret_cast<uint4*>(dst + r * WinSmem<D>::LDD + c) = val;
   }
 }
 
+template <int D>
 __global__ void __launch_bounds__(kWinThreads)
     window_attention_kernel(const float* __restrict__ qkv, float* __restrict__ out, int Hp,
                             int Wp, int C, int ws, float scale) {
-  using L = WinSmem;
+  using L = WinSmem<D>;
   extern __shared__ __align__(128) unsigned char smem[];
   float* qs = reinterpret_cast<float*>(smem + L::q_off);
   float* ks = reinterpret_cast<float*>(smem + L::k_off);
@@ -101,53 +105,69 @@ __global__ void __launch_bounds__(kWinThreads)
   const int q0 = blockIdx.z * L::QB;
   const int C3 = 3 * C;
 
-  gather_tokens(qs, qkv, b, wy, wx, q0, L::QB, n, h * kWinD, ws, Hp, Wp, C3);
-  gather_tokens(ks, qkv, b, wy, wx, 0, np, n, C + h * kWinD, ws, Hp, Wp, C3);
-  gather_tokens(vs, qkv, b, wy, wx, 0, np, n, 2 * C + h * kWinD, ws, Hp, Wp, C3);
+  gather_tokens<D>(qs, qkv, b, wy, wx, q0, L::QB, n, h * D, ws, Hp, Wp, C3);
+  gather_tokens<D>(ks, qkv, b, wy, wx, 0, np, n, C + h * D, ws, Hp, Wp, C3);
+  gather_tokens<D>(vs, qkv, b, wy, wx, 0, np, n, 2 * C + h * D, ws, Hp, Wp, C3);
   __syncthreads();
   enc::gemm_rows<float, L::QB, kWinThreads, false>(
-      qs, L::LDD, ks, L::LDD, kWinD, np, nullptr,
+      qs, L::LDD, ks, L::LDD, D, np, nullptr,
       [&](int r, int c, float v) { s[r * L::LDS + c] = v; });
   __syncthreads();
   enc::softmax_rows<float, kWinThreads>(s, L::LDS, s, L::LDS, L::QB, n, np, scale,
                                         [](int, int) { return true; });
   __syncthreads();
   enc::gemm_rows<float, L::QB, kWinThreads, true>(
-      s, L::LDS, vs, L::LDD, np, kWinD, nullptr, [&](int r, int c, float v) {
+      s, L::LDS, vs, L::LDD, np, D, nullptr, [&](int r, int c, float v) {
         const int t = q0 + r;
-        if (t < n) out[token_offset(b, wy, wx, t, ws, Hp, Wp, C) + h * kWinD + c] = v;
+        if (t < n) out[token_offset(b, wy, wx, t, ws, Hp, Wp, C) + h * D + c] = v;
       });
 }
 
-cudaError_t launch_f32(const void* qkv, void* out, int B, int Hp, int Wp, int C, int heads, int ws,
-                       float scale, cudaStream_t stream) {
+template <int D>
+cudaError_t launch_f32(const hopper::WinCall& a) {
+  using L = WinSmem<D>;
+  const int n = a.ws * a.ws;
+  if (n > L::kMaxTokens) return cudaErrorInvalidValue;
   static unsigned long long smem_set = 0;
-  const cudaError_t e = hopper::allow_smem(reinterpret_cast<const void*>(window_attention_kernel),
-                                           (int)WinSmem::bytes, smem_set);
+  auto kern = window_attention_kernel<D>;
+  const cudaError_t e =
+      hopper::allow_smem(reinterpret_cast<const void*>(kern), (int)L::bytes, smem_set);
   if (e != cudaSuccess) return e;
-  const int n = ws * ws;
-  const dim3 grid(B * (Hp / ws) * (Wp / ws), heads, (n + WinSmem::QB - 1) / WinSmem::QB);
-  window_attention_kernel<<<grid, kWinThreads, WinSmem::bytes, stream>>>(
-      static_cast<const float*>(qkv), static_cast<float*>(out), Hp, Wp, C, ws, scale);
+  const dim3 grid(a.B * (a.Hp / a.ws) * (a.Wp / a.ws), a.heads, (n + L::QB - 1) / L::QB);
+  kern<<<grid, kWinThreads, L::bytes, a.stream>>>(static_cast<const float*>(a.qkv),
+                                                  static_cast<float*>(a.out), a.Hp, a.Wp, a.C,
+                                                  a.ws, a.scale);
   return cudaGetLastError();
 }
 
 }  // namespace
+
+cudaError_t window_attention_f32(const hopper::WinCall& a) {
+  if (a.C != a.heads * a.d) return cudaErrorInvalidValue;
+  switch (a.d) {
+    case 56: return launch_f32<56>(a);
+    case 72: return launch_f32<72>(a);
+    case 96: return launch_f32<96>(a);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace medsam2
 
 // qkv [B, Hp, Wp, 3C] -> out [B, Hp, Wp, C], Hp and Wp multiples of ws,
-// C = heads * 96, ws * ws <= 196. Contiguous, 16-byte aligned, one dtype
-// (0 = float32, 1 = bfloat16). Returns the cudaError_t of the launch.
+// C = heads * d with (d, ws) built (window_attention_sm90.cuh). Contiguous,
+// 16-byte aligned, one dtype (0 = float32, 1 = bfloat16). Returns the
+// cudaError_t of the launch.
 extern "C" int medsam2_window_attention_fwd(const void* qkv, void* out, int B, int Hp, int Wp,
                                             int C, int heads, int ws, float scale, int dtype,
                                             void* stream) {
   using namespace medsam2;
-  if (B <= 0 || ws <= 0 || ws * ws > kWinMaxTokens || Hp % ws || Wp % ws || Hp <= 0 || Wp <= 0 ||
-      heads <= 0 || C != heads * kWinD)
+  if (B <= 0 || ws <= 0 || Hp % ws || Wp % ws || Hp <= 0 || Wp <= 0 || heads <= 0 ||
+      C % heads)
     return (int)cudaErrorInvalidValue;
-  const auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return (int)hopper::window_sm90({qkv, out, B, Hp, Wp, C, heads, ws, scale, s});
-  if (dtype == 0) return (int)launch_f32(qkv, out, B, Hp, Wp, C, heads, ws, scale, s);
+  const hopper::WinCall call{qkv, out, B,  Hp, Wp, C, heads, ws, C / heads, scale,
+                             static_cast<cudaStream_t>(stream)};
+  if (dtype == 1) return (int)hopper::window_sm90(call);
+  if (dtype == 0) return (int)window_attention_f32(call);
   return (int)cudaErrorInvalidValue;
 }

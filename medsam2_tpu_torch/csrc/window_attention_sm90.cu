@@ -6,19 +6,23 @@
 // _window_attn_kernel_3d (B6, the same function over a free reshape, which
 // window_attention.cu serves with this kernel unchanged); window_attention.cu
 // keeps the fp32 launch and the dispatch. qkv [B, Hp, Wp, 3C] (channels
-// [3, heads, 96]) -> out [B, Hp, Wp, C]: every ws x ws window attends within
+// [3, heads, d]) -> out [B, Hp, Wp, C]: every ws x ws window attends within
 // itself; fp32 logits and softmax, probabilities normalised and rounded to
 // bf16 before the P V product, fp32 accumulation, as the Pallas kernel.
 //
 // What bounds it on the H100: ~n / 2 flops per byte (98 at n = ws^2 = 196),
 // below the ~295 ridge, so device memory. The design reads each window's q,
 // k and v once and writes only the output:
-// - One CTA per (window, head, query part). qkv is a 3-D tensor
-//   [B*Hp, Wp, 3C] to TMA; a box of (channel chunk, ws columns, rows) brings
-//   the window's head slice into shared memory in token order t = y ws + x,
-//   as the [rows][64] (128-byte swizzle) and [rows][32] (64-byte swizzle)
-//   chunks of a 96-wide head that B1's design reads. One thread issues the
-//   six boxes of q, k and v on one mbarrier; K and V are loaded once.
+// - One CTA per (window, head, query part). qkv is a 4-D tensor
+//   [B*Hp, Wp, 3 heads, d] to TMA; a box of (channel chunk, one head, ws
+//   columns, rows) brings the window's head slice into shared memory in
+//   token order t = y ws + x, as the [rows][64] (128-byte swizzle) and
+//   [rows][32] or [rows][16] chunks of the head dim padded to 16 that B1's
+//   design reads (96 = 64 + 32, 72 = 64 + 16, 56 -> one chunk of 64).
+//   Channels past d lie past the map's innermost dim, so TMA zero-fills
+//   them (56-63 at d 56, 72-79 at d 72): q . k sums only the head's own
+//   channels. One thread issues the boxes of q, k and v on one mbarrier;
+//   K and V are loaded once.
 // - Keys are padded to NK = n rounded up to 16 (208 at ws 14). The rows
 //   [n, NK) of K and V are zeroed in shared memory once (stale bits could be
 //   NaN, and 0 x NaN poisons P V), and logits of columns >= n are set to
@@ -32,8 +36,11 @@
 // - Grid: window_query_parts: ceil(n / 128) parts of whole window rows per
 //   (window, head), at most 128 query rows (two consumer warpgroups) a CTA.
 //   At ws 14 that is 2 x 98 rows and 200 CTAs of 103 KB, two CTAs an SM: one
-//   wave on 132 SMs; at ws 7 one 64-row warpgroup a CTA, 200 CTAs.
-// Instantiated for head dim 96 and every ws from 1 to 14 (n <= 196).
+//   wave on 132 SMs; at ws 7 one 64-row warpgroup a CTA, 200 CTAs. ws 16
+//   (hiera_l's stage 3, inside the fused block) holds 4 x 64 logits a row
+//   and runs one CTA an SM, so that its registers do not spill.
+// Instantiated for head dim 96 at every ws from 1 to 14 (hiera_t / s), 56
+// at ws 4, 7, 8, 14 (hiera_b+) and 72 at ws 4, 8, 16 (hiera_l).
 
 #include "hopper_attention.cuh"
 #include "window_attention_sm90.cuh"
@@ -42,11 +49,9 @@ namespace medsam2 {
 namespace hopper {
 namespace {
 
-constexpr int kWinD = 96;
-using CW = Cols<kWinD>;  // chunks of 64 and 32 columns
-
-template <int WS>
+template <int WS, int D>
 struct WinCfg {
+  using CW = Cols<D>;  // chunks of 64, then 32 or 16 columns
   static constexpr int kN = WS * WS;
   static constexpr int kNK = (kN + 15) / 16 * 16;            // keys padded to the wgmma depth
   static constexpr int kSteps = kNK / 16;                     // 16-key steps of P V
@@ -65,18 +70,21 @@ struct WinCfg {
   static constexpr int v_off = k_off + round1024(kKVBytes);
   static constexpr int bar_off = v_off + round1024(kKVBytes);
   static constexpr int bytes = bar_off + 64 + 1024;          // + base alignment
-  static constexpr uint32_t kTxBytes = (kHY + 2 * WS) * WS * kWinD * 2;
-  static_assert(kNC <= 2 && kGroups <= 4, "window larger than 196 tokens");
-  // two CTAs an SM: 2 x (bytes + the 1 KB the runtime reserves) <= 228 KB
-  static_assert(2 * (bytes + 1024) <= 233472, "two CTAs do not fit one SM");
+  // boxes count in full, zero-filled columns included
+  static constexpr uint32_t kTxBytes = (kHY + 2 * WS) * WS * CW::kPad * 2;
+  static constexpr int kMinBlocks = WS <= 14 ? 2 : 1;
+  static_assert(kNC <= 2 && kGroups <= 4, "window larger than 256 tokens");
+  // CTAs an SM: kMinBlocks x (bytes + the 1 KB the runtime reserves) <= 228 KB
+  static_assert(kMinBlocks * (bytes + 1024) <= 233472, "the CTAs do not fit one SM");
 };
 
 struct WinMaps {
-  CUtensorMap q64, q32, kv64, kv32;
+  CUtensorMap q64, q_rem, kv64, kv_rem;
 };
 
-// Zero rows [r0, r1) of a chunked [rows][96] tile (rows of each chunk are
+// Zero rows [r0, r1) of a chunked [rows][W] tile (rows of each chunk are
 // contiguous whatever the swizzle, which permutes 16-byte units within a row).
+template <class CW>
 __device__ __forceinline__ void zero_rows(unsigned char* tile, int rows, int r0, int r1) {
 #pragma unroll
   for (int c = 0; c < CW::kChunks; ++c) {
@@ -87,11 +95,12 @@ __device__ __forceinline__ void zero_rows(unsigned char* tile, int rows, int r0,
   }
 }
 
-template <int WS>
-__global__ void __launch_bounds__(WinCfg<WS>::kThreads, 2)
+template <int WS, int D>
+__global__ void __launch_bounds__(WinCfg<WS, D>::kThreads, WinCfg<WS, D>::kMinBlocks)
     window_sm90_kernel(const __grid_constant__ WinMaps maps, bf16* __restrict__ out, int Hp,
-                       int Wp, int C, float scale_log2) {
-  using G = WinCfg<WS>;
+                       int Wp, int C, int heads, float scale_log2) {
+  using G = WinCfg<WS, D>;
+  using CW = typename G::CW;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -119,17 +128,17 @@ __global__ void __launch_bounds__(WinCfg<WS>::kThreads, 2)
     mbar_arrive_expect_tx(bar, G::kTxBytes);
 #pragma unroll
     for (int c = 0; c < CW::kChunks; ++c) {
-      const int col = h * kWinD + 64 * c;
-      tma_load_3d(qs + CW::offset(c, G::kQTile), c ? &maps.q32 : &maps.q64, bar, col, x0,
-                  y0 + part * G::kHY);
-      tma_load_3d(ks + CW::offset(c, G::kNK), c ? &maps.kv32 : &maps.kv64, bar, C + col, x0, y0);
-      tma_load_3d(vs + CW::offset(c, G::kNK), c ? &maps.kv32 : &maps.kv64, bar, 2 * C + col, x0,
-                  y0);
+      tma_load_4d(qs + CW::offset(c, G::kQTile), c ? &maps.q_rem : &maps.q64, bar, 64 * c, h,
+                  x0, y0 + part * G::kHY);
+      tma_load_4d(ks + CW::offset(c, G::kNK), c ? &maps.kv_rem : &maps.kv64, bar, 64 * c,
+                  heads + h, x0, y0);
+      tma_load_4d(vs + CW::offset(c, G::kNK), c ? &maps.kv_rem : &maps.kv64, bar, 64 * c,
+                  2 * heads + h, x0, y0);
     }
   }
   // key and value rows past the window: zero, seen by the async proxy
-  zero_rows(ks, G::kNK, G::kN, G::kNK);
-  zero_rows(vs, G::kNK, G::kN, G::kNK);
+  zero_rows<CW>(ks, G::kNK, G::kN, G::kNK);
+  zero_rows<CW>(vs, G::kNK, G::kN, G::kNK);
   fence_proxy_async();
   __syncthreads();
   mbar_wait(bar, 0);
@@ -245,8 +254,10 @@ __global__ void __launch_bounds__(WinCfg<WS>::kThreads, 2)
           make_desc(v_addr + CW::offset(c, G::kNK) + kk * 16 * pitch, w, 16, 8 * pitch);
       if (w == 64)
         wgmma_rs_n64(o + 32 * c, p[kk], desc);
-      else
+      else if (w == 32)
         wgmma_rs_n32(o + 32 * c, p[kk], desc);
+      else
+        wgmma_rs_n16(o + 32 * c, p[kk], desc);
     }
   }
   wg_commit();
@@ -261,54 +272,79 @@ __global__ void __launch_bounds__(WinCfg<WS>::kThreads, 2)
     if (r >= G::kQRows || tok >= G::kN) continue;
     const int y = tok / WS;
     const int x = tok % WS;
-    bf16* dst = out + ((size_t)(y0 + y) * Wp + x0 + x) * C + h * kWinD;
+    bf16* dst = out + ((size_t)(y0 + y) * Wp + x0 + x) * C + h * D;
 #pragma unroll
-    for (int j = 0; j < kWinD / 8; ++j)
+    for (int j = 0; j < D / 8; ++j)
       *reinterpret_cast<uint32_t*>(dst + 8 * j + 2 * quad) =
           pack_bf16(o[4 * j + 2 * hh], o[4 * j + 2 * hh + 1]);
   }
 }
 
-template <int WS>
+template <int WS, int D>
 cudaError_t launch_ws(const WinCall& a) {
-  using G = WinCfg<WS>;
+  using G = WinCfg<WS, D>;
+  using CW = typename G::CW;
   WinMaps maps;
-  const uint64_t d0 = 3 * (uint64_t)a.C, d1 = a.Wp, d2 = (uint64_t)a.B * a.Hp;
-  if (!make_map(&maps.q64, a.qkv, d0, d1, d2, 64, WS, G::kHY) ||
-      !make_map(&maps.q32, a.qkv, d0, d1, d2, 32, WS, G::kHY) ||
-      !make_map(&maps.kv64, a.qkv, d0, d1, d2, 64, WS, WS) ||
-      !make_map(&maps.kv32, a.qkv, d0, d1, d2, 32, WS, WS))
+  // [B*Hp][Wp][3 heads][D]: the innermost dim is one head's channels
+  const uint64_t dims[4] = {D, 3 * (uint64_t)a.heads, (uint64_t)a.Wp, (uint64_t)a.B * a.Hp};
+  const uint64_t strides[3] = {2 * (uint64_t)D, 6 * (uint64_t)a.C, 6 * (uint64_t)a.C * a.Wp};
+  const uint32_t rem = CW::kRem ? CW::kRem : 64;
+  if (!make_map4(&maps.q64, a.qkv, dims, strides, {64, 1, WS, G::kHY}) ||
+      !make_map4(&maps.q_rem, a.qkv, dims, strides, {rem, 1, WS, G::kHY}) ||
+      !make_map4(&maps.kv64, a.qkv, dims, strides, {64, 1, WS, WS}) ||
+      !make_map4(&maps.kv_rem, a.qkv, dims, strides, {rem, 1, WS, WS}))
     return cudaErrorInvalidValue;
-  auto kern = window_sm90_kernel<WS>;
+  auto kern = window_sm90_kernel<WS, D>;
   static unsigned long long smem_set = 0;
   const cudaError_t e = allow_smem(reinterpret_cast<const void*>(kern), G::bytes, smem_set);
   if (e != cudaSuccess) return e;
   const dim3 grid(a.B * (a.Hp / WS) * (a.Wp / WS), a.heads, G::kParts);
   kern<<<grid, G::kThreads, G::bytes, a.stream>>>(maps, static_cast<bf16*>(a.out), a.Hp, a.Wp,
-                                                  a.C, a.scale * kLog2e);
+                                                  a.C, a.heads, a.scale * kLog2e);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 cudaError_t window_sm90(const WinCall& a) {
-  switch (a.ws) {
-    case 1: return launch_ws<1>(a);
-    case 2: return launch_ws<2>(a);
-    case 3: return launch_ws<3>(a);
-    case 4: return launch_ws<4>(a);
-    case 5: return launch_ws<5>(a);
-    case 6: return launch_ws<6>(a);
-    case 7: return launch_ws<7>(a);
-    case 8: return launch_ws<8>(a);
-    case 9: return launch_ws<9>(a);
-    case 10: return launch_ws<10>(a);
-    case 11: return launch_ws<11>(a);
-    case 12: return launch_ws<12>(a);
-    case 13: return launch_ws<13>(a);
-    case 14: return launch_ws<14>(a);
-    default: return cudaErrorInvalidValue;
+  if (a.C != a.heads * a.d) return cudaErrorInvalidValue;
+  if (a.d == 96) {
+    switch (a.ws) {
+      case 1: return launch_ws<1, 96>(a);
+      case 2: return launch_ws<2, 96>(a);
+      case 3: return launch_ws<3, 96>(a);
+      case 4: return launch_ws<4, 96>(a);
+      case 5: return launch_ws<5, 96>(a);
+      case 6: return launch_ws<6, 96>(a);
+      case 7: return launch_ws<7, 96>(a);
+      case 8: return launch_ws<8, 96>(a);
+      case 9: return launch_ws<9, 96>(a);
+      case 10: return launch_ws<10, 96>(a);
+      case 11: return launch_ws<11, 96>(a);
+      case 12: return launch_ws<12, 96>(a);
+      case 13: return launch_ws<13, 96>(a);
+      case 14: return launch_ws<14, 96>(a);
+      default: return cudaErrorInvalidValue;
+    }
   }
+  if (a.d == 56) {
+    switch (a.ws) {
+      case 4: return launch_ws<4, 56>(a);
+      case 7: return launch_ws<7, 56>(a);
+      case 8: return launch_ws<8, 56>(a);
+      case 14: return launch_ws<14, 56>(a);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  if (a.d == 72) {
+    switch (a.ws) {
+      case 4: return launch_ws<4, 72>(a);
+      case 8: return launch_ws<8, 72>(a);
+      case 16: return launch_ws<16, 72>(a);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace hopper

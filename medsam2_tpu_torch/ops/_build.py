@@ -105,7 +105,10 @@ def load_library() -> ctypes.CDLL:
     fn.argtypes = [vp] * 4 + [i] * 3 + [vp]
     fn.restype = i
     fn = lib.medsam2_flash_attention_bwd_dkv
-    fn.argtypes = [vp] * 9 + [i] * 7 + [f, i, vp]
+    fn.argtypes = [vp] * 11 + [i] * 7 + [f, i, i, vp]
+    fn.restype = i
+    fn = lib.medsam2_flash_attention_bwd_dkv_sum
+    fn.argtypes = [vp] * 4 + [i] * 4 + [f, vp]
     fn.restype = i
     fn = lib.medsam2_flash_attention_bwd_dq
     fn.argtypes = [vp] * 9 + [i] * 7 + [f, i, i, vp]
@@ -120,9 +123,9 @@ def load_library() -> ctypes.CDLL:
     fn.argtypes = [vp, vp, i, i, i, i, i, i, f, i, vp]
     fn.restype = i
     fn = lib.medsam2_fused_mlp_fwd
-    fn.argtypes = [vp] * 8 + [i, i, i, f, i, vp]
+    fn.argtypes = [vp] * 9 + [i, i, i, f, i, vp]
     fn.restype = i
     fn = lib.medsam2_fused_block_fwd
-    fn.argtypes = [vp] * 14 + [i, i, i, i, f, i, vp]
+    fn.argtypes = [vp] * 15 + [i, i, i, i, f, i, vp]
     fn.restype = i
     return lib

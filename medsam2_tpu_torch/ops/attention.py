@@ -27,7 +27,11 @@ roped-key cache goes through :func:`kv_cached_attention`.
   :func:`attention_merge_plain` is its twin. The bf16 dQ pass runs the same
   design (``csrc/flash_bwd_dq_sm90.cu``), splits its kv range by the same
   rule, and :func:`flash_attention_bwd_dq_sum` adds its fp32 partials in
-  split order (twin :func:`flash_attention_bwd_dq_sum_plain`).
+  split order (twin :func:`flash_attention_bwd_dq_sum_plain`). The bf16
+  dK/dV pass (``csrc/flash_bwd_dkv_sm90.cu``) splits its q range by that
+  rule over its 64-key blocks, and :func:`flash_attention_bwd_dkv_sum` adds
+  its partial dK and dV in split order (twin
+  :func:`flash_attention_bwd_dkv_sum_plain`).
 
 There is no fallback: a CUDA tensor either reaches its kernel or the wrapper
 raises. Shapes follow the JAX package: q [B, H, Nq, D], k [B, H, Nk, D],
@@ -337,6 +341,12 @@ def _padded_rows(n: int) -> int:
     return -(-n // _BWD_ROWS) * _BWD_ROWS
 
 
+# Keys a block and query rows a ring stage of the bf16 dK/dV pass
+# (csrc/flash_bwd_dkv_sm90.cu kKvRows, kQTile).
+DKV_BLOCK_KEYS = 64
+DKV_Q_TILE = 64
+
+
 def dq_block_rows(Dv: int) -> int:
     """Query rows of one block of the bf16 dQ pass
     (``csrc/flash_bwd_dq_sm90.cu``): two consumer warpgroups of 64 rows, one
@@ -379,13 +389,49 @@ def flash_attention_bwd_dq_sum(parts, scale: float):
     return out.reshape(*lead, D)
 
 
+def flash_attention_bwd_dkv_sum_plain(parts_k, parts_v, scale: float):
+    """The dK/dV split sum's math: (scale times the dK partials, the dV
+    partials), each added in split order."""
+    return (flash_attention_bwd_dq_sum_plain(parts_k, scale),
+            flash_attention_bwd_dq_sum_plain(parts_v, 1.0))
+
+
+def flash_attention_bwd_dkv_sum(parts_k, parts_v, scale: float):
+    """Add the bf16 dK/dV pass's split-q partials (see
+    :func:`flash_attention_bwd_dkv_sum_plain`), in fp32. On the card it
+    launches the same sum kernel as :func:`flash_attention_bwd_dq_sum`, once
+    for both; on the CPU it runs the twin. parts_k [S, ..., D], parts_v
+    [S, ..., Dv] fp32 -> ([..., D], [..., Dv]) fp32."""
+    if not _check_device(parts_k, "flash_attention_bwd_dkv_sum"):
+        return flash_attention_bwd_dkv_sum_plain(parts_k, parts_v, scale)
+    S, D, Dv = parts_k.shape[0], parts_k.shape[-1], parts_v.shape[-1]
+    lead = parts_k.shape[1:-1]
+    if (parts_k.dtype != torch.float32 or parts_v.dtype != torch.float32 or D % 4 or Dv % 4
+            or parts_v.shape[:-1] != parts_k.shape[:-1]):
+        raise TypeError("flash_attention_bwd_dkv_sum: the kernel adds fp32 partials of one "
+                        "row count, widths multiples of 4")
+    rows = math.prod(lead)
+    pk, pv = _aligned(parts_k.reshape(S, rows, D)), _aligned(parts_v.reshape(S, rows, Dv))
+    dk = torch.empty(rows, D, device=parts_k.device, dtype=torch.float32)
+    dv = torch.empty(rows, Dv, device=parts_k.device, dtype=torch.float32)
+    from medsam2_tpu_torch.ops._build import load_library
+
+    rc = load_library().medsam2_flash_attention_bwd_dkv_sum(
+        pk.data_ptr(), dk.data_ptr(), pv.data_ptr(), dv.data_ptr(), S, rows, D, Dv,
+        ctypes.c_float(scale), _stream(parts_k))
+    _raise_on_error(rc, "flash_attention_bwd_dkv_sum")
+    flash_attention_bwd_dkv_sum.launches += 1
+    return dk.reshape(*lead, D), dv.reshape(*lead, Dv)
+
+
 def _flash_bwd_launch(which: str, q, k, v, kv_mask, do, lse, dvec, scale, _splits=None):
     """One launch of ``csrc/flash_attention_bwd.cu``'s ``which`` pass: "dkv"
     (one block per kv tile) returns (dk, dv), "dq" (one block per q tile)
     returns (dq,), each in its input's dtype. The kernels write fp32 into
-    buffers padded to whole tiles. The bf16 dq pass splits its kv range
-    when its blocks leave SMs idle (``_splits`` forces the count, for tests)
-    and then adds the partials with :func:`flash_attention_bwd_dq_sum`."""
+    buffers padded to whole tiles. The bf16 dq pass splits its kv range, the
+    bf16 dkv pass its q range, when their blocks leave SMs idle (``_splits``
+    forces the count, for tests), and then add the partials with
+    :func:`flash_attention_bwd_dq_sum` / :func:`flash_attention_bwd_dkv_sum`."""
     name = f"flash_attention_bwd_{which}"
     B, H, Nq, Nk, D, Dv, code = _flash_shapes(q, k, v, name)
     if (D, Dv) not in BWD_HEAD_DIMS:
@@ -395,17 +441,19 @@ def _flash_bwd_launch(which: str, q, k, v, kv_mask, do, lse, dvec, scale, _split
         raise ValueError(f"{name}: do {tuple(do.shape)} / lse {tuple(lse.shape)} / "
                          f"dvec {tuple(dvec.shape)} disagree with q {tuple(q.shape)}")
     n, like = (Nk, (k, v)) if which == "dkv" else (Nq, (q,))
-    splits = 1
+    rows = _padded_rows(n)
     if which == "dq":
         splits = _splits_for(q, B * H * -(-Nq // dq_block_rows(Dv)), -(-Nk // _SM90_TILE),
                              _splits, name)
-    elif _splits not in (None, 1):
-        raise ValueError(f"{name}: only the bf16 dq pass splits the kv range")
-    part = (torch.empty(splits, B * H * Nq, D, device=q.device, dtype=torch.float32)
-            if splits > 1 else None)
-    rows = _padded_rows(n)
-    # a split dq pass writes only its partials
-    outs = [] if part is not None else [
+        parts = ([torch.empty(splits, B * H * Nq, D, device=q.device, dtype=torch.float32)]
+                 if splits > 1 else [])
+    else:
+        splits = _splits_for(q, B * H * -(-Nk // DKV_BLOCK_KEYS), -(-Nq // DKV_Q_TILE),
+                             _splits, name)
+        parts = ([torch.empty(splits, B * H * rows, t.shape[-1], device=q.device,
+                              dtype=torch.float32) for t in like] if splits > 1 else [])
+    # a split pass writes only its partials
+    outs = [] if parts else [
         torch.empty(B * H, rows, t.shape[-1], device=q.device, dtype=torch.float32)
         for t in like]
     mask = _mask_arg(kv_mask, B, Nk, q.device, name)
@@ -419,30 +467,37 @@ def _flash_bwd_launch(which: str, q, k, v, kv_mask, do, lse, dvec, scale, _split
     scale = _default_scale(q, scale)
     lib = load_library()
     args = [*(t.data_ptr() for t in ins), _ptr(mask), do_.data_ptr(), lse_.data_ptr(),
-            dvec_.data_ptr(), *(_ptr(o) for o in (outs or [None]))]
+            dvec_.data_ptr()]
     if which == "dkv":
-        rc = lib.medsam2_flash_attention_bwd_dkv(*args, B * H, H, Nq, Nk, rows, D, Dv,
-                                                 ctypes.c_float(scale), code, _stream(q))
+        outs_or_none = outs or [None, None]
+        parts_or_none = parts or [None, None]
+        rc = lib.medsam2_flash_attention_bwd_dkv(
+            *args, *(_ptr(o) for o in outs_or_none), *(_ptr(p) for p in parts_or_none), B * H,
+            H, Nq, Nk, rows, D, Dv, ctypes.c_float(scale), splits, code, _stream(q))
     else:
-        rc = lib.medsam2_flash_attention_bwd_dq(*args, _ptr(part), B * H, H, Nq, Nk, rows, D,
-                                                Dv, ctypes.c_float(scale), splits, code,
-                                                _stream(q))
+        rc = lib.medsam2_flash_attention_bwd_dq(
+            *args, _ptr(outs[0] if outs else None), _ptr(parts[0] if parts else None), B * H, H,
+            Nq, Nk, rows, D, Dv, ctypes.c_float(scale), splits, code, _stream(q))
     _raise_on_error(rc, name)
     if which == "dkv":
         flash_attention_bwd_dkv.launches += 1
     else:
         flash_attention_bwd_dq.launches += 1
-    if part is not None:
-        dq = flash_attention_bwd_dq_sum(part, scale)
+    if parts and which == "dq":
+        dq = flash_attention_bwd_dq_sum(parts[0], scale)
         return (dq.reshape(B, H, Nq, D).to(q.dtype),)
+    if parts:
+        outs = flash_attention_bwd_dkv_sum(parts[0].reshape(splits, B * H, rows, D),
+                                           parts[1].reshape(splits, B * H, rows, Dv), scale)
     return tuple(o[:, :n].reshape(B, H, n, o.shape[-1]).to(t.dtype) for o, t in zip(outs, like))
 
 
-def flash_attention_bwd_dkv(q, k, v, kv_mask, do, lse, dvec, scale=None):
+def flash_attention_bwd_dkv(q, k, v, kv_mask, do, lse, dvec, scale=None, _splits=None):
     """dK, dV of flash attention on the card (replaces the Pallas
     ``_bwd_dkv_kernel``). ``dvec`` = rowsum(dO * O) [B, H, Nq] fp32; ``lse``
-    the forward's [B, H, Nq]. Returns (dk, dv) in the input dtype."""
-    return _flash_bwd_launch("dkv", q, k, v, kv_mask, do, lse, dvec, scale)
+    the forward's [B, H, Nq]. Returns (dk, dv) in the input dtype.
+    ``_splits`` forces the bf16 pass's q split count (tests)."""
+    return _flash_bwd_launch("dkv", q, k, v, kv_mask, do, lse, dvec, scale, _splits)
 
 
 def flash_attention_bwd_dq(q, k, v, kv_mask, do, lse, dvec, scale=None, _splits=None):
@@ -595,7 +650,8 @@ def kv_cached_attention(q, kcache, pos_rows, row_of_slot, ptr_k, v_slots,
 
 # Launch counts: each wrapper adds one where it launches its kernel.
 _COUNTED = (flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dq,
-            flash_attention_bwd_dq_sum, kv_cached_attention, attention_merge)
+            flash_attention_bwd_dq_sum, flash_attention_bwd_dkv_sum, kv_cached_attention,
+            attention_merge)
 for _fn in _COUNTED:
     _fn.launches = 0
 

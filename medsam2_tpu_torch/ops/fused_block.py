@@ -8,8 +8,13 @@ window, the contiguous reshape of ``window_partition``'s [Bn, ws, ws, C]):
     out = x1 + mlp(LN2(x1))
 
 :func:`fused_window_block` replaces the Pallas ``_kernel``. CUDA tensors
-launch ``csrc/fused_block.cu`` (C in {96, 192}, head dim 96, 64 % n == 0);
-CPU tensors run :func:`fused_window_block_plain`. Both follow the Pallas
+launch ``csrc/fused_block.cu``: one kernel at C in {96, 192} with head dim 96
+and 64 % n == 0 (hiera_t / hiera_s), and at every other width (hiera_b+,
+hiera_l) a sequence of the port's kernels: LN1, the qkv linear, the window
+attention kernel, the proj linear with its residual, the fused MLP's three
+launches (:func:`one_kernel`; ``fused_window_block.launches`` counts one a
+block either way). CPU tensors run :func:`fused_window_block_plain`. Both
+follow the Pallas
 kernel's arithmetic (``fused_block.py:90-132``): LN scale and bias cast to
 the input dtype, qkv rounded before its bias, fp32 softmax with the
 probabilities cast before PV, each head's output cast, the projection summed
@@ -36,12 +41,20 @@ from medsam2_tpu_torch.ops.attention import (_aligned, _check_device, _dtype_cod
                                              _forward_only, _raise_on_error, _stream,
                                              sdpa_plain)
 from medsam2_tpu_torch.ops.fused_mlp import _matmul_cast, ln_mlp_residual_plain
+from medsam2_tpu_torch.ops.window_attention import WINDOW_BUILT
 
-# Widths csrc/fused_block.cu is instantiated for; it takes 64-row groups of
-# whole windows.
+# Widths the one-kernel design of csrc/fused_block.cu is instantiated for; it
+# takes 64-row groups of whole windows.
 FUSED_BLOCK_WIDTHS = (96, 192)
 FUSED_BLOCK_HEAD_DIM = 96
 _GROUP_ROWS = 64
+
+
+def one_kernel(C: int, num_heads: int, n: int) -> bool:
+    """True where the block runs as csrc/fused_block.cu's one kernel; else
+    it runs as the sequence of launches."""
+    return (C in FUSED_BLOCK_WIDTHS and C == num_heads * FUSED_BLOCK_HEAD_DIM
+            and _GROUP_ROWS % n == 0)
 
 
 class BlockParams(NamedTuple):
@@ -106,22 +119,28 @@ def fused_window_block_plain(x2d, p: BlockParams, num_heads: int, n: int, eps: f
 
 def _launch(x2d, p: BlockParams, num_heads: int, n: int, eps: float):
     N, C = x2d.shape
-    if (C not in FUSED_BLOCK_WIDTHS or C != num_heads * FUSED_BLOCK_HEAD_DIM
-            or _GROUP_ROWS % n or N % n):
-        raise ValueError(f"fused_block: kernel built for C in {FUSED_BLOCK_WIDTHS}, head dim "
-                         f"{FUSED_BLOCK_HEAD_DIM} and windows of n rows with {_GROUP_ROWS} % n "
-                         f"== 0, got C={C}, {num_heads} heads, n={n}, N={N}")
+    ws = math.isqrt(n)
+    single = one_kernel(C, num_heads, n)
+    if N % n or C % num_heads or not (single or (
+            C % 8 == 0 and ws * ws == n and ws in WINDOW_BUILT.get(C // num_heads, ()))):
+        raise ValueError(f"fused_block: kernel built for C in {FUSED_BLOCK_WIDTHS} with head "
+                         f"dim {FUSED_BLOCK_HEAD_DIM} and {_GROUP_ROWS} % n == 0, else for the "
+                         f"window kernel's (head dim: window sizes) {WINDOW_BUILT}, got C={C}, "
+                         f"{num_heads} heads, n={n}, N={N}")
     if p.fc1_weight.shape != (4 * C, C):
         raise ValueError(f"fused_block: MLP hidden width {p.fc1_weight.shape[0]} != 4C")
     code = _dtype_code(x2d, "fused_block")
     params = [_aligned(t.detach().to(device=x2d.device, dtype=x2d.dtype), 32) for t in p]
     x = _aligned(x2d, 32)
     out = torch.empty_like(x)
+    # the sequence's scratch: LN rows, qkv, head outputs, x1, hidden rows
+    work = None if single else torch.empty(N * 10 * C, device=x.device, dtype=x.dtype)
     from medsam2_tpu_torch.ops._build import load_library
 
     rc = load_library().medsam2_fused_block_fwd(
-        x.data_ptr(), *(t.data_ptr() for t in params), out.data_ptr(), N, C, num_heads, n,
-        ctypes.c_float(eps), code, _stream(x2d))
+        x.data_ptr(), *(t.data_ptr() for t in params), out.data_ptr(),
+        None if work is None else work.data_ptr(), N, C, num_heads, n, ctypes.c_float(eps),
+        code, _stream(x2d))
     _raise_on_error(rc, "fused_block")
     fused_window_block.launches += 1
     return out

@@ -3,8 +3,11 @@
 block.
 
 :func:`ln_mlp_residual` replaces the Pallas ``_kernel``. CUDA tensors launch
-``csrc/fused_mlp.cu`` (C in {96, 192, 384, 768}, hidden 4C, any row count);
-CPU tensors run :func:`ln_mlp_residual_plain`. Both follow the Pallas
+``csrc/fused_mlp.cu``: three kernels a call (the LN rows, fc1 with GELU,
+fc2 with the residual; ``csrc/encoder_gemm.cu``, bf16 on wgmma + TMA), any
+row count and any C and hidden width that are multiples of 8;
+``ln_mlp_residual.launches`` counts calls. CPU tensors run
+:func:`ln_mlp_residual_plain`. Both follow the Pallas
 kernel's arithmetic, which differs from the unfused lowering in where it
 rounds: LN statistics in fp32 with the scale and bias cast to the input
 dtype, each matmul accumulated in fp32 and cast before its bias is added,
@@ -12,7 +15,8 @@ GELU tanh in bf16 / erf in fp32, and the output rounded as ``(x + y) + b2``
 (``fused_mlp.py:58-75``; ``layers.linear_apply`` rounds ``x + (y + b2)``).
 
 Off by default, as in the JAX package: ``MEDSAM2_FUSED_MLP=1`` turns the
-Hiera blocks' MLP tails over to it (:func:`fused_mlp_enabled`). Forward
+Hiera blocks' MLP tails over to it where the JAX package's wrapper takes its
+kernel (:func:`fused_mlp_applies`). Forward
 only: it raises when a gradient would be taken (the JAX ``custom_vjp``
 recompute backward comes with 2D training). No fallback: a CUDA tensor
 reaches the kernel or the wrapper raises.
@@ -29,12 +33,32 @@ from medsam2_tpu_torch.core import layers
 from medsam2_tpu_torch.ops.attention import (_aligned, _check_device, _dtype_code,
                                              _forward_only, _raise_on_error, _stream)
 
-# Channel widths csrc/fused_mlp.cu is instantiated for (hidden = 4C).
-FUSED_MLP_WIDTHS = (96, 192, 384, 768)
-
 
 def fused_mlp_enabled() -> bool:
     return os.environ.get("MEDSAM2_FUSED_MLP", "0") == "1"
+
+
+def _max_channels() -> int:
+    """``MEDSAM2_FUSED_MLP_MAXC``: the JAX package's channel cap of the fused
+    path (``fused_mlp._max_channels``); 0 = no cap."""
+    return int(os.environ.get("MEDSAM2_FUSED_MLP_MAXC", "0"))
+
+
+def _pick_block(n: int) -> int:
+    """The JAX package's row block (``fused_mlp._pick_block``); 0 when no
+    block of 1024, 512, 256 or 128 rows tiles ``n``."""
+    for bn in (1024, 512, 256, 128):
+        if n % bn == 0:
+            return bn
+    return 0
+
+
+def fused_mlp_applies(rows: int, C: int) -> bool:
+    """True where the JAX package's ``ln_mlp_residual`` takes its kernel
+    (``fused_mlp.py:136-151``): the switch on, a row count that tiles by a
+    row block, and C within ``MEDSAM2_FUSED_MLP_MAXC`` when that is set."""
+    maxc = _max_channels()
+    return fused_mlp_enabled() and _pick_block(rows) != 0 and (maxc == 0 or C <= maxc)
 
 
 def _matmul_cast(x, w):
@@ -56,9 +80,9 @@ def ln_mlp_residual_plain(x2d, gamma, beta, w1, b1, w2, b2, eps: float = 1e-6):
 def _launch(x2d, gamma, beta, w1, b1, w2, b2, eps: float):
     N, C = x2d.shape
     H = w1.shape[0]
-    if C not in FUSED_MLP_WIDTHS or H != 4 * C:
-        raise ValueError(f"fused_mlp: kernel built for C in {FUSED_MLP_WIDTHS} with hidden 4C, "
-                         f"got C={C}, hidden {H}")
+    if C % 8 or H % 8:
+        raise ValueError(f"fused_mlp: kernel built for C and hidden widths that are multiples "
+                         f"of 8, got C={C}, hidden {H}")
     if w1.shape != (H, C) or w2.shape != (C, H):
         raise ValueError(f"fused_mlp: weights {tuple(w1.shape)} / {tuple(w2.shape)} do not fit "
                          f"C={C}, H={H}")
@@ -67,11 +91,12 @@ def _launch(x2d, gamma, beta, w1, b1, w2, b2, eps: float):
               for t in (gamma, beta, w1, b1, w2, b2)]
     x = _aligned(x2d, 32)
     out = torch.empty_like(x)
+    work = torch.empty(N * (C + H), device=x.device, dtype=x.dtype)   # LN rows, hidden rows
     from medsam2_tpu_torch.ops._build import load_library
 
     rc = load_library().medsam2_fused_mlp_fwd(
-        x.data_ptr(), *(t.data_ptr() for t in params), out.data_ptr(), N, C, H,
-        ctypes.c_float(eps), code, _stream(x2d))
+        x.data_ptr(), *(t.data_ptr() for t in params), out.data_ptr(), work.data_ptr(), N, C,
+        H, ctypes.c_float(eps), code, _stream(x2d))
     _raise_on_error(rc, "fused_mlp")
     ln_mlp_residual.launches += 1
     return out

@@ -7,8 +7,9 @@ window attends within itself, fp32 logits and softmax, probabilities cast to
 the input dtype before the PV product, fp32 accumulation.
 
 - :func:`window_attention` replaces the Pallas ``_window_attn_kernel``. CUDA
-  tensors launch ``csrc/window_attention.cu`` (head dim 96, ws^2 <= 196):
-  bf16 runs the wgmma + TMA kernel of ``csrc/window_attention_sm90.cu``,
+  tensors launch ``csrc/window_attention.cu`` at the (head dim, window size)
+  pairs of :data:`WINDOW_BUILT`: bf16 runs the wgmma + TMA kernel of
+  ``csrc/window_attention_sm90.cu``,
   one CTA per (window, head, query part) as :func:`window_query_parts`
   says, fp32 an FMA kernel; CPU tensors run :func:`window_attention_plain`.
 - :func:`window_attention_v2` replaces ``_window_attn_kernel_3d``, the same
@@ -30,9 +31,10 @@ from medsam2_tpu_torch.ops.attention import (_aligned, _check_device, _dtype_cod
                                              _forward_only, _raise_on_error, _stream,
                                              sdpa_plain)
 
-# Widths csrc/window_attention.cu is instantiated for.
-WINDOW_HEAD_DIM = 96
-MAX_WINDOW_TOKENS = 196
+# (head dim: window sizes) csrc/window_attention.cu is instantiated for:
+# hiera_t / hiera_s (d 96, every ws up to 14), hiera_b+ (d 56) and hiera_l
+# (d 72) at their window sizes, ws 16 for hiera_l's fused stage-3 block.
+WINDOW_BUILT = {96: tuple(range(1, 15)), 56: (4, 7, 8, 14), 72: (4, 8, 16)}
 
 
 def window_query_parts(window_size: int):
@@ -74,10 +76,9 @@ def window_attention_plain(qkv, num_heads: int, window_size: int):
 def _launch(qkv, num_heads: int, window_size: int):
     B, Hp, Wp, C = _check_shape(qkv, num_heads, window_size, "window_attention")
     d = C // num_heads
-    if d != WINDOW_HEAD_DIM or window_size * window_size > MAX_WINDOW_TOKENS:
-        raise ValueError(f"window_attention: kernel built for head dim {WINDOW_HEAD_DIM} and "
-                         f"windows of at most {MAX_WINDOW_TOKENS} tokens, got d={d}, "
-                         f"ws={window_size}")
+    if window_size not in WINDOW_BUILT.get(d, ()):
+        raise ValueError(f"window_attention: kernel built for (head dim: window sizes) "
+                         f"{WINDOW_BUILT}, got d={d}, ws={window_size}")
     code = _dtype_code(qkv, "window_attention")
     from medsam2_tpu_torch.ops._build import load_library
 

@@ -24,7 +24,9 @@ ROOT = Path(__file__).resolve().parents[1]
 # (phase function of chip_smoke.py, its line prefix, the tests' -k filter)
 PROPAGATION = ("phase_kernels", "[3 kernel]", "flash or kv_cached or merge")
 BACKWARD = ("phase_train_kernels", "[3b train kernel]", "dq or lse_and_backward")
+DKV = ("phase_train_kernels", "[3b train kernel]", "dkv or lse_and_backward")
 WINDOW = ("phase_encoder_kernels", "[8 encoder kernel] window", "window")
+MLP = ("phase_encoder_kernels", "[8 encoder kernel]", "fused_mlp or fused_block")
 # name: (source, text, replacement, check)
 FAULTS = {
     # B1/B2: O is not rescaled by alpha when the running max grows
@@ -59,6 +61,32 @@ FAULTS = {
     # B5: the second query part loads its query rows one window row too high
     "win_part_offset": ("medsam2_tpu_torch/csrc/window_attention_sm90.cu",
                         "y0 + part * G::kHY);", "y0 + part * (G::kHY - 1));", WINDOW),
+    # B5 at d 56: the map's innermost dim spans 64 channels, so channels 56-63
+    # of q, k and v are the next head's instead of TMA's zero fill
+    "win_d56_unzeroed": ("medsam2_tpu_torch/csrc/window_attention_sm90.cu",
+                         "const uint64_t dims[4] = {D, 3 * (uint64_t)a.heads,",
+                         "const uint64_t dims[4] = {D == 56 ? 64 : D, 3 * (uint64_t)a.heads,",
+                         WINDOW),
+    # B3: P^T and dS^T of masked keys are not zeroed (the mask read as 1)
+    "dkv_no_mask": ("medsam2_tpu_torch/csrc/flash_bwd_dkv_sm90.cu",
+                    "  const float m_a = sh.mask()[r_a];\n  const float m_b = sh.mask()[r_a + 8];",
+                    "  const float m_a = 1.f;\n  const float m_b = 1.f;", DKV),
+    # B3: a split's run of q tiles rounds down, so the last split drops the
+    # tiles past splits * floor(tiles / splits)
+    "dkv_split_drop": ("medsam2_tpu_torch/csrc/flash_bwd_dkv_sm90.cu",
+                       "const int per_split = (n_qt + a.splits - 1) / a.splits;",
+                       "const int per_split = n_qt / a.splits;", DKV),
+    # B7 at C <= 256: the last hidden chunk's fc2 product reads the previous
+    # chunk's fc2 weight columns
+    "mlp_fused_last_chunk": ("medsam2_tpu_torch/csrc/encoder_gemm.cu",
+                             "tma_load_3d(st + L::kW1Bytes, &maps.w2, full + s, j * kHC, 0, 0);",
+                             "tma_load_3d(st + L::kW1Bytes, &maps.w2, full + s, "
+                             "(j == kChunks - 1 ? j - 1 : j) * kHC, 0, 0);", MLP),
+    # B7 at C > 256 (and B8's linears): the last 64-wide k chunk of every
+    # product is dropped (the last hidden chunk of fc2)
+    "mlp_last_chunk": ("medsam2_tpu_torch/csrc/encoder_gemm.cu",
+                       "const int k_tiles = (K + kGK - 1) / kGK;",
+                       "const int k_tiles = (K + kGK - 1) / kGK - 1;", MLP),
 }
 
 

@@ -174,7 +174,8 @@ def test_kernels_raise_under_autograd():
 
 # 64 px -> 16 x 16 tokens. Block 0 (ws 4) divides its extent: fused block;
 # block 4 (ws 3 on 4 x 4) needs padding: window attention; blocks 1-5 (q-pooled,
-# global, padded) end in the fused MLP tail.
+# global, padded) end in the MLP tail, which the JAX rule keeps unfused here:
+# none of their row counts (64, 64, 16, 16, 4) tiles by 128.
 ENC_CFG = HieraConfig(embed_dim=16, stages=(1, 2, 2, 1), window_spec=(4, 2, 3, 2),
                       global_att_blocks=(2,), window_pos_embed_bkg_spatial_size=(3, 3))
 SWITCHES = ("MEDSAM2_FUSED_BLOCK", "MEDSAM2_FUSED_WINDOW", "MEDSAM2_FUSED_MLP")
@@ -240,7 +241,7 @@ def test_hiera_switches_on_match_jax_and_switches_off(encoders, monkeypatch):
     A.reset_launch_counts()
     with torch.no_grad():
         on = trunk(_t(x))
-    assert calls == {"fused_block": 1, "window_attention": 1, "fused_mlp": 5}
+    assert calls == {"fused_block": 1, "window_attention": 1, "fused_mlp": 0}
     assert not any(A.launch_counts().values())       # CPU: twins, no launches
     assert len(on) == len(off) == len(want) == 4
     for g, f, w in zip(on, off, want):
@@ -251,12 +252,13 @@ def test_hiera_switches_on_match_jax_and_switches_off(encoders, monkeypatch):
 
 def test_hiera_switches_dispatch_separately(encoders, monkeypatch):
     """Each switch alone reaches only its own kernel's twin (the fused
-    block's MLP half is its own, not a fused-MLP call)."""
+    block's MLP half is its own, not a fused-MLP call). The MLP switch alone
+    takes block 0's 256 rows, the only row count here that tiles by 128."""
     _, trunk = encoders
     x = _t(np.random.default_rng(5).standard_normal((1, 64, 64, 3)))
     want = {"MEDSAM2_FUSED_BLOCK": {"fused_block": 1, "window_attention": 0, "fused_mlp": 0},
             "MEDSAM2_FUSED_WINDOW": {"fused_block": 0, "window_attention": 1, "fused_mlp": 0},
-            "MEDSAM2_FUSED_MLP": {"fused_block": 0, "window_attention": 0, "fused_mlp": 6}}
+            "MEDSAM2_FUSED_MLP": {"fused_block": 0, "window_attention": 0, "fused_mlp": 1}}
     for switch, counts in want.items():
         with monkeypatch.context() as m:
             calls = _count_twins(m)

@@ -169,7 +169,8 @@ def test_flash_autograd_launches_backward_pair(dev):
     after = A.launch_counts()
     assert {n: after[n] - before[n] for n in after} == {
         "flash_attention": 1, "flash_attention_bwd_dkv": 1, "flash_attention_bwd_dq": 1,
-        "flash_attention_bwd_dq_sum": 0, "kv_cached_attention": 0, "attention_merge": 0,
+        "flash_attention_bwd_dq_sum": 0, "flash_attention_bwd_dkv_sum": 0,
+        "kv_cached_attention": 0, "attention_merge": 0,
         "window_attention": 0, "fused_mlp": 0, "fused_block": 0}
     got = [t.grad.clone() for t in (q, k, v)]
     for t in (q, k, v):
@@ -208,6 +209,53 @@ def test_dq_kernel_split_counts_match_twin(dev, case, splits):
     assert _rel_err(got, want) <= TOL_GRAD_BF16
     if kind == "row0_dead":
         assert got[0].abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 7])
+@pytest.mark.parametrize("case", [
+    (2, 1, 1024, 1024, 256, 256, None),        # memory self-attention @512 (16 q tiles)
+    (2, 1, 1024, 10316, 256, 64, "stale"),     # memory cross-attention @512
+    (2, 1, 420, 100, 256, 64, "row0_dead"),    # 7 q tiles, ragged, batch 0 fully masked
+], ids=["self512", "cross512", "ragged_dead"])
+def test_dkv_kernel_split_counts_match_twin(dev, case, splits):
+    """The bf16 dK/dV pass at forced q split counts: the partials and their
+    sum (one sum launch whenever it splits) against the twin."""
+    B, H, Nq, Nk, D, Dv, kind = case
+    rng = np.random.default_rng(15)
+    dt = torch.bfloat16
+    q, k = _t(rng, (B, H, Nq, D), dev, dt), _t(rng, (B, H, Nk, D), dev, dt)
+    v, do = _t(rng, (B, H, Nk, Dv), dev, dt), _t(rng, (B, H, Nq, Dv), dev, dt)
+    mask = _bwd_mask(rng, B, Nk, kind, dev)
+    o, lse = A.flash_attention_lse_plain(q.float(), k.float(), v.float(), mask)
+    o = o.to(dt)
+    dvec = (do.float() * o.float()).sum(-1)
+    before = A.launch_counts()
+    dk, dv = A.flash_attention_bwd_dkv(q, k, v, mask, do, lse, dvec, _splits=splits)
+    torch.cuda.synchronize()
+    after = A.launch_counts()
+    assert after["flash_attention_bwd_dkv"] == before["flash_attention_bwd_dkv"] + 1
+    assert (after["flash_attention_bwd_dkv_sum"]
+            == before["flash_attention_bwd_dkv_sum"] + (splits > 1))
+    _, wk, wv = A.flash_attention_bwd_plain(q, k, v, mask, o, lse, do)
+    for got, want in ((dk, wk), (dv, wv)):
+        assert got.shape == want.shape and got.dtype == dt
+        assert _rel_err(got, want) <= TOL_GRAD_BF16
+    if kind == "row0_dead":
+        assert dk[0].abs().max().item() == 0.0 and dv[0].abs().max().item() == 0.0
+
+
+def test_dkv_sum_kernel_matches_twin(dev):
+    rng = np.random.default_rng(16)
+    pk, pv = _t(rng, (5, 2, 128, 256), dev, torch.float32), _t(rng, (5, 2, 128, 64), dev,
+                                                                torch.float32)
+    before = A.launch_counts()["flash_attention_bwd_dkv_sum"]
+    dk, dv = A.flash_attention_bwd_dkv_sum(pk, pv, 0.0625)
+    torch.cuda.synchronize()
+    assert A.launch_counts()["flash_attention_bwd_dkv_sum"] == before + 1
+    wk, wv = A.flash_attention_bwd_dkv_sum_plain(pk, pv, 0.0625)
+    for got, want in ((dk, wk), (dv, wv)):
+        assert got.shape == want.shape and got.dtype == torch.float32
+        assert (got - want).abs().max().item() <= 1e-6 * want.abs().max().item()
 
 
 def test_dq_sum_kernel_matches_twin(dev):
@@ -394,8 +442,8 @@ WINDOW_CASES = [
 
 @pytest.mark.parametrize("ws", list(range(1, 15)))
 def test_window_attention_every_window_size_bf16(dev, ws):
-    """Every window size the bf16 kernel is built for (1 to 14, one
-    instantiation each): two images of 2 x 3 windows, 2 heads."""
+    """Every window size the bf16 kernel is built for at head dim 96 (1 to
+    14, one instantiation each): two images of 2 x 3 windows, 2 heads."""
     rng = np.random.default_rng(14)
     qkv = _t(rng, (2, 2 * ws, 3 * ws, 3 * 96 * 2), dev, torch.bfloat16)
     before = A.launch_counts()["window_attention"]
@@ -404,6 +452,23 @@ def test_window_attention_every_window_size_bf16(dev, ws):
     assert A.launch_counts()["window_attention"] == before + 1
     want = WA.window_attention_plain(qkv.float(), 2, ws)
     assert (got.float() - want).abs().max().item() <= _tol(want, torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("d,ws", [(d, ws) for d in (56, 72) for ws in WA.WINDOW_BUILT[d]],
+                         ids=lambda v: str(v))
+def test_window_attention_hiera_bl_head_dims(dev, dtype, d, ws):
+    """hiera_b+ (d 56) and hiera_l (d 72) at every window size built: two
+    images of 2 x 3 windows, 3 heads; channels past d come from the next
+    head, so a kernel that summed them would miss."""
+    rng = np.random.default_rng(17)
+    heads = 3
+    qkv = _t(rng, (2, 2 * ws, 3 * ws, 3 * d * heads), dev, dtype)
+    got = WA.window_attention(qkv, heads, ws)
+    torch.cuda.synchronize()
+    want = WA.window_attention_plain(qkv.float(), heads, ws)
+    assert got.shape == want.shape and got.dtype == dtype
+    assert (got.float() - want).abs().max().item() <= _tol(want, dtype)
 
 
 def _linear_w(rng, out_dim, in_dim, dev):
@@ -431,7 +496,11 @@ def test_window_attention_kernel_matches_twin(dev, dtype, case):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("N,C", [(65536, 96), (16384, 192), (4096, 384), (1024, 768),
-                                 (1000, 96), (77, 768)], ids=lambda v: str(v))
+                                 (1000, 96), (77, 768),
+                                 # hiera_b+ and hiera_l widths @1024
+                                 (16384, 112), (4096, 224), (1024, 448), (1024, 896),
+                                 (16384, 144), (4096, 288), (4096, 576), (1024, 1152),
+                                 (300, 1152)], ids=lambda v: str(v))
 def test_fused_mlp_kernel_matches_twin(dev, dtype, N, C):
     rng = np.random.default_rng(7)
     x = _t(rng, (N, C), dev, dtype)
@@ -458,15 +527,17 @@ def _block_params(rng, C, dev):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("Bn,ws,C", [(1024, 8, 96), (1024, 4, 192), (5, 4, 192), (3, 8, 96)],
-                         ids=lambda v: str(v))
-def test_fused_block_kernel_matches_twin(dev, dtype, Bn, ws, C):
-    """hiera_t @1024 blocks 0 and 2, and ragged 64-row groups (5 ws-4
-    windows = 80 rows; 3 ws-8 windows)."""
+@pytest.mark.parametrize("Bn,ws,C,heads", [
+    (1024, 8, 96, 1), (1024, 4, 192, 2), (5, 4, 192, 2), (3, 8, 96, 1),
+    # hiera_b+ (d 56) and hiera_l (d 72) blocks @1024: the launch sequence
+    (1024, 8, 112, 2), (1024, 4, 224, 4), (1024, 8, 144, 2), (1024, 4, 288, 4),
+    (16, 16, 576, 8), (16, 8, 1152, 16), (3, 16, 576, 8)], ids=lambda v: str(v))
+def test_fused_block_kernel_matches_twin(dev, dtype, Bn, ws, C, heads):
+    """hiera_t @1024 blocks 0 and 2, ragged 64-row groups (5 ws-4 windows =
+    80 rows; 3 ws-8 windows), and every hiera_b+ / hiera_l width."""
     rng = np.random.default_rng(8)
     wins = _t(rng, (Bn, ws, ws, C), dev, dtype)
     p = _block_params(rng, C, dev)
-    heads = C // 96
     before = A.launch_counts()["fused_block"]
     got = FB.fused_window_block(wins, p, heads)
     torch.cuda.synchronize()
@@ -482,9 +553,60 @@ def test_encoder_kernels_reject_unbuilt_widths(dev):
     with pytest.raises(ValueError, match="kernel built for"):
         WA.window_attention(z(1, 8, 8, 3 * 64), 1, 4)          # head dim 64
     with pytest.raises(ValueError, match="kernel built for"):
-        FM.ln_mlp_residual(z(4, 112), z(112), z(112), z(448, 112), z(448), z(112, 448), z(112))
-    p = FB.BlockParams(*(z(*t.shape) for t in _block_params(np.random.default_rng(0), 384,
+        WA.window_attention(z(1, 12, 12, 3 * 56), 1, 6)        # d 56 at ws 6
+    with pytest.raises(ValueError, match="kernel built for"):
+        FM.ln_mlp_residual(z(4, 100), z(100), z(100), z(400, 100), z(400), z(100, 400), z(100))
+    p = FB.BlockParams(*(z(*t.shape) for t in _block_params(np.random.default_rng(0), 320,
                                                                "cpu")))
     with pytest.raises(ValueError, match="kernel built for"):
-        FB.fused_window_block(z(4, 8, 8, 384), p, 4)            # C 384
+        FB.fused_window_block(z(4, 8, 8, 320), p, 4)            # head dim 80
     assert A.launch_counts() == before
+
+
+@pytest.mark.parametrize("preset", ["sam2_hiera_t", "sam2_hiera_s", "sam2_hiera_b_plus",
+                                    "sam2_hiera_l"])
+def test_encoder_wrappers_take_every_block_the_dispatch_sends(dev, preset):
+    """For every block of the preset @1024 that the switches send to a
+    kernel (the fused block, the window attention, the fused MLP by the JAX
+    rule), the wrapper launches at that block's exact shape in bf16 and
+    agrees with its twin."""
+    from medsam2_tpu_torch import configs
+
+    cfg = getattr(configs, preset)()
+    rng = np.random.default_rng(18)
+    dt = torch.bfloat16
+    hw = cfg.image_size // cfg.trunk.patch_stride[0]
+    seen = set()
+    for spec in cfg.trunk.block_schedule():
+        if spec["q_stride"] is not None:
+            hw //= spec["q_stride"][0]
+        C, heads, ws = spec["dim_out"], spec["num_heads"], spec["window_size"]
+        key = (C, heads, ws, hw, spec["q_stride"] is None)
+        if key in seen:
+            continue
+        seen.add(key)
+        divides = ws > 0 and hw % ws == 0
+        wins_shape = ((hw // ws) ** 2, ws, ws, C) if divides else None
+        if divides and FB.fused_window_block_supported(spec, wins_shape):
+            wins = _t(rng, wins_shape, dev, dt)
+            p = FB.BlockParams(*(t.to(dt) for t in _block_params(rng, C, dev)))
+            got = FB.fused_window_block(wins, p, heads)
+            want = FB.fused_window_block_plain(wins.reshape(-1, C), p, heads, ws * ws)
+            assert (got.reshape(-1, C).float() - want.float()).abs().max().item() <= _tol(
+                want.float(), dt), key
+            continue
+        if ws > 0 and not divides and spec["q_stride"] is None:
+            hp = -(-hw // ws) * ws
+            qkv = _t(rng, (1, hp, hp, 3 * C), dev, dt)
+            got = WA.window_attention(qkv, heads, ws)
+            want = WA.window_attention_plain(qkv.float(), heads, ws)
+            assert (got.float() - want).abs().max().item() <= _tol(want, dt), key
+        if FM._pick_block(hw * hw):
+            x = _t(rng, (hw * hw, C), dev, dt)
+            (w1, b1), (w2, b2) = _linear_w(rng, 4 * C, C, dev), _linear_w(rng, C, 4 * C, dev)
+            g, b = 1 + 0.1 * _t(rng, (C,), dev, dt), 0.1 * _t(rng, (C,), dev, dt)
+            args = (x, g, b, w1.to(dt), b1.to(dt), w2.to(dt), b2.to(dt))
+            got = FM.ln_mlp_residual(*args)
+            want = FM.ln_mlp_residual_plain(*args)
+            assert (got.float() - want.float()).abs().max().item() <= _tol(want.float(), dt), key
+    torch.cuda.synchronize()

@@ -234,3 +234,104 @@ def test_dq_sum_twin_adds_in_split_order():
 def test_dq_split_fills_one_wave(bh, nq, nk, dv, want):
     blocks = bh * -(-nq // A.dq_block_rows(dv))
     assert (blocks, A.split_count(blocks, -(-nk // TILE), 132)) == want
+
+
+# ---------------------------------------------------------------------------
+# B3: split-q dK / dV partials, summed in split order
+# ---------------------------------------------------------------------------
+
+
+def _dkv_split(q, k, v, mask, do, lse, dvec, splits: int, scale: float):
+    """The split dK/dV pass (``csrc/flash_bwd_dkv_sm90.cu``): each 64-key
+    block walks contiguous runs of ceil(n_q_tiles / splits) 64-row query
+    tiles, one unscaled fp32 partial dK and dV each (zero for an empty run),
+    then ``flash_attention_bwd_dkv_sum`` adds them in split order and scales
+    dK."""
+    Nq = q.shape[2]
+    n_tiles = -(-Nq // A.DKV_Q_TILE)
+    per = -(-n_tiles // splits)
+    pk, pv = [], []
+    for s in range(splits):
+        a, b = s * per * A.DKV_Q_TILE, min(Nq, (s + 1) * per * A.DKV_Q_TILE)
+        if a >= b:
+            pk.append(torch.zeros(k.shape, dtype=torch.float32))
+            pv.append(torch.zeros(v.shape, dtype=torch.float32))
+            continue
+        p, ds = A.bwd_scores_plain(q[:, :, a:b], k, v, mask, lse[:, :, a:b], do[:, :, a:b],
+                                   dvec[:, :, a:b], scale)
+        pv.append(torch.matmul(p.to(q.dtype).float().transpose(-1, -2), do[:, :, a:b].float()))
+        pk.append(torch.matmul(ds.transpose(-1, -2), q[:, :, a:b].float()))
+    return A.flash_attention_bwd_dkv_sum(torch.stack(pk), torch.stack(pv), scale)
+
+
+@functools.lru_cache(maxsize=1)
+def _dkv_case():
+    """B 2, Nq 300 (five q tiles, the last of 44 rows), Nk 100, D 64, Dv
+    32; batch 0 has every key masked, batch 1 a third of them. The Pallas
+    backward's dK and dV through the JAX custom_vjp."""
+    rng = np.random.default_rng(32)
+    q = rng.standard_normal((B, H, 300, D)).astype(np.float32)
+    k = rng.standard_normal((B, H, 100, D)).astype(np.float32)
+    v = rng.standard_normal((B, H, 100, DV)).astype(np.float32)
+    w = rng.standard_normal((B, H, 300, DV)).astype(np.float32)
+    mask = rng.random((B, 100)) > 0.3
+    mask[0] = False
+    saved = os.environ.get("MEDSAM2_FLASH_BWD")
+    os.environ["MEDSAM2_FLASH_BWD"] = "pallas"
+    try:
+        jmask = jnp.asarray(mask)
+
+        def loss(k_, v_):
+            out = J.flash_attention(jnp.asarray(q), k_, v_, kv_mask=jmask, block_q=64,
+                                    block_k=128)
+            return jnp.sum(out * jnp.asarray(w))
+
+        want = _interpret(lambda: jax.grad(loss, argnums=(0, 1))(jnp.asarray(k), jnp.asarray(v)))
+        want = tuple(np.asarray(a) for a in want)
+    finally:
+        if saved is None:
+            os.environ.pop("MEDSAM2_FLASH_BWD")
+        else:
+            os.environ["MEDSAM2_FLASH_BWD"] = saved
+    return q, k, v, w, mask, want
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 4, 5])
+def test_split_dkv_matches_twin_and_pallas(splits):
+    """Every split count from 1 to the five q tiles; at 4 the last run is
+    empty (tiles 0-1, 2-3, 4, none)."""
+    q, k, v, w, mask, (want_k, want_v) = _dkv_case()
+    tq, tk, tv, tw = (torch.from_numpy(a) for a in (q, k, v, w))
+    tm = torch.from_numpy(mask)
+    scale = D ** -0.5
+    o, lse = A.flash_attention_lse_plain(tq, tk, tv, tm)
+    dvec = (tw * o).sum(-1)
+    before = A.launch_counts()
+    got_k, got_v = _dkv_split(tq, tk, tv, tm, tw, lse, dvec, splits, scale)
+    assert A.launch_counts() == before            # CPU tensors never launch
+    _, twin_k, twin_v = A.flash_attention_bwd_plain(tq, tk, tv, tm, o, lse, tw, scale)
+    for got, twin, want in ((got_k, twin_k, want_k), (got_v, twin_v, want_v)):
+        assert (got - twin).abs().max().item() <= 1e-6 * twin.abs().max().item()
+        assert np.abs(got.numpy() - want).max() <= 5e-5 * np.abs(want).max()
+        assert got[0].abs().max().item() == 0.0   # the batch with every key masked
+
+
+def test_dkv_sum_twin_adds_in_split_order():
+    rng = np.random.default_rng(33)
+    pk = torch.from_numpy(rng.standard_normal((3, 4, 8)).astype(np.float32))
+    pv = torch.from_numpy(rng.standard_normal((3, 4, 4)).astype(np.float32))
+    dk, dv = A.flash_attention_bwd_dkv_sum(pk, pv, 0.5)
+    np.testing.assert_array_equal(dk.numpy(), ((pk[0] + pk[1]) + pk[2]).numpy() * 0.5)
+    np.testing.assert_array_equal(dv.numpy(), ((pv[0] + pv[1]) + pv[2]).numpy())
+
+
+@pytest.mark.parametrize("bh,nq,nk,want", [
+    (2, 1024, 1024, (32, 4)),       # training self-attention @512: 16 key blocks x 2
+    (2, 1024, 10316, (324, 1)),     # training cross-attention @512: the grid fills
+    (2, 4096, 4096, (128, 1)),      # @1024 self-attention, two objects: one wave
+    (2, 420, 100, (4, 7)),          # two key blocks a head, seven q tiles
+    (1, 64, 64, (1, 1)),            # one q tile
+])
+def test_dkv_split_fills_one_wave(bh, nq, nk, want):
+    blocks = bh * -(-nk // A.DKV_BLOCK_KEYS)
+    assert (blocks, A.split_count(blocks, -(-nq // A.DKV_Q_TILE), 132)) == want
