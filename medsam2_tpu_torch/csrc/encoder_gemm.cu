@@ -2,8 +2,7 @@
 // and linears with the Pallas kernels' epilogues.
 //
 // They make up the fused LN-MLP (B7, replacing the Pallas TPU kernel
-// medsam2_tpu/ops/fused_mlp.py:_kernel) and, at the widths fused_block.cu's
-// one-kernel design does not take, the fused window block (B8,
+// medsam2_tpu/ops/fused_mlp.py:_kernel) and the fused window block (B8,
 // medsam2_tpu/ops/fused_block.py:_kernel): LN, qkv, window attention, proj
 // and the MLP as a short sequence of these launches.
 //
@@ -543,22 +542,28 @@ cudaError_t linear(const T* a, const T* w, const T* bias, const T* resid, T* out
   }
 }
 
+int mlp_launches(int C, int H, bool is_bf16) {
+  const bool fused =
+      is_bf16 && H == 4 * C && (C == 96 || C == 112 || C == 144 || C == 192 || C == 224);
+  return fused ? 1 : 3;
+}
+
 template <typename T>
 cudaError_t mlp_residual(const T* x, const T* g, const T* b, const T* w1, const T* b1,
                          const T* w2, const T* b2, T* normed, T* hidden, T* out, int N, int C,
                          int H, float eps, cudaStream_t stream) {
   if constexpr (std::is_same<T, bf16>::value) {
-    if (N > 0 && H == 4 * C) {
+    if (N > 0 && mlp_launches(C, H, true) == 1) {
       switch (C) {
         case 96: return launch_mlp_fused<96>(x, g, b, w1, b1, w2, b2, out, N, eps, stream);
         case 112: return launch_mlp_fused<112>(x, g, b, w1, b1, w2, b2, out, N, eps, stream);
         case 144: return launch_mlp_fused<144>(x, g, b, w1, b1, w2, b2, out, N, eps, stream);
         case 192: return launch_mlp_fused<192>(x, g, b, w1, b1, w2, b2, out, N, eps, stream);
-        case 224: return launch_mlp_fused<224>(x, g, b, w1, b1, w2, b2, out, N, eps, stream);
-        default: break;
+        default: return launch_mlp_fused<224>(x, g, b, w1, b1, w2, b2, out, N, eps, stream);
       }
     }
   }
+  if (normed == nullptr || hidden == nullptr) return cudaErrorInvalidValue;
   cudaError_t e = layer_norm<T>(x, g, b, normed, N, C, eps, stream);
   if (e == cudaSuccess) e = linear<T>(normed, w1, b1, nullptr, hidden, N, H, C, kEpiBiasGelu, stream);
   if (e == cudaSuccess) e = linear<T>(hidden, w2, b2, x, out, N, C, H, kEpiResidual, stream);

@@ -1,6 +1,6 @@
 // The Hiera encoder's row-wise products, for the fused LN-MLP
-// (fused_mlp.cu) and the fused window block at the widths its one-kernel
-// design does not take (fused_block.cu). See encoder_gemm.cu for the design.
+// (fused_mlp.cu) and the fused window block (fused_block.cu). See
+// encoder_gemm.cu for the design.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -28,12 +28,15 @@ template <typename T>
 cudaError_t linear(const T* a, const T* w, const T* bias, const T* resid, T* out, int M, int N,
                    int K, int epi, cudaStream_t stream);
 
+// The launches mlp_residual makes at (C, H): 1 in bf16 at C in {96, 112,
+// 144, 192, 224} with H = 4C (the fused kernel), else 3.
+int mlp_launches(int C, int H, bool is_bf16);
+
 // x + mlp(LN(x)) as the Pallas fused_mlp kernel rounds it:
 // out = T(T(x + T(fc2(h))) + b2), h = T(gelu(T(T(fc1(T(LN(x)))) + b1))).
-// bf16 at C in {96, 112, 144, 192, 224} with H = 4C: one launch of the
-// fused kernel (normed and hidden unused). Otherwise three launches:
-// layer_norm into `normed` [N, C], fc1 into `hidden` [N, H], fc2 with the
-// residual into out.
+// One launch of the fused kernel where mlp_launches says 1 (normed and
+// hidden unused, may be null). Otherwise three launches: layer_norm into
+// `normed` [N, C], fc1 into `hidden` [N, H], fc2 with the residual into out.
 template <typename T>
 cudaError_t mlp_residual(const T* x, const T* g, const T* b, const T* w1, const T* b1,
                          const T* w2, const T* b2, T* normed, T* hidden, T* out, int N, int C,

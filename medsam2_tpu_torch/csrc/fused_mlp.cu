@@ -19,8 +19,15 @@
 
 #include "encoder_gemm.cuh"
 
+// The kernel launches of one call at (C, H) in `dtype` (0 = float32, 1 =
+// bfloat16): 1 or 3. Only a call of three launches needs its work buffer.
+extern "C" int medsam2_fused_mlp_launches(int C, int H, int dtype) {
+  return medsam2::enc::mlp_launches(C, H, dtype == 1);
+}
+
 // x [N, C]; gamma, beta [C]; w1 [H, C]; b1 [H]; w2 [C, H]; b2 [C]; out
-// [N, C]; work [N, C + H] scratch for the LN rows and the hidden rows. All
+// [N, C]; work [N, C + H] scratch for the LN rows and the hidden rows where
+// the call makes three launches, else unused (may be null). All
 // contiguous, 16-byte aligned, one dtype (0 = float32, 1 = bfloat16).
 // Returns the cudaError_t of the first launch that fails.
 extern "C" int medsam2_fused_mlp_fwd(const void* x, const void* gamma, const void* beta,
@@ -28,8 +35,7 @@ extern "C" int medsam2_fused_mlp_fwd(const void* x, const void* gamma, const voi
                                      const void* b2, void* out, void* work, int N, int C, int H,
                                      float eps, int dtype, void* stream) {
   using namespace medsam2::enc;
-  if (N <= 0 || C <= 0 || H <= 0 || C % 8 || H % 8 || work == nullptr)
-    return (int)cudaErrorInvalidValue;
+  if (N <= 0 || C <= 0 || H <= 0 || C % 8 || H % 8) return (int)cudaErrorInvalidValue;
   const auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     using T = __nv_bfloat16;
@@ -37,8 +43,8 @@ extern "C" int medsam2_fused_mlp_fwd(const void* x, const void* gamma, const voi
     return (int)mlp_residual<T>(
         static_cast<const T*>(x), static_cast<const T*>(gamma), static_cast<const T*>(beta),
         static_cast<const T*>(w1), static_cast<const T*>(b1), static_cast<const T*>(w2),
-        static_cast<const T*>(b2), normed, normed + (size_t)N * C, static_cast<T*>(out), N, C, H,
-        eps, s);
+        static_cast<const T*>(b2), normed, normed ? normed + (size_t)N * C : nullptr,
+        static_cast<T*>(out), N, C, H, eps, s);
   }
   if (dtype == 0) {
     using T = float;
@@ -46,8 +52,8 @@ extern "C" int medsam2_fused_mlp_fwd(const void* x, const void* gamma, const voi
     return (int)mlp_residual<T>(
         static_cast<const T*>(x), static_cast<const T*>(gamma), static_cast<const T*>(beta),
         static_cast<const T*>(w1), static_cast<const T*>(b1), static_cast<const T*>(w2),
-        static_cast<const T*>(b2), normed, normed + (size_t)N * C, static_cast<T*>(out), N, C, H,
-        eps, s);
+        static_cast<const T*>(b2), normed, normed ? normed + (size_t)N * C : nullptr,
+        static_cast<T*>(out), N, C, H, eps, s);
   }
   return (int)cudaErrorInvalidValue;
 }

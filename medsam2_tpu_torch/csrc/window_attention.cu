@@ -45,7 +45,7 @@ struct WinSmem {
   static constexpr int kMaxTokens = D == 96 ? 196 : 256;  // ws 14, ws 16
   static constexpr int kWinMaxPad = (kMaxTokens + 15) / 16 * 16;
   static constexpr int QB = 32;
-  static constexpr int LDD = enc::ld<float>(D);
+  static constexpr int LDD = enc::ld(D);
   static constexpr int LDS = kWinMaxPad + 4;
   static constexpr size_t q_off = 0;
   static constexpr size_t k_off = q_off + align128(sizeof(float) * QB * LDD);
@@ -109,15 +109,15 @@ __global__ void __launch_bounds__(kWinThreads)
   gather_tokens<D>(ks, qkv, b, wy, wx, 0, np, n, C + h * D, ws, Hp, Wp, C3);
   gather_tokens<D>(vs, qkv, b, wy, wx, 0, np, n, 2 * C + h * D, ws, Hp, Wp, C3);
   __syncthreads();
-  enc::gemm_rows<float, L::QB, kWinThreads, false>(
-      qs, L::LDD, ks, L::LDD, D, np, nullptr,
+  enc::gemm_rows<L::QB, kWinThreads, false>(
+      qs, L::LDD, ks, L::LDD, D, np,
       [&](int r, int c, float v) { s[r * L::LDS + c] = v; });
   __syncthreads();
   enc::softmax_rows<float, kWinThreads>(s, L::LDS, s, L::LDS, L::QB, n, np, scale,
                                         [](int, int) { return true; });
   __syncthreads();
-  enc::gemm_rows<float, L::QB, kWinThreads, true>(
-      s, L::LDS, vs, L::LDD, np, D, nullptr, [&](int r, int c, float v) {
+  enc::gemm_rows<L::QB, kWinThreads, true>(
+      s, L::LDS, vs, L::LDD, np, D, [&](int r, int c, float v) {
         const int t = q0 + r;
         if (t < n) out[token_offset(b, wy, wx, t, ws, Hp, Wp, C) + h * D + c] = v;
       });

@@ -125,6 +125,9 @@ def load_library() -> ctypes.CDLL:
     fn = lib.medsam2_fused_mlp_fwd
     fn.argtypes = [vp] * 9 + [i, i, i, f, i, vp]
     fn.restype = i
+    fn = lib.medsam2_fused_mlp_launches
+    fn.argtypes = [i, i, i]
+    fn.restype = i
     fn = lib.medsam2_fused_block_fwd
     fn.argtypes = [vp] * 15 + [i, i, i, i, f, i, vp]
     fn.restype = i

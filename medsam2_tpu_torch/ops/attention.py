@@ -156,7 +156,7 @@ def flash_attention_bwd_plain(q, k, v, kv_mask, o, lse, do, scale=None):
 
 def _aligned(t: torch.Tensor, align: int = 16) -> torch.Tensor:
     """Contiguous with an ``align``-byte aligned base (the kernels load
-    16-byte vectors; WMMA tiles read from device memory need 32 bytes)."""
+    16-byte vectors, and TMA reads from 16-byte aligned bases)."""
     t = t.contiguous()
     if t.data_ptr() % align:
         t = t.clone()

@@ -1,4 +1,4 @@
-"""A whole plain windowed Hiera block in one kernel (counterpart of
+"""A whole plain windowed Hiera block (counterpart of
 ``medsam2_tpu/ops/fused_block.py``).
 
 On window-contiguous rows x [N, C] (every n = ws^2 consecutive rows one
@@ -8,18 +8,17 @@ window, the contiguous reshape of ``window_partition``'s [Bn, ws, ws, C]):
     out = x1 + mlp(LN2(x1))
 
 :func:`fused_window_block` replaces the Pallas ``_kernel``. CUDA tensors
-launch ``csrc/fused_block.cu``: one kernel at C in {96, 192} with head dim 96
-and 64 % n == 0 (hiera_t / hiera_s), and at every other width (hiera_b+,
-hiera_l) a sequence of the port's kernels: LN1, the qkv linear, the window
-attention kernel, the proj linear with its residual, the fused MLP's three
-launches (:func:`one_kernel`; ``fused_window_block.launches`` counts one a
-block either way). CPU tensors run :func:`fused_window_block_plain`. Both
-follow the Pallas
-kernel's arithmetic (``fused_block.py:90-132``): LN scale and bias cast to
-the input dtype, qkv rounded before its bias, fp32 softmax with the
-probabilities cast before PV, each head's output cast, the projection summed
-over heads in fp32, and the residuals rounded as ``(x + y) + b``. Its MLP
-half is :mod:`medsam2_tpu_torch.ops.fused_mlp`'s.
+launch ``csrc/fused_block.cu``, a sequence of the port's kernels at every
+preset width: LN1, the qkv linear, the window attention kernel, the proj
+linear with its residual, and the fused MLP (one launch where
+:func:`~medsam2_tpu_torch.ops.fused_mlp.kernel_launches` says so, else
+three); ``fused_window_block.launches`` counts one a block. CPU tensors
+run :func:`fused_window_block_plain`. Both follow the Pallas kernel's
+arithmetic (``fused_block.py:90-132``): LN scale and bias cast to the input
+dtype, qkv rounded before its bias, fp32 softmax with the probabilities cast
+before PV, each head's output cast, the projection summed over heads in
+fp32, and the residuals rounded as ``(x + y) + b``. Its MLP half is
+:mod:`medsam2_tpu_torch.ops.fused_mlp`'s.
 
 Off by default, as in the JAX package: ``MEDSAM2_FUSED_BLOCK=1``
 (:func:`fused_block_enabled`). Forward only: it raises when a gradient
@@ -40,21 +39,9 @@ from medsam2_tpu_torch.core import layers
 from medsam2_tpu_torch.ops.attention import (_aligned, _check_device, _dtype_code,
                                              _forward_only, _raise_on_error, _stream,
                                              sdpa_plain)
-from medsam2_tpu_torch.ops.fused_mlp import _matmul_cast, ln_mlp_residual_plain
+from medsam2_tpu_torch.ops.fused_mlp import (_matmul_cast, kernel_launches,
+                                             ln_mlp_residual_plain)
 from medsam2_tpu_torch.ops.window_attention import WINDOW_BUILT
-
-# Widths the one-kernel design of csrc/fused_block.cu is instantiated for; it
-# takes 64-row groups of whole windows.
-FUSED_BLOCK_WIDTHS = (96, 192)
-FUSED_BLOCK_HEAD_DIM = 96
-_GROUP_ROWS = 64
-
-
-def one_kernel(C: int, num_heads: int, n: int) -> bool:
-    """True where the block runs as csrc/fused_block.cu's one kernel; else
-    it runs as the sequence of launches."""
-    return (C in FUSED_BLOCK_WIDTHS and C == num_heads * FUSED_BLOCK_HEAD_DIM
-            and _GROUP_ROWS % n == 0)
 
 
 class BlockParams(NamedTuple):
@@ -120,27 +107,26 @@ def fused_window_block_plain(x2d, p: BlockParams, num_heads: int, n: int, eps: f
 def _launch(x2d, p: BlockParams, num_heads: int, n: int, eps: float):
     N, C = x2d.shape
     ws = math.isqrt(n)
-    single = one_kernel(C, num_heads, n)
-    if N % n or C % num_heads or not (single or (
-            C % 8 == 0 and ws * ws == n and ws in WINDOW_BUILT.get(C // num_heads, ()))):
-        raise ValueError(f"fused_block: kernel built for C in {FUSED_BLOCK_WIDTHS} with head "
-                         f"dim {FUSED_BLOCK_HEAD_DIM} and {_GROUP_ROWS} % n == 0, else for the "
-                         f"window kernel's (head dim: window sizes) {WINDOW_BUILT}, got C={C}, "
+    if (N % n or C % num_heads or C % 8 or ws * ws != n
+            or ws not in WINDOW_BUILT.get(C // num_heads, ())):
+        raise ValueError(f"fused_block: kernel built for C a multiple of 8 and the window "
+                         f"kernel's (head dim: window sizes) {WINDOW_BUILT}, got C={C}, "
                          f"{num_heads} heads, n={n}, N={N}")
     if p.fc1_weight.shape != (4 * C, C):
         raise ValueError(f"fused_block: MLP hidden width {p.fc1_weight.shape[0]} != 4C")
     code = _dtype_code(x2d, "fused_block")
-    params = [_aligned(t.detach().to(device=x2d.device, dtype=x2d.dtype), 32) for t in p]
-    x = _aligned(x2d, 32)
+    params = [_aligned(t.detach().to(device=x2d.device, dtype=x2d.dtype)) for t in p]
+    x = _aligned(x2d)
     out = torch.empty_like(x)
-    # the sequence's scratch: LN rows, qkv, head outputs, x1, hidden rows
-    work = None if single else torch.empty(N * 10 * C, device=x.device, dtype=x.dtype)
+    # the sequence's scratch: LN rows, qkv, head outputs, x1, and the hidden
+    # rows where the MLP takes three launches
+    width = 6 * C + (4 * C if kernel_launches(C, 4 * C, code) == 3 else 0)
+    work = torch.empty(N * width, device=x.device, dtype=x.dtype)
     from medsam2_tpu_torch.ops._build import load_library
 
     rc = load_library().medsam2_fused_block_fwd(
-        x.data_ptr(), *(t.data_ptr() for t in params), out.data_ptr(),
-        None if work is None else work.data_ptr(), N, C, num_heads, n, ctypes.c_float(eps),
-        code, _stream(x2d))
+        x.data_ptr(), *(t.data_ptr() for t in params), out.data_ptr(), work.data_ptr(), N, C,
+        num_heads, n, ctypes.c_float(eps), code, _stream(x2d))
     _raise_on_error(rc, "fused_block")
     fused_window_block.launches += 1
     return out

@@ -3,10 +3,11 @@
 block.
 
 :func:`ln_mlp_residual` replaces the Pallas ``_kernel``. CUDA tensors launch
-``csrc/fused_mlp.cu``: three kernels a call (the LN rows, fc1 with GELU,
-fc2 with the residual; ``csrc/encoder_gemm.cu``, bf16 on wgmma + TMA), any
-row count and any C and hidden width that are multiples of 8;
-``ln_mlp_residual.launches`` counts calls. CPU tensors run
+``csrc/fused_mlp.cu`` (``csrc/encoder_gemm.cu``'s kernels, bf16 on wgmma +
+TMA): one kernel a call in bf16 at C in {96, 112, 144, 192, 224} with hidden
+4C, else three (the LN rows, fc1 with GELU, fc2 with the residual;
+:func:`kernel_launches`), at any row count and any C and hidden width that
+are multiples of 8. ``ln_mlp_residual.launches`` counts calls. CPU tensors run
 :func:`ln_mlp_residual_plain`. Both follow the Pallas
 kernel's arithmetic, which differs from the unfused lowering in where it
 rounds: LN statistics in fp32 with the scale and bias cast to the input
@@ -25,13 +26,14 @@ reaches the kernel or the wrapper raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 
 import torch
 
 from medsam2_tpu_torch.core import layers
 from medsam2_tpu_torch.ops.attention import (_aligned, _check_device, _dtype_code,
-                                             _forward_only, _raise_on_error, _stream)
+                                             _forward_only, _ptr, _raise_on_error, _stream)
 
 
 def fused_mlp_enabled() -> bool:
@@ -77,6 +79,17 @@ def ln_mlp_residual_plain(x2d, gamma, beta, w1, b1, w2, b2, eps: float = 1e-6):
     return (x2d + y) + b2.to(dt)
 
 
+@functools.lru_cache(maxsize=None)
+def kernel_launches(C: int, H: int, dtype_code: int) -> int:
+    """The kernel launches of one call at width C, hidden H and dtype code
+    (0 float32, 1 bfloat16), as ``csrc/encoder_gemm.cu``'s ``mlp_launches``
+    decides them: 1 or 3. Only a call of three needs the [N, C + H] buffer
+    of LN and hidden rows."""
+    from medsam2_tpu_torch.ops._build import load_library
+
+    return load_library().medsam2_fused_mlp_launches(C, H, dtype_code)
+
+
 def _launch(x2d, gamma, beta, w1, b1, w2, b2, eps: float):
     N, C = x2d.shape
     H = w1.shape[0]
@@ -87,16 +100,17 @@ def _launch(x2d, gamma, beta, w1, b1, w2, b2, eps: float):
         raise ValueError(f"fused_mlp: weights {tuple(w1.shape)} / {tuple(w2.shape)} do not fit "
                          f"C={C}, H={H}")
     code = _dtype_code(x2d, "fused_mlp")
-    params = [_aligned(t.detach().to(device=x2d.device, dtype=x2d.dtype), 32)
+    params = [_aligned(t.detach().to(device=x2d.device, dtype=x2d.dtype))
               for t in (gamma, beta, w1, b1, w2, b2)]
-    x = _aligned(x2d, 32)
+    x = _aligned(x2d)
     out = torch.empty_like(x)
-    work = torch.empty(N * (C + H), device=x.device, dtype=x.dtype)   # LN rows, hidden rows
+    work = (torch.empty(N * (C + H), device=x.device, dtype=x.dtype)   # LN rows, hidden rows
+            if kernel_launches(C, H, code) == 3 else None)
     from medsam2_tpu_torch.ops._build import load_library
 
     rc = load_library().medsam2_fused_mlp_fwd(
-        x.data_ptr(), *(t.data_ptr() for t in params), out.data_ptr(), work.data_ptr(), N, C,
-        H, ctypes.c_float(eps), code, _stream(x2d))
+        x.data_ptr(), *(t.data_ptr() for t in params), out.data_ptr(), _ptr(work), N, C, H,
+        ctypes.c_float(eps), code, _stream(x2d))
     _raise_on_error(rc, "fused_mlp")
     ln_mlp_residual.launches += 1
     return out

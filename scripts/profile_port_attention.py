@@ -1,15 +1,17 @@
 """Time the bf16 attention wrappers (B1 flash forward, B2 kv-cached, the
 B3/B4 backward pair, B5 window attention) of one copy of the port at the
-main path's shapes, on one GPU.
+main path's shapes, on one GPU; with ``--block``, the fused window block
+(B8) at phase 8's shapes instead.
 
-    python3 scripts/profile_port_attention.py [ROOT ...] [--graph]
+    python3 scripts/profile_port_attention.py [ROOT ...] [--graph] [--block]
 
 Each ROOT is a directory holding a ``medsam2_tpu_torch`` package (default:
 this checkout); each runs in its own process, in the order given, so
 ``parent change change parent`` compares two trees on one card in turns.
 The shapes, inputs and timers are ``chip_smoke.py``'s of this checkout
 (phase 3's flash and kv-cached cases, phase 3b's training cases with LSE
-and their backward passes, phase 8's window-attention cases),
+and their backward passes, phase 8's window-attention cases, or phase 8's
+``BLOCK_CASES``),
 run against each ROOT's package. Times are CUDA-event milliseconds per
 wrapper call over an eager loop of calls (host work included once the host
 falls behind the card), or with ``--graph`` over replays of a CUDA graph of
@@ -28,7 +30,7 @@ import torch
 CHECKOUT = Path(__file__).resolve().parents[1]
 
 
-def measure(root: str, graph: bool) -> None:
+def measure(root: str, graph: bool, block: bool) -> None:
     # chip_smoke's own imports of the package then resolve to ROOT's copy
     sys.path.insert(0, root)
     spec = importlib.util.spec_from_file_location("chip_smoke", CHECKOUT / "chip_smoke.py")
@@ -39,6 +41,15 @@ def measure(root: str, graph: bool) -> None:
     rng = np.random.default_rng(0)
     bf16 = torch.bfloat16
     res = {}
+    if block:
+        for Bn, ws, C, heads in s.BLOCK_CASES:
+            wins = s.rand(rng, (Bn, ws, ws, C), bf16)
+            p = s.block_params(rng, C, bf16)
+            res[f"fused_block N {Bn * ws * ws} C {C} ws {ws} heads {heads}"] = timed(
+                lambda: s.FB.fused_window_block(wins, p, heads))
+        for name, ms in res.items():
+            print(f"{root:>16} {name:48s} {ms:.4f} ms", flush=True)
+        return
     for label, (B, H, N, D) in s.FLASH_CASES:
         q, k, v = (s.rand(rng, (B, H, N, D), bf16) for _ in range(3))
         res[f"flash {label}"] = timed(lambda: A.flash_attention(q, k, v))
@@ -69,18 +80,20 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("roots", nargs="*", default=[str(CHECKOUT)])
     ap.add_argument("--graph", action="store_true")
+    ap.add_argument("--block", action="store_true")
     ap.add_argument("--one", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_port_attention: needs a CUDA device")
     if args.one:
-        measure(args.one, args.graph)
+        measure(args.one, args.graph, args.block)
         return
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True,
                          timeout=60).stdout.strip().splitlines()[0])
     for root in args.roots:
-        cmd = [sys.executable, __file__, "--one", root] + (["--graph"] if args.graph else [])
+        cmd = ([sys.executable, __file__, "--one", root] + (["--graph"] if args.graph else [])
+               + (["--block"] if args.block else []))
         subprocess.run(cmd, check=True, timeout=600)
 
 

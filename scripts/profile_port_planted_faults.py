@@ -1,7 +1,7 @@
 """Plant known faults in copies of the port's attention kernels and show that
 ``chip_smoke.py`` and the ``cuda`` kernel tests catch each, on one GPU.
 
-    python3 scripts/profile_port_planted_faults.py [FAULT ...] [--dir DIR]
+    python3 scripts/profile_port_planted_faults.py [FAULT ...] [--dir DIR] [--e2e]
 
 For each fault (default: all) the package, the tests and ``chip_smoke.py``
 are copied to ``<DIR>/planted_<fault>`` (default DIR: ``build/planted`` of
@@ -11,7 +11,11 @@ changed there, and the copy builds the kernels, runs the fault's phase
 kernels; not phase 2's SASS check, so that a fault is caught on values) and
 the fault's cases of ``tests/test_torch_kernels_cuda.py``. Each must
 fail; the script prints the phase's lines, the failing tests, and exits
-non-zero if a fault went unnoticed. The checkout itself is never changed.
+non-zero if a fault went unnoticed. With ``--e2e`` an encoder fault runs
+through phase 11 instead of its kernel phase (hiera_b+ and hiera_l
+``set_image`` @1024 bf16, switches on against off, held to
+``TOL_BL_EMBED``), which shows how far that end-to-end reading moves. The
+checkout itself is never changed.
 """
 
 import argparse
@@ -21,12 +25,13 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-# (phase function of chip_smoke.py, its line prefix, the tests' -k filter)
-PROPAGATION = ("phase_kernels", "[3 kernel]", "flash or kv_cached or merge")
-BACKWARD = ("phase_train_kernels", "[3b train kernel]", "dq or lse_and_backward")
-DKV = ("phase_train_kernels", "[3b train kernel]", "dkv or lse_and_backward")
-WINDOW = ("phase_encoder_kernels", "[8 encoder kernel] window", "window")
-MLP = ("phase_encoder_kernels", "[8 encoder kernel]", "fused_mlp or fused_block")
+# (call of chip_smoke.py's phase, its line prefix, the tests' -k filter)
+PROPAGATION = ("phase_kernels()", "[3 kernel]", "flash or kv_cached or merge")
+BACKWARD = ("phase_train_kernels()", "[3b train kernel]", "dq or lse_and_backward")
+DKV = ("phase_train_kernels()", "[3b train kernel]", "dkv or lse_and_backward")
+WINDOW = ("phase_encoder_kernels()", "[8 encoder kernel] window", "window")
+MLP = ("phase_encoder_kernels()", "[8 encoder kernel]", "fused_mlp or fused_block")
+E2E = ("phase_bl_set_image('')", "[11 b+/l set_image]")
 # name: (source, text, replacement, check)
 FAULTS = {
     # B1/B2: O is not rescaled by alpha when the running max grows
@@ -90,8 +95,10 @@ FAULTS = {
 }
 
 
-def run(name: str, base: Path) -> bool:
+def run(name: str, base: Path, e2e: bool) -> bool:
     path, old, new, (phase, prefix, tests_k) = FAULTS[name]
+    if e2e:
+        phase, prefix = E2E
     d = base / f"planted_{name}"
     shutil.rmtree(d, ignore_errors=True)
     d.mkdir(parents=True)
@@ -109,7 +116,7 @@ def run(name: str, base: Path) -> bool:
     print(f"==== fault {name}: {path}", flush=True)
     smoke = subprocess.run(
         [sys.executable, "-c", "import chip_smoke as s; s._build.build(); "
-         f"s._build.load_library(); s.{phase}()"],
+         f"s._build.load_library(); s.{phase}"],
         cwd=d, capture_output=True, text=True, timeout=900)
     for line in smoke.stdout.splitlines():
         if line.startswith(prefix):
@@ -122,7 +129,7 @@ def run(name: str, base: Path) -> bool:
          "no:cacheprovider", "tests/test_torch_kernels_cuda.py", "-k", tests_k, "-rf"],
         cwd=d, capture_output=True, text=True, timeout=900)
     out = tests.stdout.strip().splitlines()
-    print(f"   {phase} exit {smoke.returncode}; tests: "
+    print(f"   {phase.split('(')[0]} exit {smoke.returncode}; tests: "
           f"{out[-1] if out else tests.stderr[-300:]}")
     for line in out:
         if line.startswith("FAILED"):
@@ -134,11 +141,13 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("faults", nargs="*", help=f"any of {list(FAULTS)} (default: all)")
     ap.add_argument("--dir", default=str(ROOT / "build" / "planted"))
+    ap.add_argument("--e2e", action="store_true",
+                    help="run the faults through phase 11 instead of their kernel phase")
     args = ap.parse_args()
     unknown = set(args.faults) - set(FAULTS)
     if unknown:
         ap.error(f"unknown faults {sorted(unknown)}")
-    missed = [n for n in (args.faults or FAULTS) if not run(n, Path(args.dir))]
+    missed = [n for n in (args.faults or FAULTS) if not run(n, Path(args.dir), args.e2e)]
     print(f"unnoticed faults: {missed}" if missed else "every planted fault was caught")
     sys.exit(1 if missed else 0)
 
