@@ -1,5 +1,6 @@
-"""Drive the PyTorch port's 3D propagation, 3D training and 2D image serving
-on one NVIDIA GPU.
+"""Drive the PyTorch port's 3D propagation (the whole session: reverse and
+resumed propagation, the three memory readouts, batched volumes), 3D training
+and 2D image serving on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -17,6 +18,10 @@ Phases, each printing its own line:
      includes its merge), what the wrapper's host work adds to an eager
      call, the twin's time per eager call, TF/s, the share of the bound, the
      ratio to the library call and the grid (blocks, kv splits);
+  3c. B2 at the folded-volume batch B = 4 (hiera_t @512) with the slot ->
+     row maps a bank gives forward and in reverse, and B1 at the read-order
+     inference shape @1024 (D 256 / Dv 64, a kv mask, no LSE), against their
+     twins, bf16 and fp32, timed as phase 3;
   3b. the training kernels (flash forward with LSE, the dK/dV and dQ backward
      passes, the dQ pass at forced kv split counts and the dK/dV pass at
      forced q split counts, and the two split sums)
@@ -55,7 +60,17 @@ Phases, each printing its own line:
   11. sam2_hiera_b+ and sam2_hiera_l @1024 bf16 at full depth: ``set_image``
      with the switches on against off (exact launch counts from the JAX
      dispatch rules, image embeddings within tolerance), and sam2_hiera_l
-     @512 fp32 (TF32 off) with the switches on, card against the CPU.
+     @512 fp32 (TF32 off) with the switches on, card against the CPU;
+  12. the rest of the 3D session: at @512 fp32 (TF32 off) the bidirectional
+     session (a click on frame 4 of 8, forward, then ``reverse=True``) in each
+     memory readout (storage order, read order over the roped-key cache, read
+     order over raw memory) and folded volumes, card against the CPU, logits
+     to 1e-3; at @1024 bf16, 16 frames, a click on frame 8, forward then
+     reverse in each readout: exact launch counts, ms per tracked frame, peak
+     memory, storage order against read order over the cache
+     (``TOL_READOUT``); ``propagate_volumes_batched`` at ``bench.py``'s
+     3d_batch shape (@512 bf16, 4 volumes x 16 frames), folded and unfolded:
+     exact counts, frames/s, peak memory, folded against unfolded.
 Then one JSON line of per-kernel results, the card's name and power limit,
 and, last, the device line. Any failure raises and exits non-zero; without a
 CUDA device nothing runs.
@@ -80,7 +95,8 @@ import torch.nn.functional as F  # noqa: E402
 
 from medsam2_tpu_torch.api import automatic_mask_generator as amg_api  # noqa: E402
 from medsam2_tpu_torch.api.image_predictor import SAM2ImagePredictor  # noqa: E402
-from medsam2_tpu_torch.api.video_predictor import SAM2VideoPredictor  # noqa: E402
+from medsam2_tpu_torch.api.video_predictor import (SAM2VideoPredictor,  # noqa: E402
+                                                   propagate_volumes_batched)
 from medsam2_tpu_torch.configs import sam2_hiera_b_plus, sam2_hiera_l, sam2_hiera_t  # noqa: E402
 from medsam2_tpu_torch.core.sam2_model import TRAINABLE_GROUPS, SAM2Model  # noqa: E402
 from medsam2_tpu_torch.ops import _build  # noqa: E402
@@ -189,9 +205,11 @@ def merges(bh: int, nq: int, n_keys: int) -> int:
     """1 if a bf16 launch of this shape splits its kv range (and so runs
     the merge kernel once), else 0: it splits when its blocks (one per 128
     query rows and head) fill at most half the SMs, so that a second split
-    still fits in one wave, and it has more than one 64-key tile. Worked out
-    here apart from the wrapper's ``split_count``, so that a change to that
-    rule fails the exact launch counts of phases 5 and 7."""
+    still fits in one wave, and it has more than one 64-key tile. ``bh`` is
+    batch x heads: for the kv-cached call and the memory attention of folded
+    volumes the batch is the bank's rows, volumes x objects. Worked out here
+    apart from the wrapper's ``split_count``, so that a change to that rule
+    fails the exact launch counts of phases 5, 7 and 12."""
     blocks = bh * -(-nq // 128)
     return int(2 * blocks <= sm_count() and n_keys > 64)
 
@@ -1414,10 +1432,426 @@ def phase_bl_set_image(power_line: str):
     return total
 
 
+# ---------------------------------------------------------------------------
+# The rest of the 3D session: reverse and resumed propagation, the three
+# memory readouts and batched volumes
+# ---------------------------------------------------------------------------
+
+# the memory readouts, chosen as the JAX package chooses them:
+# (MEDSAM2_KV_STORAGE, use_kcache)
+READOUTS = {"storage": ("1", True), "read_kcache": ("0", True), "read_raw": ("1", False)}
+# bf16 masks of two paths that differ only in the order of their roundings
+# (the storage-order readout on B2 against the read order over the same cache
+# on B1; folded volumes on B2 at B = 4 against one volume at a time on B1),
+# relative to the largest |logit|: each memory-attention layer's
+# cross-attention rounds P and its output to bf16 at other points (other kv
+# orders and split boundaries), about one bf16 ulp (2^-8) of its output, and
+# these independent roundings reach the logits as a random walk over the
+# layers and the tracked frames that carry them: sqrt(4 layers x 15 frames) x
+# 2^-8 = 3.0e-2. A readout that attends a wrong slot or drops the pointers
+# changes the logits by O(1) of their maximum.
+TOL_READOUT = 5e-2
+
+
+@contextlib.contextmanager
+def readout_env(readout: str):
+    saved = os.environ.get("MEDSAM2_KV_STORAGE")
+    os.environ["MEDSAM2_KV_STORAGE"] = READOUTS[readout][0]
+    try:
+        yield READOUTS[readout][1]
+    finally:
+        if saved is None:
+            os.environ.pop("MEDSAM2_KV_STORAGE", None)
+        else:
+            os.environ["MEDSAM2_KV_STORAGE"] = saved
+
+
+def disc_point(size: int, t: int):
+    """The centre of ``volume``'s disc on frame t, in video pixels."""
+    return [size * (0.3 + 0.03 * t), size * 0.45]
+
+
+def bidirectional(model, video, readout: str, prompt: int, events=None):
+    """A session with one click on frame ``prompt``: propagate forward, then
+    ``reverse=True`` from the prompt frame, which first re-encodes the frames
+    tracked forward into the ring. ``events`` (three CUDA events) time the
+    two calls. Returns (forward frames, masks, reverse frames, masks)."""
+    with readout_env(readout) as use_kcache:
+        pred = SAM2VideoPredictor(model, use_kcache=use_kcache)
+        state = pred.init_state(images=video)
+        pred.add_new_points(state, prompt, 1, np.array([disc_point(video.shape[1], prompt)]),
+                            np.array([1]))
+        if events:
+            events[0].record()
+        f1, m1 = pred.propagate_in_video_batch(state)
+        if events:
+            events[1].record()
+        f2, m2 = pred.propagate_in_video_batch(state, reverse=True)
+        if events:
+            events[2].record()
+    return f1, m1, f2, m2
+
+
+def volume_batch(V: int, T: int, size: int):
+    """``bench.py``'s 3d_batch inputs: V normalised test volumes and one
+    click per volume on frame 0 ([V, O=1, P=1, 2])."""
+    from medsam2_tpu_torch.utils.transforms import IMAGENET_MEAN, IMAGENET_STD
+
+    vids = np.stack([volume(T, size, seed=10 + v) for v in range(V)]).astype(np.float32) / 255
+    videos = torch.from_numpy((vids - IMAGENET_MEAN) / IMAGENET_STD)
+    coords = np.tile(np.array(disc_point(size, 0), np.float32), (V, 1, 1, 1))
+    return videos, coords, np.ones((V, 1, 1), np.int32)
+
+
+def session_spec(cfg):
+    from medsam2_tpu_torch.state import memory_bank as MB
+
+    return MB.BankSpec.from_config(cfg, max_cond_frames=1)
+
+
+def session_launches(cfg, readout: str, T: int, prompt: int) -> dict:
+    """Kernel launches of ``bidirectional`` (one object), add_new_points
+    included, worked out from the config apart from the wrappers. Encoded
+    frames: the preview, the prompt frame once in each propagation, every
+    tracked frame, and, before the reverse call, the frames tracked forward
+    that the feature ring (7) or the pointer ring (15) reaches. Each tracked
+    frame runs L memory self-attentions on B1 and L cross-attentions, on B2
+    in storage order and on B1 in read order (over F = 1 + 7 slots, or Fa =
+    1 + 6 read slots, of P keys, and the pointer tokens); a bf16 launch whose
+    blocks fill at most half the SMs splits and merges (``merges``)."""
+    spec = session_spec(cfg)
+    tok = (cfg.image_size // 16) ** 2
+    L = cfg.memory_attention.num_layers
+    fwd, rev = T - 1 - prompt, prompt
+    window = min(T - 1 - prompt, max(spec.noncond_ring, spec.ptr_ring))
+    encodes = 1 + (1 + fwd) + (1 + window + rev)
+    tracked = fwd + rev
+    gf = global_flash(cfg)
+    storage = readout == "storage"
+    keys = ((spec.max_cond_frames + spec.noncond_ring) if storage
+            else spec.num_frames_attended) * tok + spec.num_ptr_tokens
+    return {"flash_attention": gf * encodes + L * tracked * (1 if storage else 2),
+            "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0,
+            "flash_attention_bwd_dq_sum": 0, "flash_attention_bwd_dkv_sum": 0,
+            "kv_cached_attention": L * tracked if storage else 0,
+            "attention_merge": gf * encodes * merges(4, tok, tok)
+            + L * tracked * (merges(1, tok, tok) + merges(1, tok, keys)),
+            **NO_ENCODER_LAUNCHES}
+
+
+def volume_launches(cfg, V: int, T: int, fold: bool) -> dict:
+    """Kernel launches of ``propagate_volumes_batched`` (one object a volume,
+    one prompt frame), from the config apart from the wrappers. Folded: T
+    encodes of V frames at once (the global attention at B*H = 4V), and per
+    tracked frame L self-attentions at B = V on B1 and L storage-order
+    cross-attentions at B = V on B2. Unfolded: each volume alone, reading the
+    cache in read order on B1 (the JAX package's vmapped form does so too)."""
+    spec = session_spec(cfg)
+    tok = (cfg.image_size // 16) ** 2
+    L = cfg.memory_attention.num_layers
+    gf = global_flash(cfg)
+    tracked = T - 1
+    if fold:
+        keys = (spec.max_cond_frames + spec.noncond_ring) * tok + spec.num_ptr_tokens
+        flash, kv = gf * T + L * tracked, L * tracked
+        merge = (gf * T * merges(4 * V, tok, tok)
+                 + L * tracked * (merges(V, tok, tok) + merges(V, tok, keys)))
+    else:
+        keys = spec.num_frames_attended * tok + spec.num_ptr_tokens
+        flash, kv = V * (gf * T + 2 * L * tracked), 0
+        merge = V * (gf * T * merges(4, tok, tok)
+                     + L * tracked * (merges(1, tok, tok) + merges(1, tok, keys)))
+    return {"flash_attention": flash, "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0,
+            "flash_attention_bwd_dq_sum": 0, "flash_attention_bwd_dkv_sum": 0,
+            "kv_cached_attention": kv, "attention_merge": merge, **NO_ENCODER_LAUNCHES}
+
+
+def phase_session_kernels():
+    """Phase 3c: B2 at the folded-volume batch B = 4 (hiera_t @512: 1 cond
+    slot and a 7-slot ring of 1024 keys, 64 pointer tokens) with the slot ->
+    row map and validity a bank gives forward and in reverse, and B1 at the
+    read-order inference shape @1024 (q [1,1,4096,256] against 7 read slots
+    of 4096 keys and 64 pointer tokens, Dv 64, a kv mask, no LSE), bf16 and
+    fp32, against their twins; times as phase 3. Returns the bf16 results."""
+    from medsam2_tpu_torch.state import memory_bank as MB
+
+    rng = np.random.default_rng(8)
+    out = {"kv_cached_attention": [], "flash_attention": []}
+    spec = session_spec(sam2_hiera_t(image_size=512))
+    Mc, R = spec.max_cond_frames, spec.noncond_ring
+    F_, P, L, Nptr, Rr = Mc + R, spec.mem_spatial, 4, spec.num_ptr_tokens, spec.num_frames_attended
+    B, Nq, C, Dv = 4, P, 256, 64
+    for dtype in (torch.bfloat16, torch.float32):
+        set_tf32(False)
+        for reverse in (False, True):
+            bank = MB.init_bank(spec, B, DEV)
+            cond, tracked, cur = (15, range(14, 4, -1), 4) if reverse else (0, range(1, 11), 11)
+            bank["cond_frame_idx"][:, 0] = cond
+            for f in tracked:
+                bank["noncond_frame_idx"][:, f % R] = f
+            rows, valid = MB.kv_storage_layout(spec, bank, cur, track_in_reverse=reverse)
+            ptr_valid = torch.zeros(B, Nptr, dtype=torch.bool, device=DEV)
+            for b in range(B):
+                ptr_valid[b, :4 * (1 + 5 * b)] = True
+            mask = torch.cat([valid.repeat_interleave(P, dim=1), ptr_valid], dim=1)
+            q = rand(rng, (B, Nq, C), dtype)
+            kc, pos = rand(rng, (B, F_, L, P, C), dtype), rand(rng, (Rr, L, P, C), dtype)
+            pk, vs, pv = rand(rng, (B, Nptr, C), dtype), rand(rng, (B, F_, P, Dv), dtype), \
+                rand(rng, (B, Nptr, Dv), dtype)
+            args = (q, kc, pos, rows, pk, vs, pv, mask, 2)
+            got = A.kv_cached_attention(*args)
+            want = A.kv_cached_attention_plain(q.float(), kc, pos, rows, pk, vs.float(),
+                                               pv.float(), mask, 2)
+            err = (got.float() - want).abs().max().item()
+            tol = tolerance(want, dtype)
+            ms = graph_ms(lambda: A.kv_cached_attention(*args))
+            plain_ms = cuda_ms(lambda: A.kv_cached_attention_plain(*args), reps=3)
+            k_mat = torch.cat([(kc[:, :, 2] + pos[rows.long(), 2][None]).reshape(B, F_ * P, C),
+                               pk], dim=1)[:, None]
+            v_mat = torch.cat([vs.reshape(B, F_ * P, Dv), pv], dim=1)[:, None]
+            lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(
+                q[:, None], k_mat, v_mat, attn_mask=mask[:, None, None, :]))
+            keys = float(mask.sum().item())
+            flops = 2.0 * Nq * keys * (C + Dv)
+            nbytes = q.element_size() * (B * Nq * C + B * F_ * P * C + Rr * P * C
+                                         + B * Nptr * C + B * F_ * P * Dv + B * Nptr * Dv
+                                         + B * Nq * Dv) + B * (F_ * P + Nptr)
+            bound_ms, bound_by = bound(flops, nbytes, dtype)
+            grid = (bf16_grid(B, Nq, F_ * P + Nptr) if dtype == torch.bfloat16
+                    else (B * -(-Nq // 64), 1))
+            ok = err <= tol
+            layout = "reverse" if reverse else "forward"
+            print(f"[3c session kernel] kv_cached_attention folded volumes @512 B={B} "
+                  f"{layout} row_of_slot {rows.tolist()} {[B, Nq, F_, L, P, C, Dv, Nptr]} "
+                  f"{dtype} max_abs_err {err:.3e} (tol {tol:.3e}) kernel {ms:.4f} ms plain "
+                  f"{plain_ms:.3f} ms sdpa {lib_ms:.4f} ms bound {bound_ms:.4f} ms "
+                  f"({bound_by}) | {rates(ms, flops, bound_ms, lib_ms, grid)} "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"kv_cached_attention B={B} {layout} {dtype}: err {err}")
+            if dtype == torch.bfloat16:
+                out["kv_cached_attention"].append(dict(
+                    shape=f"folded volumes @512 B={B}, {layout} layout", max_abs_err=err,
+                    ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                    library_ms=lib_ms, splits=grid[1]))
+            del args, q, kc, pos, pk, vs, pv, got, want, k_mat, v_mat
+        Fa, Pk = 7, 4096
+        Nk = Fa * Pk + Nptr
+        q = rand(rng, (1, 1, Pk, C), dtype)
+        k, v = rand(rng, (1, 1, Nk, C), dtype), rand(rng, (1, 1, Nk, Dv), dtype)
+        m = np.ones((1, Nk), bool)
+        m[:, 3 * Pk:4 * Pk] = False            # a stale ring target
+        m[:, Fa * Pk + 8:] = False             # two pointers of 4 tokens
+        mask = torch.from_numpy(m).to(DEV)
+        got = A.flash_attention(q, k, v, kv_mask=mask)
+        want = A.flash_attention_plain(q.float(), k.float(), v.float(), kv_mask=mask)
+        err = (got.float() - want).abs().max().item()
+        tol = tolerance(want, dtype)
+        ms = graph_ms(lambda: A.flash_attention(q, k, v, kv_mask=mask))
+        plain_ms = cuda_ms(lambda: A.flash_attention_plain(q, k, v, kv_mask=mask), reps=3)
+        lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask[:, None, None, :]))
+        _, flops, nbytes = flash_work(1, 1, Pk, Nk, C, Dv, m, q.element_size())
+        bound_ms, bound_by = bound(flops, nbytes + m.size, dtype)
+        grid = bf16_grid(1, Pk, Nk) if dtype == torch.bfloat16 else (-(-Pk // 64), 1)
+        ok = err <= tol
+        print(f"[3c session kernel] flash_attention read-order cross-attention @1024, no LSE "
+              f"{[1, 1, Pk, Nk, C, Dv]} {dtype} max_abs_err {err:.3e} (tol {tol:.3e}) kernel "
+              f"{ms:.4f} ms plain {plain_ms:.3f} ms sdpa {lib_ms:.4f} ms bound {bound_ms:.4f} ms "
+              f"({bound_by}) | {rates(ms, flops, bound_ms, lib_ms, grid)} "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"flash_attention read-order inference {dtype}: err {err}")
+        if dtype == torch.bfloat16:
+            out["flash_attention"].append(dict(
+                shape="read-order cross-attention @1024, no LSE", max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
+                splits=grid[1]))
+        del q, k, v, got, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_session_parity():
+    """Phase 12a: sam2_hiera_t @512 fp32, TF32 off, kernels on the card
+    against the plain path on the CPU: the bidirectional session (a click on
+    frame 4 of 8, forward, then reverse from frame 4) through each readout,
+    and two folded volumes of 4 frames. Low-res logits to 1e-3."""
+    cfg = sam2_hiera_t(image_size=512, compute_dtype="float32")
+    video = volume(8, 512, seed=1)
+    set_tf32(False)
+    models = {d: SAM2Model(cfg, seed=0, device=d) for d in (DEV, "cpu")}
+    errs = {}
+    with torch.no_grad():
+        for readout in READOUTS:
+            A.reset_launch_counts()
+            t0 = time.perf_counter()
+            cuda = bidirectional(models[DEV], video, readout, 4)
+            torch.cuda.synchronize()
+            t_cuda = time.perf_counter() - t0
+            counts = A.launch_counts()
+            t0 = time.perf_counter()
+            cpu = bidirectional(models["cpu"], video, readout, 4)
+            t_cpu = time.perf_counter() - t0
+            same_frames = cuda[0] == cpu[0] == list(range(4, 8)) and \
+                cuda[2] == cpu[2] == [4, 3, 2, 1, 0]
+            err = max((a.cpu() - b).abs().max().item() for a, b in
+                      ((cuda[1], cpu[1]), (cuda[3], cpu[3])))
+            finite = bool(torch.isfinite(cuda[1]).all() and torch.isfinite(cuda[3]).all())
+            # storage order runs B2; both read orders run B1 only
+            ok = (same_frames and finite and err <= 1e-3 and counts["flash_attention"] > 0
+                  and (readout == "storage") == (counts["kv_cached_attention"] > 0))
+            errs[readout] = err
+            print(f"[12 session parity] sam2_hiera_t @512 fp32 TF32 off, {readout}: click on "
+                  f"frame 4 of 8, forward {cuda[0]} then reverse {cuda[2]}: cuda (launches "
+                  f"{counts}) vs cpu: low-res logits max_abs_err {err:.3e} (tol 1e-3, |logits| "
+                  f"max {cpu[1].abs().max().item():.2f}) | cuda {t_cuda:.1f} s cpu {t_cpu:.1f} s "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"session parity {readout}: err {err}, frames "
+                                     f"{cuda[0]} {cuda[2]}, launches {counts}")
+        videos, coords, labels = volume_batch(2, 4, 512)
+        spec = session_spec(cfg)
+        A.reset_launch_counts()
+        got = propagate_volumes_batched(models[DEV], spec, videos, coords, labels, fold=True)
+        counts = A.launch_counts()
+        want = propagate_volumes_batched(models["cpu"], spec, videos, coords, labels, fold=True)
+    err = (got.cpu() - want).abs().max().item()
+    ok = (err <= 1e-3 and tuple(got.shape) == (2, 4, 1, 1, 128, 128)
+          and counts["kv_cached_attention"] > 0 and bool(torch.isfinite(got).all()))
+    print(f"[12 session parity] folded volumes @512 fp32, 2 volumes x 4 frames: cuda (launches "
+          f"{counts}) vs cpu: low-res logits max_abs_err {err:.3e} (tol 1e-3) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"folded volume parity: err {err}, launches {counts}")
+    del models
+    torch.cuda.empty_cache()
+
+
+def phase_session_full_width(power_line: str):
+    """Phase 12b: sam2_hiera_t @1024 bf16, 16 frames, a click on frame 8,
+    forward then reverse, through each readout: exact launch counts, ms per
+    tracked frame, peak memory, and the storage-order masks against the
+    read-order ones over the cache (``TOL_READOUT``). Returns
+    {readout: launch counts}."""
+    cfg = sam2_hiera_t()
+    T, prompt = 16, 8
+    video = volume(T, 512, seed=2)
+    set_tf32(False)
+    model = SAM2Model(cfg, seed=0, device=DEV)
+    counts, masks = {}, {}
+    for readout in READOUTS:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        with torch.no_grad():
+            bidirectional(model, video, readout, prompt)             # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            A.reset_launch_counts()
+            f1, m1, f2, m2 = bidirectional(model, video, readout, prompt, events=ev)
+            torch.cuda.synchronize()
+        counts[readout] = A.launch_counts()
+        masks[readout] = (m1.float(), m2.float())
+        fwd_ms, rev_ms = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+        tracked = (T - 1 - prompt) + prompt
+        spec = session_spec(cfg)
+        window = min(T - 1 - prompt, max(spec.noncond_ring, spec.ptr_ring))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        want = session_launches(cfg, readout, T, prompt)
+        finite = bool(torch.isfinite(m1).all() and torch.isfinite(m2).all())
+        shapes = (tuple(m1.shape) == (T - prompt, 1, 1, 256, 256)
+                  and tuple(m2.shape) == (prompt + 1, 1, 1, 256, 256)
+                  and f1 == list(range(prompt, T)) and f2 == list(range(prompt, -1, -1)))
+        ok = counts[readout] == want and finite and shapes
+        print(f"[12 session full width] sam2_hiera_t @1024 bf16, {readout}, {T} frames, click "
+              f"on frame {prompt}: forward {fwd_ms:.2f} ms ({T - 1 - prompt} tracked, preflight "
+              f"included), reverse {rev_ms:.2f} ms ({prompt} tracked, preflight and "
+              f"{window} re-encoded ring frames included) = "
+              f"{(fwd_ms + rev_ms) / tracked:.2f} ms per tracked frame | launches "
+              f"{counts[readout]} expected {want} | finite {finite} shapes {shapes} | peak "
+              f"memory {peak:.2f} GiB | {power_line} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"session full width {readout}: launches {counts[readout]} vs "
+                                 f"{want}, finite {finite}, shapes {shapes}")
+    for other in ("read_kcache", "read_raw"):
+        scale = max(masks["storage"][i].abs().max().item() for i in (0, 1))
+        err = max((masks["storage"][i] - masks[other][i]).abs().max().item() for i in (0, 1))
+        agree = np.mean([((masks["storage"][i] > 0) == (masks[other][i] > 0)).float()
+                         .mean().item() for i in (0, 1)])
+        enforced = other == "read_kcache"
+        ok = err <= TOL_READOUT * scale or not enforced
+        print(f"[12 session full width] storage order vs {other}: low-res logits max_abs_err "
+              f"{err:.3e} = {err / scale:.3e} of max|logits| {scale:.2f} (tol {TOL_READOUT:.0e} "
+              f"of max{'' if enforced else ', not enforced: raw keys are rounded otherwise'}), "
+              f"mask pixels agreeing {agree:.5f} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"storage vs {other}: err {err} of max {scale}")
+    del model
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_volumes_full_width(power_line: str):
+    """Phase 12c: ``propagate_volumes_batched`` at ``bench.py``'s 3d_batch
+    shape (sam2_hiera_t @512 bf16, 4 volumes of 16 frames, one click each on
+    frame 0), folded and unfolded: exact launch counts, frames/s (best of two
+    calls after a warm-up, host clock, synchronised), peak memory, folded
+    masks against unfolded (``TOL_READOUT``). Returns {form: launch counts}."""
+    cfg = sam2_hiera_t(image_size=512)
+    V, T = 4, 16
+    videos, coords, labels = volume_batch(V, T, 512)
+    videos = videos.to(DEV)
+    spec = session_spec(cfg)
+    set_tf32(False)
+    model = SAM2Model(cfg, seed=0, device=DEV)
+    counts, masks = {}, {}
+    with torch.no_grad():
+        for fold in (True, False):
+            run = lambda: propagate_volumes_batched(model, spec, videos, coords, labels,  # noqa: E731
+                                                    fold=fold)
+            run()                                                     # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            secs = []
+            for i in range(2):
+                if i == 1:
+                    A.reset_launch_counts()
+                t0 = time.perf_counter()
+                out = run()
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+            name = "folded" if fold else "unfolded"
+            counts[name] = A.launch_counts()
+            masks[name] = out.float()
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            want = volume_launches(cfg, V, T, fold)
+            finite = bool(torch.isfinite(out).all())
+            ok = counts[name] == want and finite and tuple(out.shape) == (V, T, 1, 1, 128, 128)
+            print(f"[12 volumes] sam2_hiera_t @512 bf16, {V} volumes x {T} frames, {name}: "
+                  f"{V * T / min(secs):.2f} frames/s (calls {', '.join(f'{x:.3f}' for x in secs)} "
+                  f"s) | launches {counts[name]} expected {want} | finite {finite} | peak memory "
+                  f"{peak:.2f} GiB | {power_line} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"volumes {name}: launches {counts[name]} vs {want}, "
+                                     f"finite {finite}, shape {tuple(out.shape)}")
+    scale = masks["unfolded"].abs().max().item()
+    err = (masks["folded"] - masks["unfolded"]).abs().max().item()
+    agree = ((masks["folded"] > 0) == (masks["unfolded"] > 0)).float().mean().item()
+    ok = err <= TOL_READOUT * scale
+    print(f"[12 volumes] folded vs unfolded: low-res logits max_abs_err {err:.3e} = "
+          f"{err / scale:.3e} of max|logits| {scale:.2f} (tol {TOL_READOUT:.0e} of max), mask "
+          f"pixels agreeing {agree:.5f} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"folded vs unfolded: err {err} of max {scale}")
+    del model
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> None:
     power_line = phase_device()
     phase_build()
     best = phase_kernels()
+    session_shapes = phase_session_kernels()
     best.update(phase_train_kernels())
     phase_e2e_parity()
     paths = {"propagation": phase_full_width(power_line)}
@@ -1427,12 +1861,18 @@ def main() -> None:
     phase_image_parity()
     paths["2d serving"] = phase_image_full_width(power_line)
     paths["2d serving b+/l"] = phase_bl_set_image(power_line)
+    phase_session_parity()
+    for readout, c in phase_session_full_width(power_line).items():
+        paths[f"3d session {readout}"] = c
+    for form, c in phase_volumes_full_width(power_line).items():
+        paths[f"3d volumes {form}"] = c
     rows = []
     for name in KERNELS:
         by_path = {p: c[name] for p, c in paths.items() if c.get(name)}
+        extra = {"session_shapes": session_shapes[name]} if name in session_shapes else {}
         rows.append(dict(name=name, route="cuda", **KERNELS[name],
                          launches=sum(by_path.values()), launches_by_path=by_path,
-                         **best[name]))
+                         **best[name], **extra))
     print(json.dumps({"kernels": rows}))
     print(power_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

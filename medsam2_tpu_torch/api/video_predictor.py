@@ -1,24 +1,33 @@
 """SAM2VideoPredictor: volume / video propagation through the memory bank
 (counterpart of ``medsam2_tpu/api/video_predictor.py``).
 
-The session is a host-side dict holding the normalised video on the device
-and the recorded prompts. Objects are batched on axis 0. Prompt
-(conditioning) frames are processed first and write cond memories; every other
-frame from the first conditioning frame on is then tracked by a per-frame
-Python loop (the JAX package's ``lax.scan``), with the trunk position
-embedding and the positional half of the roped-key cache computed once per
-propagation. Several conditioning frames split the frame order into runs, and
-the stored prompt-frame outputs are spliced between them.
+The session is a host-side dict holding the normalised video (on the card,
+or on the host with ``offload_video_to_cpu``) and the recorded prompts.
+Objects are batched on axis 0. Prompt (conditioning) frames are processed
+first and write cond memories; the other frames of the propagation's order
+(forward from the start frame, or backward with ``reverse=True``) are then
+tracked by a per-frame Python loop (the JAX package's ``lax.scan``), with
+the trunk position embedding and the positional half of the roped-key cache
+computed once per propagation. Several conditioning frames split the order
+into runs, and the stored prompt-frame outputs are spliced between them.
 
-Ported: ``init_state(images=...)``, ``val_init_state``, ``reset_state``,
-``add_new_points``, ``add_new_bbox`` and ``add_new_mask`` on conditioning
-frames (each with its memoryless preview), ``propagate_in_video_batch`` and
-``propagate_in_video`` forward from the first conditioning frame. Not ported
-yet, and raising ``NotImplementedError``: corrections on tracked frames,
-``reverse=True``, resuming past tracked frames, hole filling,
-``clear_non_cond_mem_around_input``, frame loading from a directory, the
-offload and async-loading flags, propagation without the roped-key cache and
-``propagate_volumes_batched``.
+Every propagation keeps each frame's outputs (mask logits and object
+pointer). A later propagation whose order starts next to tracked frames (a
+resume with ``start_frame_idx``, or the reverse half of a bidirectional
+session) first re-encodes their memories into the ring
+(:meth:`SAM2VideoPredictor._reconstruct_ring`), as the reference's
+persistent output dict still holds them.
+
+The memory readout is chosen as the JAX package chooses it: storage order
+over the bank's roped-key cache (the default), read order over the same
+cache (``MEDSAM2_KV_STORAGE=0``), or read order over raw memory tokens
+(``use_kcache=False``). :func:`propagate_volumes_batched` streams several
+volumes, folded onto the batch axis of one bank (``MEDSAM2_FOLD``) or one
+after another.
+
+Not ported yet, and raising ``NotImplementedError`` with a pointer to
+``ROADMAP.md``: corrections on tracked frames,
+``clear_non_cond_mem_around_input`` and ``propagate_volumes_batched(mesh=...)``.
 
 :func:`_prompt_step` is also the 3D training recipe's prompt-frame step: with
 grad enabled it is differentiable and returns ``pred_masks_high_res``.
@@ -26,7 +35,10 @@ grad enabled it is differentiable and returns ``pred_masks_high_res``.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+import copy
+import dataclasses
+import os
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -34,25 +46,46 @@ import torch
 from medsam2_tpu_torch.core import layers
 from medsam2_tpu_torch.core.sam2_model import (SAM2Model, apply_non_overlapping_constraints,
                                                compute_dtype, kcache_shape, use_multimask)
+from medsam2_tpu_torch.ops.connected_components import fill_holes_in_mask_scores
 from medsam2_tpu_torch.state import memory_bank as mb
-from medsam2_tpu_torch.utils.transforms import preprocess_video
+from medsam2_tpu_torch.utils.transforms import IMAGENET_MEAN, IMAGENET_STD, preprocess_video
+
+
+def _kv_storage_enabled() -> bool:
+    """The storage-order readout's switch, read as the JAX package reads it
+    (``video_predictor._kv_storage_enabled``): on unless
+    ``MEDSAM2_KV_STORAGE=0``, which selects the read order over the cache."""
+    return os.environ.get("MEDSAM2_KV_STORAGE", "1") == "1"
 
 
 class SAM2VideoPredictor:
     def __init__(self, model: SAM2Model, max_cond_frames: int = 8,
                  fill_hole_area: int = 0, non_overlap_masks: bool = False,
                  use_kcache: bool = True, clear_non_cond_mem_around_input: bool = False):
-        if fill_hole_area > 0:
-            raise NotImplementedError("hole filling (fill_hole_area > 0) is not ported")
         if clear_non_cond_mem_around_input:
-            raise NotImplementedError("clear_non_cond_mem_around_input is not ported")
-        if not (use_kcache and kcache_shape(model.cfg)[0] > 0):
-            raise NotImplementedError("only the storage-order readout over the roped-key "
-                                      "cache is ported")
+            raise NotImplementedError("clear_non_cond_mem_around_input is not ported yet "
+                                      "(ROADMAP.md, queue A)")
         self.model = model
         self.cfg = model.cfg
         self.max_cond_frames = max_cond_frames
+        self.fill_hole_area = fill_hole_area
         self.non_overlap_masks = non_overlap_masks
+        # the roped-key cache: memory keys projected and rotated once at
+        # bank-write time
+        self.use_kcache = use_kcache and kcache_shape(model.cfg)[0] > 0
+
+    @classmethod
+    def for_eval(cls, model: SAM2Model, **kwargs):
+        """Predictor with the reference's eval-time overrides
+        (``build_sam.py:51-66``): interacted-frame masks binarised for the
+        memory encoder, holes up to area 8 filled, the cross-object
+        non-overlap constraint on the outputs. The model's weights are
+        shared; only its config differs."""
+        eval_model = copy.copy(model)
+        eval_model.cfg = dataclasses.replace(model.cfg, binarize_mask_from_pts_for_mem_enc=True)
+        kwargs.setdefault("fill_hole_area", 8)
+        kwargs.setdefault("non_overlap_masks", True)
+        return cls(eval_model, **kwargs)
 
     @property
     def device(self) -> torch.device:
@@ -64,6 +97,12 @@ class SAM2VideoPredictor:
         n = max(1, min(len(state["cond_frame_idx"]), self.max_cond_frames))
         return mb.BankSpec.from_config(self.cfg, max_cond_frames=n)
 
+    def _make_bank(self, spec: mb.BankSpec, B: int):
+        if self.use_kcache:
+            return mb.init_bank(spec, B, self.device, kcache_shape=kcache_shape(self.cfg),
+                                kcache_dtype=compute_dtype(self.cfg))
+        return mb.init_bank(spec, B, self.device)
+
     # ------------------------------------------------------------------
     # Session
     # ------------------------------------------------------------------
@@ -74,28 +113,68 @@ class SAM2VideoPredictor:
                    offload_state_to_cpu: bool = False,
                    async_loading_frames: bool = False) -> Dict:
         """Start a session from an image array [T, H, W, 3] (RGB, uint8 or
-        float), resized to the model resolution and normalised on the
-        device."""
-        if images is None or video_path is not None:
-            raise NotImplementedError("init_state takes images=...; frame directories "
-                                      "are not ported")
-        if offload_video_to_cpu or offload_state_to_cpu or async_loading_frames:
-            raise NotImplementedError("offload and async-loading flags are not ported")
-        images = np.asarray(images)
+        float), resized to the model resolution and normalised, or from a
+        directory of ``<index>.jpg`` frames (``utils/misc.py:163-213``).
+
+        ``async_loading_frames``: decode the JPEG frames in a background
+        thread, so the session starts at once; the video is joined at first
+        use. ``offload_video_to_cpu``: keep the video in host memory and move
+        each frame to the card when it is encoded. ``offload_state_to_cpu``:
+        keep the retained per-frame outputs in host memory."""
+        S = self.cfg.image_size
+        loader = None
+        if images is None:
+            if video_path is None:
+                raise ValueError("init_state needs images=... or video_path=...")
+            if async_loading_frames:
+                loader = _AsyncFrameLoader(video_path, S)
+                imgs = None
+                num_frames = len(loader)
+                video_height, video_width = loader.video_height, loader.video_width
+            else:
+                arr, video_height, video_width = _load_video_frames_dir(video_path, S)
+                num_frames = arr.shape[0]
+                imgs = arr if offload_video_to_cpu else torch.from_numpy(arr).to(self.device)
+        else:
+            images = np.asarray(images)
+            video_height, video_width = images.shape[1], images.shape[2]
+            num_frames = images.shape[0]
+            imgs = preprocess_video(images, S, self.device)
+            if offload_video_to_cpu:
+                imgs = imgs.cpu().numpy()
         return {
-            "images": preprocess_video(images, self.cfg.image_size, self.device),
-            "num_frames": int(images.shape[0]),
-            "video_height": int(images.shape[1]),
-            "video_width": int(images.shape[2]),
+            "images": imgs,                  # [T, S, S, 3] normalised, or None while loading
+            "async_loader": loader,
+            "offload_video": bool(offload_video_to_cpu),
+            "offload_state": bool(offload_state_to_cpu),
+            "num_frames": int(num_frames),
+            "video_height": int(video_height),
+            "video_width": int(video_width),
             "obj_id_to_idx": {},
             "obj_ids": [],
             "point_inputs_per_obj": {},      # {obj_idx: {frame: (coords, labels)}}
             "mask_inputs_per_obj": {},       # {obj_idx: {frame: [S, S] 0/1 mask}}
             "cond_frame_idx": set(),
-            "frames_tracked": set(),
+            "frames_tracked": {},            # {frame: tracked in reverse}
+            # each tracked frame's outputs as (stack, row): low-res mask
+            # logits [T, B, 1, h4, w4] and object pointers [T, B, C]
+            "last_masks": {},
+            "last_ptrs": {},
             "tracked": False,
             "is_eval": True,
         }
+
+    def _session_images(self, state):
+        """The session video [T, S, S, 3]: the device tensor, or a host
+        tensor over the offloaded array (its frames move to the card as they
+        are encoded). Joins the async loader first."""
+        if state.get("async_loader") is not None:
+            arr = state["async_loader"].wait()
+            state["images"] = arr if state["offload_video"] else torch.from_numpy(arr).to(
+                self.device)
+            state["async_loader"] = None
+        imgs = state["images"]
+        return torch.from_numpy(imgs) if isinstance(imgs, np.ndarray) else imgs
 
     def val_init_state(self, imgs_tensor) -> Dict:
         """Session from a [T, 3, S, S] or [T, S, S, 3] array
@@ -106,10 +185,11 @@ class SAM2VideoPredictor:
         return self.init_state(images=arr)
 
     def reset_state(self, state: Dict) -> None:
-        """Forget every object and prompt; keep the session's frames."""
+        """Forget every object, prompt and tracked output; keep the
+        session's frames."""
         state.update(obj_id_to_idx={}, obj_ids=[], point_inputs_per_obj={},
-                     mask_inputs_per_obj={}, cond_frame_idx=set(), frames_tracked=set(),
-                     tracked=False)
+                     mask_inputs_per_obj={}, cond_frame_idx=set(), frames_tracked={},
+                     last_masks={}, last_ptrs={}, tracked=False)
 
     # ------------------------------------------------------------------
     # Prompts
@@ -129,7 +209,8 @@ class SAM2VideoPredictor:
     def _check_cond_frame(self, state, frame_idx: int) -> None:
         if (frame_idx in state["frames_tracked"] and frame_idx not in state["cond_frame_idx"]
                 and not self.cfg.add_all_frames_to_correct_as_cond):
-            raise NotImplementedError("corrections on tracked frames are not ported")
+            raise NotImplementedError("corrections on tracked frames are not ported yet "
+                                      "(ROADMAP.md, queue A)")
 
     def add_new_points(self, state, frame_idx: int, obj_id, points, labels,
                        clear_old_points: bool = True, normalize_coords: bool = True):
@@ -216,7 +297,7 @@ class SAM2VideoPredictor:
             max_pts = max(max_pts, n)
         dev = self.device
         return _prompt_step(
-            self.model, state["images"], bank, frame_idx,
+            self.model, self._session_images(state), bank, frame_idx,
             torch.from_numpy(coords).to(dev), torch.from_numpy(labels).to(dev),
             torch.from_numpy(mask_inputs).to(dev), use_mask, spec=spec,
             multimask_output=use_multimask(self.cfg, True, max_pts),
@@ -230,12 +311,16 @@ class SAM2VideoPredictor:
                            max_frame_num_to_track: Optional[int] = None,
                            reverse: bool = False):
         """Generator of (frame_idx, obj_ids, video-resolution mask logits
-        [B, 1, H, W])."""
+        [B, 1, H, W]), after hole filling (``fill_hole_area``) and the
+        non-overlap constraint (``non_overlap_masks``) when configured."""
         frames, masks = self.propagate_in_video_batch(state, start_frame_idx,
                                                       max_frame_num_to_track, reverse)
         hw = (state["video_height"], state["video_width"])
         for i, f in enumerate(frames):
-            video_res = layers.interpolate(masks[i].permute(0, 2, 3, 1), hw,
+            frame_masks = masks[i]
+            if self.fill_hole_area > 0:
+                frame_masks = fill_holes_in_mask_scores(frame_masks, self.fill_hole_area)
+            video_res = layers.interpolate(frame_masks.permute(0, 2, 3, 1), hw,
                                            method="bilinear").permute(0, 3, 1, 2)
             if self.non_overlap_masks:
                 video_res = apply_non_overlapping_constraints(video_res)
@@ -245,73 +330,207 @@ class SAM2VideoPredictor:
     def propagate_in_video_batch(self, state, start_frame_idx: Optional[int] = None,
                                  max_frame_num_to_track: Optional[int] = None,
                                  reverse: bool = False):
-        """Preflight over the prompt frames, then track forward. Returns
-        (frame list, low-res mask logits [num_frames_out, B, 1, h4, w4])."""
-        if reverse:
-            raise NotImplementedError("reverse propagation is not ported")
+        """Preflight over the prompt frames, then track the frame order.
+        Returns (frame list, low-res mask logits [num_frames_out, B, 1, h4,
+        w4]). The order spans ``max_frame_num_to_track + 1`` frames from
+        ``start_frame_idx`` (default: the first prompt frame), forward or, with
+        ``reverse``, backward; reverse from frame 0 is empty
+        (``sam2_video_predictor.py:1063-1079``)."""
         if not state["cond_frame_idx"]:
             raise RuntimeError("No prompts added; call add_new_points first.")
-        cond_frames = sorted(state["cond_frame_idx"])
+        state["tracked"] = True
         num_frames = state["num_frames"]
+        B = len(state["obj_ids"])
+        model = self.model
+        spec = self._session_spec(state)
+        bank = self._make_bank(spec, B)
+        pos_kcache = model.make_pos_kcache(spec) if self.use_kcache else None
+        cond_frames = sorted(state["cond_frame_idx"])
         if start_frame_idx is None:
             start_frame_idx = cond_frames[0]
         if max_frame_num_to_track is None:
             max_frame_num_to_track = num_frames
-        prior = [j for j in range(start_frame_idx)
-                 if j in state["frames_tracked"] and j not in state["cond_frame_idx"]]
-        if prior:
-            raise NotImplementedError("resuming past tracked frames is not ported")
-        state["tracked"] = True
-        B = len(state["obj_ids"])
-        model = self.model
-        spec = self._session_spec(state)
-        bank = mb.init_bank(spec, B, self.device, kcache_shape=kcache_shape(self.cfg),
-                            kcache_dtype=compute_dtype(self.cfg))
-        pos_kcache = model.make_pos_kcache(spec)
+        images = self._session_images(state)
 
-        cond_out = {}
+        stored = {}
         for f in cond_frames:
             out, bank = self._run_prompt_frame(state, bank, f, spec)
-            cond_out[f] = out["pred_masks"].float()
+            stored[f] = (out["pred_masks"].float(), out["obj_ptr"].float())
 
-        end = min(start_frame_idx + max_frame_num_to_track, num_frames - 1)
-        order = list(range(start_frame_idx, end + 1))
-        images = state["images"]
-        trunk_pe = model.image_encoder.trunk.get_pos_embed(
-            images.shape[1] // 4, images.shape[2] // 4)
-        kw = dict(spec=spec, pos_kcache=pos_kcache, trunk_pe=trunk_pe,
-                  num_frames=num_frames, is_eval=state["is_eval"])
-        seg: List[torch.Tensor] = []
-        run: List[int] = []
-        for f in order:
-            if f in cond_out:
-                if run:
-                    seg.append(_track_run(model, images, bank, run, **kw))
-                    run = []
-                seg.append(cond_out[f][None])
-            else:
-                run.append(f)
-        if run:
-            seg.append(_track_run(model, images, bank, run, **kw))
-        state["frames_tracked"].update(order)
-        return order, torch.cat(seg, dim=0)
+        if reverse:
+            end = max(start_frame_idx - max_frame_num_to_track, 0)
+            order = list(range(start_frame_idx, end - 1, -1)) if start_frame_idx > 0 else []
+        else:
+            end = min(start_frame_idx + max_frame_num_to_track, num_frames - 1)
+            order = list(range(start_frame_idx, end + 1))
+        if not order:
+            return [], torch.zeros((0, B, 1, 1, 1), device=self.device)
+
+        bank, _ = self._reconstruct_ring(state, images, bank, order[0], reverse, spec)
+        trunk_pe = _trunk_pos_embed(model, images)
+        masks, ptrs = _run_segments(
+            model, images, bank, order, stored, spec=spec, pos_kcache=pos_kcache,
+            trunk_pe=trunk_pe, num_frames=num_frames, is_eval=state["is_eval"],
+            track_in_reverse=reverse, kv_storage=self.use_kcache and _kv_storage_enabled())
+        keep_m, keep_p = masks, ptrs
+        if state["offload_state"]:
+            keep_m, keep_p = masks.cpu().numpy(), ptrs.cpu().numpy()
+        for i, f in enumerate(order):
+            state["frames_tracked"][f] = reverse
+            state["last_masks"][f] = (keep_m, i)
+            state["last_ptrs"][f] = (keep_p, i)
+        return order, masks
+
+    def _reconstruct_ring(self, state, images, bank, anchor: int, reverse: bool,
+                          spec: mb.BankSpec):
+        """Re-encode, from their retained outputs, the tracked non-cond
+        frames that precede ``anchor`` in the tracking direction, as far back
+        as the feature ring and the (possibly longer) pointer ring reach
+        (``video_predictor._reconstruct_ring``). They are written oldest in
+        scan time first, so frames that share a ring slot leave it as a
+        continuous scan would. Returns (bank, the re-encoded frames)."""
+        window: List[int] = []
+        step = -1 if reverse else 1
+        owned_f: set = set()
+        owned_p: set = set()
+        j = anchor - step
+        while (0 <= j < state["num_frames"]
+               and (len(owned_f) < spec.noncond_ring or len(owned_p) < spec.ptr_ring)):
+            if j in state["cond_frame_idx"]:
+                j -= step
+                continue
+            if j not in state["frames_tracked"]:
+                break
+            owned_f.add(j % spec.noncond_ring)
+            owned_p.add(j % spec.ptr_ring)
+            window.append(j)
+            j -= step
+        for wf in reversed(window):
+            prev_low, prev_ptr = self._last_output(state, wf)
+            bank = _reencode_memory(self.model, images, bank, wf, prev_low, prev_ptr,
+                                    spec=spec, is_eval=state["is_eval"])
+        return bank, window
+
+    def _last_output(self, state, frame_idx: int):
+        """The frame's retained (mask logits [B, 1, h4, w4], object pointer
+        [B, C]) from the latest propagation that covered it, fp32 on the
+        card."""
+        arr_m, i = state["last_masks"][frame_idx]
+        arr_p, j = state["last_ptrs"][frame_idx]
+        return (torch.as_tensor(arr_m[i]).to(self.device, torch.float32),
+                torch.as_tensor(arr_p[j]).to(self.device, torch.float32))
 
 
-def propagate_volumes_batched(*args, **kwargs):
-    """Batched multi-volume streaming: not ported yet."""
-    raise NotImplementedError("propagate_volumes_batched is not ported")
+@torch.no_grad()
+def propagate_volumes_batched(model: SAM2Model, spec: mb.BankSpec, videos, prompt_coords,
+                              prompt_labels, num_objects: int = 1,
+                              prompt_frames: Sequence[int] = (0,),
+                              fold: Optional[bool] = None, mesh=None) -> torch.Tensor:
+    """Stream several volumes at once (``video_predictor.propagate_volumes_batched``).
+
+    videos [V, T, S, S, 3] normalised; prompt_coords / prompt_labels
+    [V, F, O, P, 2] / [V, F, O, P], one prompt set per entry of
+    ``prompt_frames`` (a box is its two corners labelled 2 / 3); the rank-4
+    / rank-3 form is one prompt frame. Returns low-res logits [V, T, O, 1,
+    h4, h4].
+
+    ``fold=True`` puts the volumes on the batch axis of one bank (row =
+    volume * O + object): the frame schedule is the same for every volume,
+    so one memory-attention call serves them all, read in storage order (or
+    in read order over the cache with ``MEDSAM2_KV_STORAGE=0``).
+    ``fold=False`` propagates the volumes one after another, each reading
+    the cache in read order, as the JAX package's vmapped form does.
+    ``fold=None`` reads ``MEDSAM2_FOLD`` (default on)."""
+    if mesh is not None:
+        raise NotImplementedError("propagate_volumes_batched(mesh=...): parallel/ is not "
+                                  "ported yet (ROADMAP.md, queue A)")
+    if fold is None:
+        fold = os.environ.get("MEDSAM2_FOLD", "1") == "1"
+    cfg = model.cfg
+    dev = model.device
+    videos = torch.as_tensor(videos).to(dev)
+    coords = torch.as_tensor(prompt_coords, dtype=torch.float32).to(dev)
+    labels = torch.as_tensor(prompt_labels, dtype=torch.int32).to(dev)
+    if coords.ndim == 4:          # one prompt frame: [V, O, P, 2]
+        coords, labels = coords[:, None], labels[:, None]
+    prompt_frames = tuple(prompt_frames)
+    if coords.shape[1] != len(prompt_frames):
+        raise ValueError(f"prompt_coords has {coords.shape[1]} prompt-frame sets but "
+                         f"prompt_frames={prompt_frames!r}")
+    if spec.max_cond_frames < len(prompt_frames):
+        raise ValueError(f"spec.max_cond_frames={spec.max_cond_frames} cannot hold "
+                         f"{len(prompt_frames)} conditioning frames")
+    V, T = videos.shape[:2]
+    O = num_objects
+    S = cfg.image_size
+    pos_kcache = model.make_pos_kcache(spec) if kcache_shape(cfg)[0] > 0 else None
+    trunk_pe = _trunk_pos_embed(model, videos)
+
+    def stream(images, c, l, rows: int, kv_storage: bool):
+        """Prompt frames, then every other frame in order, for one bank of
+        ``rows`` rows; c [F, rows, P, 2], l [F, rows, P]."""
+        bank = mb.init_bank(spec, rows, dev, kcache_shape=kcache_shape(cfg),
+                            kcache_dtype=compute_dtype(cfg))
+        stored = {}
+        for i, f in enumerate(prompt_frames):
+            out, bank = _prompt_step(
+                model, images, bank, f, c[i], l[i], torch.zeros(rows, S, S, 1, device=dev),
+                np.zeros((rows,), bool), spec=spec, multimask_output=False, is_eval=True,
+                num_frames=T)
+            stored[f] = (out["pred_masks"].float(), out["obj_ptr"].float())
+        masks, _ = _run_segments(model, images, bank, list(range(T)), stored, spec=spec,
+                                 pos_kcache=pos_kcache, trunk_pe=trunk_pe, num_frames=T,
+                                 is_eval=True, track_in_reverse=False,
+                                 kv_storage=kv_storage)
+        return masks                                          # [T, rows, 1, h4, h4]
+
+    if fold:
+        B = V * O
+        masks = stream(videos, coords.transpose(0, 1).reshape(len(prompt_frames), B, -1, 2),
+                       labels.transpose(0, 1).reshape(len(prompt_frames), B, -1), B,
+                       kv_storage=pos_kcache is not None and _kv_storage_enabled())
+        h4 = masks.shape[-1]
+        return masks.reshape(T, V, O, 1, h4, h4).transpose(0, 1)
+    return torch.stack([stream(videos[v], coords[v], labels[v], O, kv_storage=False)
+                        for v in range(V)])
+
+
+def _select_frame(images, frame_idx: int):
+    """The frame(s) of one step on the model's device: [T, S, S, 3] ->
+    [1, S, S, 3]; volumes folded on the batch axis, [V, T, S, S, 3] ->
+    [V, S, S, 3] (each volume's frame at the shared index)."""
+    if images.ndim == 5:
+        return images[:, frame_idx]
+    return images[frame_idx:frame_idx + 1]
+
+
+def _trunk_pos_embed(model: SAM2Model, images):
+    S = images.shape[-2]
+    return model.image_encoder.trunk.get_pos_embed(S // 4, S // 4)
 
 
 def _encode_frame(model: SAM2Model, frame, trunk_pos_embed=None):
-    """frame [1, S, S, 3] -> (feats, pos) lists, highest-res first (a frozen
-    trunk runs without autograd, :meth:`SAM2Model.forward_image`)."""
-    out = model.forward_image(frame.to(compute_dtype(model.cfg)),
+    """frame [n, S, S, 3] -> (feats, pos) lists, highest-res first (a frozen
+    trunk runs without autograd, :meth:`SAM2Model.forward_image`). A frame
+    held on the host moves to the card here."""
+    out = model.forward_image(frame.to(model.device, compute_dtype(model.cfg)),
                               trunk_pos_embed=trunk_pos_embed)
     return model.prepare_backbone_features(out)
 
 
 def _expand(xs, B: int):
-    return [x.expand(B, *x.shape[1:]) for x in xs]
+    """Tile encoded features to B rows: one frame is broadcast; n folded
+    frames repeat B // n times each (row = volume * objects + object)."""
+    out = []
+    for x in xs:
+        n = x.shape[0]
+        if n == B:
+            out.append(x)
+        elif n == 1:
+            out.append(x.expand(B, *x.shape[1:]))
+        else:
+            out.append(x.repeat_interleave(B // n, dim=0))
+    return out
 
 
 def _prompt_step(model: SAM2Model, images, bank, frame_idx: int, coords, labels,
@@ -326,7 +545,7 @@ def _prompt_step(model: SAM2Model, images, bank, frame_idx: int, coords, labels,
     ``obj_ptr``, ``object_score_logits``, ``maskmem_features``; bank)."""
     cfg = model.cfg
     B = coords.shape[0]
-    feats, pos = _encode_frame(model, images[frame_idx:frame_idx + 1])
+    feats, pos = _encode_frame(model, _select_frame(images, frame_idx))
     feats, pos = _expand(feats, B), _expand(pos, B)
     high_res = feats[:-1] if len(feats) > 1 else None
     pix = feats[-1]
@@ -368,20 +587,143 @@ def _prompt_step(model: SAM2Model, images, bank, frame_idx: int, coords, labels,
             "object_score_logits": obj_score, "maskmem_features": maskmem}, bank
 
 
+def _reencode_memory(model: SAM2Model, images, bank, frame_idx: int, prev_low, prev_ptr, *,
+                     spec: mb.BankSpec, is_eval: bool):
+    """Re-encode a tracked frame's memory from its stored output (mask
+    logits [B, 1, h4, w4] and pointer [B, C]) as its track-time encode did,
+    and write it to the non-cond ring without decoding again (the JAX
+    package's ``_reencode_correction`` with ``mask_from_pts=False``).
+    Returns the bank (in place under ``torch.no_grad``)."""
+    cfg = model.cfg
+    S = cfg.image_size
+    feats, _ = _encode_frame(model, _select_frame(images, frame_idx))
+    feats = _expand(feats, prev_low.shape[0])
+    prev_high = layers.interpolate(prev_low.float().permute(0, 2, 3, 1), (S, S),
+                                   method="bilinear").permute(0, 3, 1, 2)
+    maskmem, _ = model.encode_new_memory(
+        feats[-1], prev_high, is_mask_from_pts=False, binarize=is_eval,
+        apply_non_overlap=(cfg.non_overlap_masks_for_mem_enc and is_eval))
+    kcache = (model.memory_kcache(maskmem, bank["kcache"].dtype)
+              if "kcache" in bank else None)
+    return mb.write_bank(spec, bank, frame_idx, maskmem, prev_ptr, is_cond=False,
+                         kcache=kcache)
+
+
 def _track_run(model: SAM2Model, images, bank, frames: List[int], *, spec: mb.BankSpec,
-               pos_kcache, trunk_pe, num_frames: int, is_eval: bool):
+               pos_kcache, trunk_pe, num_frames: int, is_eval: bool,
+               track_in_reverse: bool = False, kv_storage: bool = True):
     """Track a run of consecutive non-conditioning frames (the JAX package's
-    ``_scan_track_run``), updating ``bank`` in place. Returns low-res mask
-    logits [len(frames), B, 1, h4, w4] fp32."""
+    ``_scan_track_run``), updating ``bank`` in place. Returns (low-res mask
+    logits [len(frames), B, 1, h4, w4], object pointers [len(frames), B, C]),
+    fp32."""
     B = bank["cond_feats"].shape[0]
     multimask = use_multimask(model.cfg, False, 0)
-    masks = []
+    masks, ptrs = [], []
     for f in frames:
-        feats, pos = _encode_frame(model, images[f:f + 1], trunk_pos_embed=trunk_pe)
+        feats, pos = _encode_frame(model, _select_frame(images, f), trunk_pos_embed=trunk_pe)
         out, bank = model.track_step(
             spec, bank, f, is_init_cond_frame=False,
             current_vision_feats=_expand(feats, B), current_vision_pos=_expand(pos, B),
             multimask_output=multimask, run_mem_encoder=True, is_cond_frame=False,
-            num_frames=num_frames, is_eval=is_eval, pos_kcache=pos_kcache)
+            num_frames=num_frames, is_eval=is_eval, pos_kcache=pos_kcache,
+            track_in_reverse=track_in_reverse, kv_storage=kv_storage)
         masks.append(out["pred_masks"].float())
-    return torch.stack(masks, dim=0)
+        ptrs.append(out["obj_ptr"].float())
+    return torch.stack(masks, dim=0), torch.stack(ptrs, dim=0)
+
+
+def _run_segments(model: SAM2Model, images, bank, order: List[int], stored: Dict, **kw):
+    """Track ``order``, splicing the stored (mask logits, pointer) of its
+    prompt frames between the runs of tracked frames. Returns (masks
+    [len(order), B, 1, h4, w4], pointers [len(order), B, C])."""
+    masks, ptrs, run = [], [], []
+
+    def flush():
+        if run:
+            m, p = _track_run(model, images, bank, run, **kw)
+            masks.append(m)
+            ptrs.append(p)
+            run.clear()
+
+    for f in order:
+        if f in stored:
+            flush()
+            masks.append(stored[f][0][None])
+            ptrs.append(stored[f][1][None])
+        else:
+            run.append(f)
+    flush()
+    return torch.cat(masks, dim=0), torch.cat(ptrs, dim=0)
+
+
+# ---------------------------------------------------------------------------
+# Frame directories
+# ---------------------------------------------------------------------------
+
+
+def _frame_paths(video_path: str) -> List[str]:
+    names = [p for p in os.listdir(video_path)
+             if os.path.splitext(p)[-1].lower() in (".jpg", ".jpeg")]
+    names.sort(key=lambda p: int(os.path.splitext(p)[0]))
+    if not names:
+        raise RuntimeError(f"no JPEG frames found in {video_path}")
+    return [os.path.join(video_path, n) for n in names]
+
+
+def _decode_frame(path: str, image_size: int):
+    """One JPEG -> (normalised float32 [S, S, 3], height, width) of the
+    original; PIL resizes, as in the JAX package."""
+    from PIL import Image
+
+    img = Image.open(path).convert("RGB")
+    vw, vh = img.size
+    img = img.resize((image_size, image_size))
+    arr = np.asarray(img, np.float32) / 255.0
+    return ((arr - IMAGENET_MEAN) / IMAGENET_STD).astype(np.float32), vh, vw
+
+
+def _load_video_frames_dir(video_path: str, image_size: int):
+    """``<index>.jpg`` frames of a directory -> ([T, S, S, 3] float32 host
+    array, height, width) (``utils/misc.py:163-213``)."""
+    frames = []
+    vh = vw = None
+    for path in _frame_paths(video_path):
+        f, vh, vw = _decode_frame(path, image_size)
+        frames.append(f)
+    return np.stack(frames), vh, vw
+
+
+class _AsyncFrameLoader:
+    """Background-thread JPEG decoding (the reference's
+    AsyncVideoFrameLoader, ``utils/misc.py:104-160``): the first frame is
+    decoded at once (it gives the video's size and is the frame a user
+    prompts), a daemon thread fills a preallocated host array with the rest,
+    and ``wait()`` joins it and hands the whole video over."""
+
+    def __init__(self, video_path: str, image_size: int):
+        import threading
+
+        self.paths = _frame_paths(video_path)
+        first, self.video_height, self.video_width = _decode_frame(self.paths[0], image_size)
+        self.frames = np.empty((len(self.paths), image_size, image_size, 3), np.float32)
+        self.frames[0] = first
+        self.exception = None
+
+        def _load_rest():
+            try:
+                for i in range(1, len(self.paths)):
+                    self.frames[i] = _decode_frame(self.paths[i], image_size)[0]
+            except Exception as e:  # surfaced by wait()
+                self.exception = e
+
+        self.thread = threading.Thread(target=_load_rest, daemon=True)
+        self.thread.start()
+
+    def __len__(self):
+        return len(self.paths)
+
+    def wait(self) -> np.ndarray:
+        self.thread.join()
+        if self.exception is not None:
+            raise RuntimeError("Failure in frame loading thread") from self.exception
+        return self.frames

@@ -6,8 +6,10 @@ tokens, cross-attention to the memory, FFN. The cross-attention reads the
 memory either in storage order over the bank's roped-key cache (kv-cached
 kernel, inference; the k cache is written once per frame by
 :func:`precompute_memory_kcache` plus a session-static positional half from
-:func:`precompute_pos_kcache`) or in read order over raw memory tokens with a
-validity mask (flash kernel, differentiable: the training path). Residual and
+:func:`precompute_pos_kcache`), or in read order with a validity mask (flash
+kernel) over the same cache gathered into read order (``k_cache``,
+inference) or over raw memory tokens (differentiable: the training path, and
+inference without the cache). Residual and
 FFN dropout (rate ``cfg.dropout``) is active only when a ``torch.Generator``
 is passed, as the JAX package's only when a dropout key is.
 
@@ -59,11 +61,13 @@ class MemoryAttentionLayer(nn.Module):
 
     def forward(self, tgt, query_pos, q_hw: Tuple[int, int], *, memory=None,
                 memory_pos=None, num_obj_ptr_tokens: int = 0, kv_mask=None,
-                kv_bundle: Optional[dict] = None, layer: int = 0,
+                kv_bundle: Optional[dict] = None, k_cached=None, layer: int = 0,
                 generator: Optional[torch.Generator] = None):
         """``memory_attention.py:58-104``: cross-attention over the
         storage-order ``kv_bundle`` when given, else over ``memory`` in read
-        order (the last ``num_obj_ptr_tokens`` tokens skip RoPE)."""
+        order (the last ``num_obj_ptr_tokens`` tokens skip RoPE). With
+        ``k_cached`` [B, Nc, C] (this layer's roped spatial keys) only the
+        pointer tokens after them are projected into keys."""
         cfg = self.cfg
         rate = cfg.dropout
         tgt2 = self.norm1(tgt)
@@ -77,10 +81,14 @@ class MemoryAttentionLayer(nn.Module):
             tgt2 = rope_attn_storage(self.cross_attn_image, q, kv_bundle, layer,
                                      q_hw=q_hw, rope_theta=cfg.rope_theta)
         else:
-            k = memory + memory_pos if cfg.pos_enc_at_cross_attn_keys else memory
+            n = 0 if k_cached is None else k_cached.shape[1]
+            k = memory[:, n:]
+            if cfg.pos_enc_at_cross_attn_keys:
+                k = k + memory_pos[:, n:]
             tgt2 = rope_attn_apply(self.cross_attn_image, q, k, memory, q_hw=q_hw,
                                    rope_theta=cfg.rope_theta, rope_k_repeat=True,
-                                   num_k_exclude_rope=num_obj_ptr_tokens, kv_mask=kv_mask)
+                                   num_k_exclude_rope=num_obj_ptr_tokens, kv_mask=kv_mask,
+                                   k_cached=k_cached)
         tgt = tgt + dropout(tgt2, rate, generator)
         tgt2 = self.norm3(tgt)
         tgt2 = self.linear2(dropout(_ACTIVATIONS[cfg.activation](self.linear1(tgt2)),
@@ -98,20 +106,29 @@ class MemoryAttention(nn.Module):
 
     def forward(self, curr, curr_pos, q_hw: Tuple[int, int], *, memory=None,
                 memory_pos=None, num_obj_ptr_tokens: int = 0, kv_mask=None,
-                kv_bundle: Optional[dict] = None,
+                kv_bundle: Optional[dict] = None, k_cache=None,
                 generator: Optional[torch.Generator] = None):
         """``MemoryAttention.forward`` (``memory_attention.py:119-169``).
         curr/curr_pos [B, Nq, C] -> [B, Nq, C]. The memory is either the
         storage-order ``kv_bundle`` (see :func:`rope_attn_storage`) or raw
         tokens ``memory``/``memory_pos`` [B, Nk, mem_dim] with ``kv_mask``
-        [B, Nk] (True = attend)."""
+        [B, Nk] (True = attend). ``k_cache`` = (memory part [B, Fa, L, P, C],
+        positional part [Fa, L, P, C]): the roped-key cache in read order,
+        summed per layer into that layer's spatial keys, so the spatial
+        memory tokens are not projected or rotated again."""
         out = curr
         if self.cfg.pos_enc_at_input and curr_pos is not None:
             out = out + 0.1 * curr_pos
         for li, layer in enumerate(self.layers):
+            k_cached = None
+            if k_cache is not None and kv_bundle is None:
+                mem_part, pos_part = k_cache
+                kc = mem_part[:, :, li] + pos_part[None, :, li].to(mem_part.dtype)
+                k_cached = kc.reshape(kc.shape[0], -1, kc.shape[-1])
             out = layer(out, curr_pos, q_hw, memory=memory, memory_pos=memory_pos,
                         num_obj_ptr_tokens=num_obj_ptr_tokens, kv_mask=kv_mask,
-                        kv_bundle=kv_bundle, layer=li, generator=generator)
+                        kv_bundle=kv_bundle, k_cached=k_cached, layer=li,
+                        generator=generator)
         return self.norm(out)
 
 

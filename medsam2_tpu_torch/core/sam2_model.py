@@ -5,9 +5,12 @@ the part the 3D propagation and 3D training paths reach.
 state-dict keys. ``forward_image`` runs the encoder; ``forward_sam_heads`` the
 prompt encoder and mask decoder with occlusion handling; ``track_step`` fuses
 the current frame with the bank through the memory attention, runs the SAM
-heads and writes the new memory. The memory is read in storage order over the
-bank's roped-key cache (inference) or in read order over raw memory tokens
-(training, and any bank without the cache). :meth:`SAM2Model.set_trainable_groups`
+heads and writes the new memory. As in the JAX package, three readouts serve
+inference: storage order over the bank's roped-key cache (the default), read
+order over the same cache gathered by :func:`memory_bank.read_kcache`
+(``kv_storage=False``), and read order over raw memory tokens (a bank
+without the cache; training). Each reads forward or, with
+``track_in_reverse``, backward in time. :meth:`SAM2Model.set_trainable_groups`
 marks the 3D recipe's two trainable parameter groups.
 """
 
@@ -320,22 +323,26 @@ class SAM2Model(nn.Module):
 
     def _memory_conditioned_features_storage(self, spec: mb.BankSpec, bank, frame_idx: int,
                                              curr, curr_pos, q_hw, num_frames: int,
-                                             is_eval: bool, pos_kcache, generator=None):
-        """Storage-order memory readout: cross-attention consumes the bank's
-        roped-key cache as stored, with per-slot positional rows and validity
-        from :func:`memory_bank.kv_storage_layout`. Returns [B, Nq, C]."""
+                                             is_eval: bool, pos_kcache, track_in_reverse: bool,
+                                             generator=None):
+        """Storage-order memory readout (``sam2_model.py:394-452``):
+        cross-attention consumes the bank's roped-key cache as stored, with
+        per-slot positional rows and validity from
+        :func:`memory_bank.kv_storage_layout`. Returns [B, Nq, C]."""
         cfg = self.cfg
         P = spec.mem_spatial
-        ptr_tokens, ptr_valid, _ = mb.read_ptrs(
-            spec, bank, frame_idx,
+        ptr_tokens, ptr_valid, ptr_tdiff = mb.read_ptrs(
+            spec, bank, frame_idx, track_in_reverse=track_in_reverse,
             obj_ptrs_in_past_only=(cfg.only_obj_ptrs_in_the_past_for_eval and is_eval),
             num_frames=num_frames)
         if not cfg.use_obj_ptrs_in_encoder:
             ptr_valid = torch.zeros_like(ptr_valid)
         if cfg.use_obj_ptrs_in_encoder and cfg.add_tpos_enc_to_obj_ptrs:
-            raise NotImplementedError("temporal encoding of object pointers is ported for "
-                                      "the read-order readout only")
-        row_of_slot, slot_valid = mb.kv_storage_layout(spec, bank, frame_idx)
+            ptr_pos = self._obj_ptr_pos(spec, ptr_tdiff, num_frames, curr.dtype)
+        else:
+            ptr_pos = torch.zeros_like(ptr_tokens, dtype=curr.dtype)
+        row_of_slot, slot_valid = mb.kv_storage_layout(spec, bank, frame_idx,
+                                                       track_in_reverse=track_in_reverse)
         kv_mask = torch.cat([slot_valid.repeat_interleave(P, dim=1), ptr_valid], dim=1)
         v_slots = torch.cat([bank["cond_feats"], bank["noncond_feats"]], dim=1).to(curr.dtype)
         bundle = {
@@ -344,7 +351,7 @@ class SAM2Model(nn.Module):
             "row_of_slot": row_of_slot,
             "v_slots": v_slots,
             "ptr_tokens": ptr_tokens.to(curr.dtype),
-            "ptr_pos": torch.zeros_like(ptr_tokens, dtype=curr.dtype),
+            "ptr_pos": ptr_pos,
             "kv_mask": kv_mask,
         }
         return self.memory_attention(curr, curr_pos, q_hw, kv_bundle=bundle,
@@ -352,17 +359,21 @@ class SAM2Model(nn.Module):
 
     def _memory_conditioned_features_read(self, spec: mb.BankSpec, bank, frame_idx: int,
                                           curr, curr_pos, q_hw, num_frames: int,
-                                          is_eval: bool, generator=None):
-        """Read-order memory readout (``sam2_model.py:347-391``): raw memory
+                                          is_eval: bool, track_in_reverse: bool = False,
+                                          pos_kcache=None, generator=None):
+        """Read-order memory readout (``sam2_model.py:347-391``): memory
         tokens gathered by :func:`memory_bank.read_bank`, cross-attention
-        through the flash dispatcher with the low-rank value path. Returns
-        [B, Nq, C]."""
+        through the flash dispatcher with the low-rank value path. With
+        ``pos_kcache`` and a bank that carries the roped-key cache, the
+        spatial keys come from the cache in read order
+        (:func:`memory_bank.read_kcache`); otherwise from the raw tokens.
+        Returns [B, Nq, C]."""
         cfg = self.cfg
         mem_h = cfg.sam_image_embedding_size
         spatial = sine_pos_embed(mem_h, mem_h, cfg.mem_dim, device=curr.device)
         memory, memory_pos, valid, num_ptr, ptr_tdiff = mb.read_bank(
             spec, bank, frame_idx, self.maskmem_tpos_enc.reshape(cfg.num_maskmem, -1),
-            spatial.reshape(-1, cfg.mem_dim),
+            spatial.reshape(-1, cfg.mem_dim), track_in_reverse=track_in_reverse,
             obj_ptrs_in_past_only=(cfg.only_obj_ptrs_in_the_past_for_eval and is_eval),
             num_frames=num_frames)
         n_sp = spec.num_spatial_tokens
@@ -372,20 +383,26 @@ class SAM2Model(nn.Module):
         if not cfg.use_obj_ptrs_in_encoder:
             memory, memory_pos, valid = memory[:, :n_sp], memory_pos[:, :n_sp], valid[:, :n_sp]
             num_ptr = 0
+        k_cache = None
+        if pos_kcache is not None and "kcache" in bank:
+            k_cache = (mb.read_kcache(spec, bank, frame_idx, track_in_reverse), pos_kcache)
         return self.memory_attention(
             curr, curr_pos, q_hw, memory=memory.to(curr.dtype),
             memory_pos=memory_pos.to(curr.dtype), num_obj_ptr_tokens=num_ptr,
-            kv_mask=valid, generator=generator)
+            kv_mask=valid, k_cache=k_cache, generator=generator)
 
     def prepare_memory_conditioned_features(self, spec: mb.BankSpec, bank, frame_idx: int,
                                             is_init_cond_frame: bool, current_vision_feats,
                                             current_vision_pos, num_frames: int,
-                                            is_eval: bool, pos_kcache=None, generator=None):
+                                            is_eval: bool, pos_kcache=None,
+                                            track_in_reverse: bool = False,
+                                            kv_storage: bool = True, generator=None):
         """``SAM2Base._prepare_memory_conditioned_features`` against the bank.
         With ``pos_kcache`` and a bank that carries the roped-key cache the
-        memory is read in storage order, otherwise in read order over raw
-        memory tokens. ``generator`` turns on the memory-attention dropout.
-        Returns [B, h, w, C]."""
+        memory is read in storage order, or with ``kv_storage=False`` in read
+        order over the cache; otherwise in read order over raw memory tokens.
+        ``generator`` turns on the memory-attention dropout. Returns
+        [B, h, w, C]."""
         cfg = self.cfg
         B, h, w, C = current_vision_feats.shape
         curr = current_vision_feats.reshape(B, h * w, C)
@@ -401,13 +418,14 @@ class SAM2Model(nn.Module):
                                         memory_pos=pos, num_obj_ptr_tokens=0,
                                         generator=generator)
             return out.reshape(B, h, w, C)
-        if pos_kcache is not None and "kcache" in bank:
+        if kv_storage and pos_kcache is not None and "kcache" in bank:
             out = self._memory_conditioned_features_storage(
                 spec, bank, frame_idx, curr, curr_pos, (w, h), num_frames, is_eval,
-                pos_kcache, generator)
+                pos_kcache, track_in_reverse, generator)
         else:
             out = self._memory_conditioned_features_read(
-                spec, bank, frame_idx, curr, curr_pos, (w, h), num_frames, is_eval, generator)
+                spec, bank, frame_idx, curr, curr_pos, (w, h), num_frames, is_eval,
+                track_in_reverse, pos_kcache, generator)
         return out.reshape(B, h, w, C)
 
     # ------------------------------------------------------------------
@@ -420,9 +438,12 @@ class SAM2Model(nn.Module):
                    mask_inputs=None, multimask_output: bool = False,
                    run_mem_encoder: bool = True, is_cond_frame: bool = False,
                    num_frames: int = 2 ** 30, is_eval: bool = False, pos_kcache=None,
+                   track_in_reverse: bool = False, kv_storage: bool = True,
                    generator: Optional[torch.Generator] = None):
         """One frame (``sam2_base.py:705-800``): memory readout -> SAM heads ->
-        memory write. ``generator`` turns on the memory-attention dropout.
+        memory write. ``track_in_reverse``, ``pos_kcache`` and ``kv_storage``
+        choose the readout (:meth:`prepare_memory_conditioned_features`);
+        ``generator`` turns on the memory-attention dropout.
         Returns (outputs dict, bank); for inference the bank is updated in
         place, in training the returned bank is a new dict
         (:func:`memory_bank.write_bank`)."""
@@ -434,7 +455,8 @@ class SAM2Model(nn.Module):
             pix = self.prepare_memory_conditioned_features(
                 spec, bank, frame_idx, is_init_cond_frame, current_vision_feats[-1],
                 current_vision_pos[-1], num_frames=num_frames, is_eval=is_eval,
-                pos_kcache=pos_kcache, generator=generator)
+                pos_kcache=pos_kcache, track_in_reverse=track_in_reverse,
+                kv_storage=kv_storage, generator=generator)
             sam = self.forward_sam_heads(pix, point_inputs=point_inputs,
                                          mask_inputs=mask_inputs, high_res_features=high_res,
                                          multimask_output=multimask_output,

@@ -119,23 +119,29 @@ def rope_attn_storage(attn: Attention, q, bundle: dict, layer: int, *,
 
 def rope_attn_apply(attn: Attention, q, k, v, *, q_hw: Tuple[int, int],
                     rope_theta: float = 10000.0, rope_k_repeat: bool = False,
-                    num_k_exclude_rope: int = 0, kv_mask=None):
+                    num_k_exclude_rope: int = 0, kv_mask=None, k_cached=None):
     """RoPE attention (``transformer.py:266-331``): the memory
     self-attention, and the read-order memory cross-attention over raw
-    memory tokens.
+    memory tokens or over the roped-key cache.
 
     ``q_hw`` is the (w, h) grid of the query tokens. The last
     ``num_k_exclude_rope`` keys (object pointers) skip the rotation; with
     ``rope_k_repeat`` the q-grid tables tile once per memory frame over the
-    other keys. Low-rank value path: when the raw kv width (64 memory
-    channels) is below the head dim, the raw tokens are the values and the v
-    projection is applied to the output, exactly (P (v W) = (P v) W, and the
-    bias commutes because masked-softmax rows sum to 1); the cross-attention
-    flash call is then D = 256 / Dv = 64."""
+    other keys. ``k_cached`` [B, Nc, C_int]: the spatial keys already
+    projected and rotated (the bank's roped-key cache in read order); ``k``
+    then holds only the pointer keys that follow them, which are projected
+    here and not rotated. Low-rank value path: when the raw kv width (64
+    memory channels) is below the head dim, the raw tokens are the values
+    and the v projection is applied to the output, exactly (P (v W) =
+    (P v) W, and the bias commutes because masked-softmax rows sum to 1);
+    the cross-attention flash call is then D = 256 / Dv = 64."""
     h = attn.num_heads
     perm = _perm(attn.q_proj, h)
     qp = _split_heads(_linear_perm(attn.q_proj, q, perm), h)
-    kp = _split_heads(_linear_perm(attn.k_proj, k, perm), h)
+    kp = _linear_perm(attn.k_proj, k, perm)
+    if k_cached is not None:
+        kp = torch.cat([k_cached.to(q.dtype), kp], dim=1)
+    kp = _split_heads(kp, h)
     head_dim = qp.shape[-1]
     v_in = attn.v_proj.weight.shape[1]
     factor_v = v_in < head_dim
@@ -146,7 +152,7 @@ def rope_attn_apply(attn: Attention, q, k, v, *, q_hw: Tuple[int, int],
     cos, sin = axial_rope_cos_sin(head_dim, q_hw[0], q_hw[1], rope_theta, device=q.device)
     qp = apply_rope_half(qp, cos, sin)
     num_k_rope = kp.shape[2] - num_k_exclude_rope
-    if num_k_rope > 0:
+    if k_cached is None and num_k_rope > 0:
         repeat = num_k_rope // qp.shape[2] if rope_k_repeat else 1
         if repeat > 1:
             cos_k, sin_k = cos.repeat(repeat, 1), sin.repeat(repeat, 1)

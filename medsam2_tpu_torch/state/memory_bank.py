@@ -5,8 +5,11 @@ Conditioning memories sit in append-once slots [B, Mc, P, D]; non-conditioning
 memories in a ring of the last R frames (slot = t % R); object pointers in cond
 slots plus a ring of the last (max_obj_ptrs - 1) frames. The roped-key cache
 ``kcache`` [B, Mc + R, L, P, C] holds the slots in storage order, and
-inference attention consumes it as stored (:func:`kv_storage_layout`);
-training reads raw memory tokens in read order (:func:`read_bank`).
+inference attention consumes it as stored (:func:`kv_storage_layout`) or
+gathered in read order (:func:`read_kcache`); training, and a bank without
+the cache, read raw memory tokens in read order (:func:`read_bank`). Every
+readout takes ``track_in_reverse``: tracking backwards, the stride-r targets
+and the pointer window lie after the current frame.
 
 For inference :func:`write_bank` updates the bank in place (the cache is
 ~67 MB at 1024 px for one object; copying it every frame buys nothing in
@@ -171,24 +174,50 @@ def write_bank(spec: BankSpec, bank, frame_idx: int, maskmem_feats, obj_ptr,
     return bank
 
 
-def _noncond_target_frames(spec: BankSpec, frame_idx: int) -> np.ndarray:
-    """Stride-r previous-frame arithmetic (``sam2_base.py:535-558``), forward
-    tracking, t_pos = 1..num_maskmem-1."""
+def _noncond_target_frames(spec: BankSpec, frame_idx: int,
+                           track_in_reverse: bool = False) -> np.ndarray:
+    """Stride-r previous-frame arithmetic (``sam2_base.py:535-558``) for
+    t_pos = 1..num_maskmem-1. Forward, t_pos 1 is frame - 1 and the others
+    sit on the stride-r grid at or below frame - 2; in reverse, frame + 1
+    and the grid at or above frame + 2 (a ceiling division)."""
     r = spec.temporal_stride
     t_pos = np.arange(1, spec.num_maskmem, dtype=np.int64)
     t_rel = spec.num_maskmem - t_pos
-    strided = ((frame_idx - 2) // r) * r - (t_rel - 2) * r
-    return np.where(t_rel == 1, frame_idx - 1, strided).astype(np.int64)
+    if track_in_reverse:
+        last = frame_idx + 1
+        strided = -((-(frame_idx + 2)) // r) * r + (t_rel - 2) * r
+    else:
+        last = frame_idx - 1
+        strided = ((frame_idx - 2) // r) * r - (t_rel - 2) * r
+    return np.where(t_rel == 1, last, strided).astype(np.int64)
 
 
-def kv_storage_layout(spec: BankSpec, bank, frame_idx: int):
+def _ring_slots(spec: BankSpec, targets: np.ndarray, device) -> torch.Tensor:
+    return torch.from_numpy(np.remainder(np.clip(targets, 0, None),
+                                         spec.noncond_ring)).to(device)
+
+
+def read_kcache(spec: BankSpec, bank, frame_idx: int, track_in_reverse: bool = False):
+    """The roped-key cache gathered in read order: the cond slots, then the
+    stride-r non-cond targets (the slot arithmetic of :func:`read_bank`).
+    Returns [B, Fa, L, P, C]; a stale or empty slot carries finite values
+    that :func:`read_bank`'s validity mask excludes."""
+    Mc = spec.max_cond_frames
+    slots = _ring_slots(spec, _noncond_target_frames(spec, frame_idx, track_in_reverse),
+                        bank["kcache"].device)
+    nc = bank["kcache"].index_select(1, Mc + slots)
+    return torch.cat([bank["kcache"][:, :Mc], nc], dim=1)
+
+
+def kv_storage_layout(spec: BankSpec, bank, frame_idx: int, track_in_reverse: bool = False):
     """Per storage slot: which positional row it carries and whether it is
     attended. Returns (row_of_slot [Mc + R] int32, slot_valid [B, Mc + R]
     bool); a ring slot is valid iff its stored frame is one of the stride-r
     targets."""
     dev = bank["noncond_frame_idx"].device
     Mc = spec.max_cond_frames
-    targets = torch.from_numpy(_noncond_target_frames(spec, frame_idx)).to(dev)
+    targets = torch.from_numpy(_noncond_target_frames(spec, frame_idx,
+                                                      track_in_reverse)).to(dev)
     stored = bank["noncond_frame_idx"].long()                               # [B, R]
     eq = (stored[:, :, None] == targets[None, None, :]) & (targets >= 0)[None, None, :]
     ring_valid = eq.any(dim=-1)
@@ -210,22 +239,24 @@ def pos_kcache_rows(spec: BankSpec, maskmem_tpos_enc, spatial_pos):
     return spatial_pos[None, :, :] + tpos[:, None, :]
 
 
-def read_ptrs(spec: BankSpec, bank, frame_idx: int, obj_ptrs_in_past_only: bool = False,
-              num_frames: int = 2 ** 30):
-    """Object-pointer readout (``sam2_base.py:583-635``), forward tracking:
-    all cond pointers plus up to min(num_frames, max_obj_ptrs) - 1 recent
-    non-cond pointers, split into mem_dim tokens. Returns (ptr_tokens
-    [B, Nt, D], ptr_token_valid [B, Nt] bool, ptr_tdiff [B, num_ptr_slots])."""
+def read_ptrs(spec: BankSpec, bank, frame_idx: int, track_in_reverse: bool = False,
+              obj_ptrs_in_past_only: bool = False, num_frames: int = 2 ** 30):
+    """Object-pointer readout (``sam2_base.py:583-635``): all cond pointers
+    plus up to min(num_frames, max_obj_ptrs) - 1 recent non-cond pointers
+    (the frames before the current one, or after it in reverse), split into
+    mem_dim tokens. Returns (ptr_tokens [B, Nt, D], ptr_token_valid [B, Nt]
+    bool, ptr_tdiff [B, num_ptr_slots])."""
     B = bank["cond_obj_ptr"].shape[0]
     D = spec.mem_dim
     dev = bank["cond_obj_ptr"].device
     cond_idx = bank["cond_frame_idx"]
     cond_valid = cond_idx >= 0
     if obj_ptrs_in_past_only:
-        cond_valid = cond_valid & (cond_idx <= frame_idx)
+        cond_valid = cond_valid & ((cond_idx >= frame_idx) if track_in_reverse
+                                   else (cond_idx <= frame_idx))
     eff_max = min(int(num_frames), spec.max_obj_ptrs)
     t_diff = np.arange(1, spec.max_obj_ptrs, dtype=np.int64)
-    targets = frame_idx - t_diff
+    targets = frame_idx + t_diff if track_in_reverse else frame_idx - t_diff
     in_range = (targets >= 0) & (targets < num_frames) & (t_diff < eff_max)
     pslots = torch.from_numpy(np.remainder(np.clip(targets, 0, None), spec.ptr_ring)).to(dev)
     ring_ptrs = bank["ptr_ring"].index_select(1, pslots)
@@ -247,12 +278,13 @@ def read_ptrs(spec: BankSpec, bank, frame_idx: int, obj_ptrs_in_past_only: bool 
 
 
 def read_bank(spec: BankSpec, bank, frame_idx: int, maskmem_tpos_enc, spatial_pos,
-              obj_ptrs_in_past_only: bool = False, num_frames: int = 2 ** 30):
+              track_in_reverse: bool = False, obj_ptrs_in_past_only: bool = False,
+              num_frames: int = 2 ** 30):
     """Read-order memory for cross-attention at ``frame_idx``
-    (``memory_bank.read_bank``, ``sam2_base.py:494-635``), forward tracking:
-    the cond slots, then the stride-r non-cond targets gathered from the ring,
-    then the object-pointer tokens. maskmem_tpos_enc [num_maskmem, D];
-    spatial_pos [P, D].
+    (``memory_bank.read_bank``, ``sam2_base.py:494-635``): the cond slots,
+    then the stride-r non-cond targets gathered from the ring, then the
+    object-pointer tokens. maskmem_tpos_enc [num_maskmem, D]; spatial_pos
+    [P, D].
 
     Returns (memory [B, T, D], memory_pos [B, T, D], valid [B, T] bool,
     num_obj_ptr_tokens, ptr_tdiff [B, num_ptr_slots]); T = Fa * P + the
@@ -264,9 +296,8 @@ def read_bank(spec: BankSpec, bank, frame_idx: int, maskmem_tpos_enc, spatial_po
     Mc = spec.max_cond_frames
     cond_valid = bank["cond_frame_idx"] >= 0                              # [B, Mc]
     cond_tpos = maskmem_tpos_enc[spec.num_maskmem - 1]                    # [D]
-    targets_np = _noncond_target_frames(spec, frame_idx)                  # [F]
-    slots = torch.from_numpy(np.remainder(np.clip(targets_np, 0, None),
-                                          spec.noncond_ring)).to(dev)
+    targets_np = _noncond_target_frames(spec, frame_idx, track_in_reverse)  # [F]
+    slots = _ring_slots(spec, targets_np, dev)
     targets = torch.from_numpy(targets_np).to(dev)
     nc_feats = bank["noncond_feats"].index_select(1, slots)               # [B, F, P, D]
     stored = bank["noncond_frame_idx"].index_select(1, slots).long()
@@ -282,8 +313,8 @@ def read_bank(spec: BankSpec, bank, frame_idx: int, maskmem_tpos_enc, spatial_po
     valid_sp = torch.cat([cond_valid, nc_valid], dim=1).repeat_interleave(P, dim=1)
 
     ptr_tokens, ptr_valid, ptr_tdiff = read_ptrs(
-        spec, bank, frame_idx, obj_ptrs_in_past_only=obj_ptrs_in_past_only,
-        num_frames=num_frames)
+        spec, bank, frame_idx, track_in_reverse=track_in_reverse,
+        obj_ptrs_in_past_only=obj_ptrs_in_past_only, num_frames=num_frames)
     memory = torch.cat([memory_sp, ptr_tokens.to(memory_sp.dtype)], dim=1)
     memory_pos = torch.cat([pos_sp, pos_sp.new_zeros(B, spec.num_ptr_tokens, D)], dim=1)
     valid = torch.cat([valid_sp, ptr_valid], dim=1)

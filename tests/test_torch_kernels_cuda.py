@@ -406,6 +406,108 @@ def test_kv_cached_split_counts_match_twin(dev, splits):
     assert (got.float() - want).abs().max().item() <= _tol(want, dt)
 
 
+def _sms(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _session_bank(B: int, reverse: bool, dev):
+    """The storage layout of a bank at hiera_t @512 (1 cond slot, a 7-slot
+    ring, P = 1024) midway through a session, B rows (volumes x objects):
+    forward, cond frame 0 and frames 1-10 tracked, reading frame 11; in
+    reverse, cond frame 15 and frames 14-5 tracked, reading frame 4. The ring
+    holds one stale frame. Returns (spec, row_of_slot, slot_valid)."""
+    from medsam2_tpu_torch.configs import sam2_hiera_t
+    from medsam2_tpu_torch.state import memory_bank as MB
+
+    spec = MB.BankSpec.from_config(sam2_hiera_t(image_size=512), max_cond_frames=1)
+    bank = MB.init_bank(spec, B, dev)
+    R = spec.noncond_ring
+    cond, tracked, cur = (15, range(14, 4, -1), 4) if reverse else (0, range(1, 11), 11)
+    bank["cond_frame_idx"][:, 0] = cond
+    for f in tracked:
+        bank["noncond_frame_idx"][:, f % R] = f
+    rows, valid = MB.kv_storage_layout(spec, bank, cur, track_in_reverse=reverse)
+    return spec, rows, valid
+
+
+@pytest.mark.parametrize("reverse", [False, True], ids=["forward", "reverse"])
+@pytest.mark.parametrize("B", [3, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_kv_cached_kernel_at_volume_batches_and_both_layouts(dev, dtype, B, reverse):
+    """B2 at the folded-volume batches B = V * O of 3, 4 and 8 (5, 4 and 2
+    kv splits in bf16 on 132 SMs), with the slot -> row map and validity a
+    bank gives forward and in reverse: the ring slots map to rows in another
+    order in each direction, and one stale slot is masked."""
+    spec, rows, valid = _session_bank(B, reverse, dev)
+    Mc, R = spec.max_cond_frames, spec.noncond_ring
+    F, P, L, Nptr, Rr = Mc + R, spec.mem_spatial, 4, spec.num_ptr_tokens, spec.num_frames_attended
+    Nq = P
+    assert rows.tolist() != list(range(F)) and int(rows.max()) < Rr
+    assert valid[:, Mc:].sum(dim=1).tolist() == [R - 1] * B
+    rng = np.random.default_rng(12)
+    q = _t(rng, (B, Nq, C), dev, dtype)
+    kcache, pos_rows = _t(rng, (B, F, L, P, C), dev, dtype), _t(rng, (Rr, L, P, C), dev, dtype)
+    ptr_k, v_slots = _t(rng, (B, Nptr, C), dev, dtype), _t(rng, (B, F, P, DV), dev, dtype)
+    ptr_v = _t(rng, (B, Nptr, DV), dev, dtype)
+    ptr_valid = torch.zeros(B, Nptr, dtype=torch.bool, device=dev)
+    for b in range(B):
+        ptr_valid[b, :4 * (1 + 3 * b % 16)] = True     # 1, 4, 7, ... pointers of 4 tokens
+    mask = torch.cat([valid.repeat_interleave(P, dim=1), ptr_valid], dim=1)
+    blocks = B * -(-Nq // 128)
+    split = dtype == torch.bfloat16 and 2 * blocks <= _sms(dev)
+    before = A.launch_counts()
+    got = A.kv_cached_attention(q, kcache, pos_rows, rows, ptr_k, v_slots, ptr_v, mask, 3)
+    torch.cuda.synchronize()
+    after = A.launch_counts()
+    assert after["kv_cached_attention"] == before["kv_cached_attention"] + 1
+    assert after["attention_merge"] == before["attention_merge"] + int(split)
+    want = A.kv_cached_attention_plain(q.float(), kcache, pos_rows, rows, ptr_k,
+                                       v_slots.float(), ptr_v.float(), mask, 3)
+    assert got.shape == (B, Nq, DV) and got.dtype == dtype
+    assert (got.float() - want).abs().max().item() <= _tol(want, dtype)
+
+
+@pytest.mark.parametrize("O", [1, 2])
+@pytest.mark.parametrize("dtype,splits", [(torch.float32, None), (torch.bfloat16, None),
+                                          (torch.bfloat16, 1), (torch.bfloat16, 5)],
+                         ids=["f32", "bf16", "bf16-1split", "bf16-5splits"])
+def test_flash_at_read_order_inference_shape(dev, dtype, splits, O):
+    """B1 as the read-order memory cross-attention runs it at inference @1024
+    (raw or k-cached): q [O, 1, 4096, 256] against 1 cond slot, 6 ring
+    targets of 4096 keys and 64 pointer tokens, Dv 64, a kv mask (one stale
+    target, pointer padding), no LSE; bf16 at the wrapper's split count and
+    forced ones."""
+    Nq, P, Fa, Nptr = 4096, 4096, 7, 64
+    Nk = Fa * P + Nptr
+    rng = np.random.default_rng(13)
+    q = _t(rng, (O, 1, Nq, 256), dev, dtype)
+    k = _t(rng, (O, 1, Nk, 256), dev, dtype)
+    v = _t(rng, (O, 1, Nk, 64), dev, dtype)
+    m = np.ones((O, Nk), bool)
+    m[:, 3 * P:4 * P] = False                  # a stale ring target
+    m[:, Fa * P + 8:] = False                  # two pointers of 4 tokens
+    if O > 1:
+        m[1, Fa * P:] = False                  # no pointer at all
+    mask = torch.from_numpy(m).to(dev)
+    blocks = O * -(-Nq // 128)
+    split = dtype == torch.bfloat16 and (splits > 1 if splits else 2 * blocks <= _sms(dev))
+    before = A.launch_counts()
+    with torch.no_grad():
+        if splits is None:
+            got = A.flash_attention(q, k, v, kv_mask=mask)
+        else:
+            got, lse = A._flash_forward(q, k, v, mask, 256 ** -0.5, with_lse=False,
+                                        _splits=splits)
+            assert lse is None
+    torch.cuda.synchronize()
+    after = A.launch_counts()
+    assert after["flash_attention"] == before["flash_attention"] + 1
+    assert after["attention_merge"] == before["attention_merge"] + int(split)
+    want = A.flash_attention_plain(q.float(), k.float(), v.float(), kv_mask=mask)
+    assert got.shape == (O, 1, Nq, 64) and got.dtype == dtype
+    assert (got.float() - want).abs().max().item() <= _tol(want, dtype)
+
+
 @pytest.mark.parametrize("widths", [(128, 64), (256, 96), (64, 64)],
                          ids=lambda w: "x".join(map(str, w)))
 def test_kv_cached_kernel_rejects_unbuilt_widths(dev, widths):

@@ -7,6 +7,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
 import torch
 
 import medsam2_tpu_torch
@@ -53,3 +54,26 @@ def test_sources_have_no_jax_import_library_attention_or_compile():
         for word in banned:
             if word not in allowed:
                 assert word not in text, f"{path.relative_to(ROOT)} contains {word!r}"
+
+
+# the modules of the 3D session, and the other modules they run
+SESSION_MODULES = ["medsam2_tpu_torch.api.video_predictor", "medsam2_tpu_torch.core.sam2_model",
+                   "medsam2_tpu_torch.core.memory", "medsam2_tpu_torch.core.transformer",
+                   "medsam2_tpu_torch.state.memory_bank",
+                   "medsam2_tpu_torch.ops.connected_components"]
+
+
+@pytest.mark.parametrize("module", SESSION_MODULES)
+def test_session_modules_load_neither_jax_nor_pil(module):
+    """Each module of the 3D session imports on its own without JAX, the
+    JAX package or PIL: frames are decoded with PIL only inside
+    ``video_predictor._decode_frame``, so a host without PIL runs every
+    session that does not read a frame directory."""
+    assert module in _modules()
+    code = (f"import sys\nimport {module}\n"
+            "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+            "('jax', 'medsam2_tpu', 'PIL'))\nprint(','.join(bad))\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "", f"{module} loads {res.stdout.strip()}"

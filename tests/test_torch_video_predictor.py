@@ -16,6 +16,7 @@ from medsam2_tpu_torch.api.video_predictor import (SAM2VideoPredictor,
 from medsam2_tpu_torch.checkpoint.convert import (load_reference_state_dict,
                                                   state_dict_from_jax)
 from medsam2_tpu_torch.core.sam2_model import SAM2Model
+from medsam2_tpu_torch.state import memory_bank as mb
 from tests.test_predictors import TINY, moving_square_video
 
 torch.set_num_threads(2)
@@ -93,31 +94,29 @@ def test_two_objects_second_cond_frame_match_jax(models):
 
 
 def test_out_of_scope_paths_raise(models):
+    """What the port still leaves out raises NotImplementedError with a
+    pointer to ROADMAP.md: corrections on tracked frames (points and masks),
+    ``clear_non_cond_mem_around_input`` and ``propagate_volumes_batched``
+    over a mesh. Everything else of the session runs (the parity tests of
+    ``tests/test_torch_video_session.py``)."""
     _, model = models
     video, gt = moving_square_video(T=6)
-    for kw in (dict(fill_hole_area=8), dict(clear_non_cond_mem_around_input=True),
-               dict(use_kcache=False)):
-        with pytest.raises(NotImplementedError):
-            SAM2VideoPredictor(model, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        SAM2VideoPredictor(model, clear_non_cond_mem_around_input=True)
     tp = SAM2VideoPredictor(model, max_cond_frames=2)
-    with pytest.raises(NotImplementedError):
-        tp.init_state(video_path="frames/")
-    with pytest.raises(NotImplementedError):
-        tp.init_state(images=video, offload_video_to_cpu=True)
     state = tp.init_state(images=video)
     tp.add_new_points(state, 0, 1, np.array([[16.0, 28.0]]), np.array([1]))
-    with pytest.raises(NotImplementedError):
-        tp.propagate_in_video_batch(state, reverse=True)
     frames, masks = tp.propagate_in_video_batch(state)
     assert frames == list(range(6)) and torch.isfinite(masks).all()
-    with pytest.raises(NotImplementedError):      # a correction on a tracked frame
+    with pytest.raises(NotImplementedError, match="ROADMAP"):   # a correction
         tp.add_new_points(state, 3, 1, np.array([[20.0, 28.0]]), np.array([1]))
-    with pytest.raises(NotImplementedError):      # a mask correction, too
+    with pytest.raises(NotImplementedError, match="ROADMAP"):   # a mask correction, too
         tp.add_new_mask(state, 3, 1, gt[3])
-    with pytest.raises(NotImplementedError):      # resume past tracked frames
-        tp.propagate_in_video_batch(state, start_frame_idx=3)
-    with pytest.raises(NotImplementedError):
-        propagate_volumes_batched(model, TINY)
+    spec = mb.BankSpec.from_config(TINY, max_cond_frames=1)
+    videos = np.stack([video, video])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        propagate_volumes_batched(model, spec, videos, np.full((2, 1, 1, 2), 20.0, np.float32),
+                                  np.ones((2, 1, 1), np.int32), mesh=object())
 
 
 def test_mask_prompts_match_jax(models):
