@@ -1,6 +1,7 @@
 """Drive the PyTorch port's 3D propagation (the whole session: reverse and
-resumed propagation, the three memory readouts, batched volumes), 3D training
-and 2D image serving on one NVIDIA GPU.
+resumed propagation, corrections on tracked frames, clearing around new
+prompts, the three memory readouts, batched volumes), 3D training (over raw
+memory and over the roped-key cache) and 2D image serving on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -22,6 +23,11 @@ Phases, each printing its own line:
      row maps a bank gives forward and in reverse, and B1 at the read-order
      inference shape @1024 (D 256 / Dv 64, a kv mask, no LSE), against their
      twins, bf16 and fp32, timed as phase 3;
+  3d. the kernel cases that clearing makes (@1024, bf16 and fp32): B1 at the
+     read-order inference shape with two kv splits left without a valid key,
+     B2 with a hole in ring slots 1-3 forward and in reverse (one split
+     without a valid key), masks from the bank's own readouts, against the
+     twins, timed as phase 3;
   3b. the training kernels (flash forward with LSE, the dK/dV and dQ backward
      passes, the dQ pass at forced kv split counts and the dK/dV pass at
      forced q split counts, and the two split sums)
@@ -70,7 +76,21 @@ Phases, each printing its own line:
      memory, storage order against read order over the cache
      (``TOL_READOUT``); ``propagate_volumes_batched`` at ``bench.py``'s
      3d_batch shape (@512 bf16, 4 volumes x 16 frames), folded and unfolded:
-     exact counts, frames/s, peak memory, folded against unfolded.
+     exact counts, frames/s, peak memory, folded against unfolded;
+  13. corrections and clearing: at @512 fp32 (TF32 off), card against the
+     CPU in each readout, a correction session (12 frames, two objects, a
+     point correction on frame 9, whose ring slot is frame 2's, and a mask
+     correction on frame 5, then two re-propagations), a correction on a
+     frame tracked in reverse, and a ``clear_non_cond_mem_around_input``
+     session (cond frames 0 and 6, a correction, a resume), logits to 1e-3;
+     at @1024 bf16, 16 frames, the correction round (clicks on frames 5 and
+     12 and the re-propagation) in each readout: its wall time and ms per
+     tracked frame, exact launch counts (``correction_launches``), peak
+     memory;
+  14. training over the roped-key cache: phase 6 with ``use_kcache=True``,
+     and phase 7's step with the cache on against off in turns (seconds per
+     step, exact launch counts, first-step losses within
+     ``TOL_KCACHE_LOSS``).
 Then one JSON line of per-kernel results, the card's name and power limit,
 and, last, the device line. Any failure raises and exits non-zero; without a
 CUDA device nothing runs.
@@ -947,7 +967,10 @@ def train_launches(cfg, rcfg, bf16: bool) -> dict:
     cross-attention ones, over at least one memory frame of tok keys. A bf16
     dK/dV launch that splits its q range runs its split sum: the
     self-attention's O x tok keys, and the cross-attention's keys, at least
-    the (max_cond_frames + num_maskmem - 1) attended frames of tok tokens."""
+    the (max_cond_frames + num_maskmem - 1) attended frames of tok tokens.
+    Training over the roped-key cache (``rcfg.kcache_enabled()``) makes the
+    same calls: the cross-attention's spatial keys come from the cache
+    instead of a projection of the memory, at the same shape."""
     T = rcfg.video_length
     tracked = T - len(rcfg.prompt_frames)
     L = cfg.memory_attention.num_layers
@@ -973,12 +996,13 @@ def train_grads(model):
             if p.requires_grad}
 
 
-def phase_train_parity():
-    """Phase 6: one train step on the card (kernels) and on the CPU (plain
+def phase_train_parity(use_kcache: bool = False):
+    """Phase 6 (and 14a with ``use_kcache``, training over the roped-key
+    cache): one train step on the card (kernels) and on the CPU (plain
     path), same seed and batch, fp32 with TF32 off."""
     cfg = sam2_hiera_t(image_size=512, compute_dtype="float32")
     rcfg = recipe_3d.Recipe3DConfig(video_length=4, prompt_freq=2, num_objects=1,
-                                    max_cond_frames=2)
+                                    max_cond_frames=2, use_kcache=use_kcache)
     batch = train_batch(4, 1, cfg.image_size, len(rcfg.prompt_frames), seed=3)
     set_tf32(False)
     runs = []
@@ -1012,7 +1036,9 @@ def phase_train_parity():
             worst, worst_name = err, name
     want_counts = train_launches(cfg, rcfg, bf16=False)
     ok = loss_err <= 1e-4 and worst <= 1e-3 and zero_ok and counts == want_counts
-    print(f"[6 train parity] sam2_hiera_t @512 fp32 TF32 off, 4 frames, 1 object, one step: "
+    tag = "14 train kcache parity" if use_kcache else "6 train parity"
+    print(f"[{tag}] sam2_hiera_t @512 fp32 TF32 off, 4 frames, 1 object, use_kcache "
+          f"{use_kcache}, one step: "
           f"cuda (kernels, launches {counts}, expected {want_counts}) vs cpu (plain): losses "
           f"{mc['prompt_loss']:.6f}/{mc['non_prompt_loss']:.6f} vs {mp['prompt_loss']:.6f}/"
           f"{mp['non_prompt_loss']:.6f} rel err {loss_err:.2e} (tol 1e-4) | {len(gp)} "
@@ -1020,7 +1046,7 @@ def phase_train_parity():
           f"(tol 1e-3), zero-gradient leaves at round-off {zero_ok} | cuda {tc:.1f} s cpu "
           f"{tp:.1f} s {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError(f"train parity: losses {loss_err}, grads {worst} at {worst_name}, "
+        raise AssertionError(f"{tag}: losses {loss_err}, grads {worst} at {worst_name}, "
                              f"launches {counts} vs {want_counts}")
 
 
@@ -1509,34 +1535,41 @@ def session_spec(cfg):
     return MB.BankSpec.from_config(cfg, max_cond_frames=1)
 
 
-def session_launches(cfg, readout: str, T: int, prompt: int) -> dict:
-    """Kernel launches of ``bidirectional`` (one object), add_new_points
-    included, worked out from the config apart from the wrappers. Encoded
-    frames: the preview, the prompt frame once in each propagation, every
-    tracked frame, and, before the reverse call, the frames tracked forward
-    that the feature ring (7) or the pointer ring (15) reaches. Each tracked
-    frame runs L memory self-attentions on B1 and L cross-attentions, on B2
-    in storage order and on B1 in read order (over F = 1 + 7 slots, or Fa =
-    1 + 6 read slots, of P keys, and the pointer tokens); a bf16 launch whose
-    blocks fill at most half the SMs splits and merges (``merges``)."""
+def readout_launches(cfg, readout: str, encodes: int, steps: int) -> dict:
+    """Kernel launches of ``encodes`` frame encodes and ``steps``
+    memory-attention steps of one object in ``readout``, from the config
+    apart from the wrappers. Each step runs L memory self-attentions on B1
+    and L cross-attentions, on B2 in storage order and on B1 in read order
+    (over F = 1 + 7 slots, or Fa = 1 + 6 read slots, of P keys, and the
+    pointer tokens); a bf16 launch whose blocks fill at most half the SMs
+    splits and merges (``merges``)."""
     spec = session_spec(cfg)
     tok = (cfg.image_size // 16) ** 2
     L = cfg.memory_attention.num_layers
-    fwd, rev = T - 1 - prompt, prompt
-    window = min(T - 1 - prompt, max(spec.noncond_ring, spec.ptr_ring))
-    encodes = 1 + (1 + fwd) + (1 + window + rev)
-    tracked = fwd + rev
     gf = global_flash(cfg)
     storage = readout == "storage"
     keys = ((spec.max_cond_frames + spec.noncond_ring) if storage
             else spec.num_frames_attended) * tok + spec.num_ptr_tokens
-    return {"flash_attention": gf * encodes + L * tracked * (1 if storage else 2),
+    return {"flash_attention": gf * encodes + L * steps * (1 if storage else 2),
             "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0,
             "flash_attention_bwd_dq_sum": 0, "flash_attention_bwd_dkv_sum": 0,
-            "kv_cached_attention": L * tracked if storage else 0,
+            "kv_cached_attention": L * steps if storage else 0,
             "attention_merge": gf * encodes * merges(4, tok, tok)
-            + L * tracked * (merges(1, tok, tok) + merges(1, tok, keys)),
+            + L * steps * (merges(1, tok, tok) + merges(1, tok, keys)),
             **NO_ENCODER_LAUNCHES}
+
+
+def session_launches(cfg, readout: str, T: int, prompt: int) -> dict:
+    """Kernel launches of ``bidirectional`` (one object), add_new_points
+    included (``readout_launches``). Encoded frames: the preview, the prompt
+    frame once in each propagation, every tracked frame, and, before the
+    reverse call, the frames tracked forward that the feature ring (7) or
+    the pointer ring (15) reaches; every tracked frame is a memory-attention
+    step."""
+    spec = session_spec(cfg)
+    fwd, rev = T - 1 - prompt, prompt
+    window = min(T - 1 - prompt, max(spec.noncond_ring, spec.ptr_ring))
+    return readout_launches(cfg, readout, 1 + (1 + fwd) + (1 + window + rev), fwd + rev)
 
 
 def volume_launches(cfg, V: int, T: int, fold: bool) -> dict:
@@ -1566,6 +1599,87 @@ def volume_launches(cfg, V: int, T: int, fold: bool) -> dict:
             "kv_cached_attention": kv, "attention_merge": merge, **NO_ENCODER_LAUNCHES}
 
 
+def check_kv_cached(tag: str, label: str, args, dtype) -> dict:
+    """B2 on ``args`` (the wrapper's arguments) against its twin, timed as
+    phase 3: kernel and library call by CUDA-graph replay (the library over
+    k / v materialised outside the timing), the twin by CUDA events. Prints
+    one line, raises on a miss; returns the case's numbers."""
+    q, kc, pos, rows, pk, vs, pv, mask, layer = args
+    B, Nq, C = q.shape
+    F_, P, Dv, Nptr, Rr = kc.shape[1], kc.shape[3], vs.shape[-1], pk.shape[1], pos.shape[0]
+    got = A.kv_cached_attention(*args)
+    # the twin sums kcache + pos in the cache dtype, as the kernel does
+    want = A.kv_cached_attention_plain(q.float(), kc, pos, rows, pk, vs.float(), pv.float(),
+                                       mask, layer)
+    err = (got.float() - want).abs().max().item()
+    tol = tolerance(want, dtype)
+    finite = bool(torch.isfinite(got).all())
+    ms = graph_ms(lambda: A.kv_cached_attention(*args))
+    plain_ms = cuda_ms(lambda: A.kv_cached_attention_plain(*args), reps=3)
+    k_mat = torch.cat([(kc[:, :, layer] + pos[rows.long(), layer][None]).reshape(B, F_ * P, C),
+                       pk], dim=1)[:, None]
+    v_mat = torch.cat([vs.reshape(B, F_ * P, Dv), pv], dim=1)[:, None]
+    lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(
+        q[:, None], k_mat, v_mat, attn_mask=mask[:, None, None, :]))
+    flops = 2.0 * Nq * float(mask.sum().item()) * (C + Dv)
+    nbytes = q.element_size() * (B * Nq * C + B * F_ * P * C + Rr * P * C + B * Nptr * C
+                                 + B * F_ * P * Dv + B * Nptr * Dv + B * Nq * Dv) + mask.numel()
+    bound_ms, bound_by = bound(flops, nbytes, dtype)
+    grid = (bf16_grid(B, Nq, F_ * P + Nptr) if dtype == torch.bfloat16
+            else (B * -(-Nq // 64), 1))
+    ok = err <= tol and finite
+    print(f"[{tag}] kv_cached_attention {label} row_of_slot {rows.tolist()} "
+          f"{[B, Nq, F_, kc.shape[2], P, C, Dv, Nptr]} {dtype} max_abs_err {err:.3e} (tol "
+          f"{tol:.3e}) finite {finite} kernel {ms:.4f} ms plain {plain_ms:.3f} ms sdpa "
+          f"{lib_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}) | "
+          f"{rates(ms, flops, bound_ms, lib_ms, grid)} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"kv_cached_attention {label} {dtype}: err {err}, finite {finite}")
+    return dict(shape=label, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=lib_ms, splits=grid[1])
+
+
+def check_read_order_flash(tag: str, label: str, q, k, v, mask, dtype) -> dict:
+    """B1 as the read-order memory cross-attention runs it at inference
+    (q [B, 1, Nq, 256], Dv 64, a kv mask, no LSE) against its twin, timed as
+    phase 3. Prints one line, raises on a miss; returns the case's numbers."""
+    B, _, Nq, C = q.shape
+    Nk, Dv = k.shape[2], v.shape[3]
+    got = A.flash_attention(q, k, v, kv_mask=mask)
+    want = A.flash_attention_plain(q.float(), k.float(), v.float(), kv_mask=mask)
+    err = (got.float() - want).abs().max().item()
+    tol = tolerance(want, dtype)
+    finite = bool(torch.isfinite(got).all())
+    ms = graph_ms(lambda: A.flash_attention(q, k, v, kv_mask=mask))
+    plain_ms = cuda_ms(lambda: A.flash_attention_plain(q, k, v, kv_mask=mask), reps=3)
+    lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask[:, None, None, :]))
+    m = mask.cpu().numpy()
+    _, flops, nbytes = flash_work(B, 1, Nq, Nk, C, Dv, m, q.element_size())
+    bound_ms, bound_by = bound(flops, nbytes + m.size, dtype)
+    grid = bf16_grid(B, Nq, Nk) if dtype == torch.bfloat16 else (B * -(-Nq // 64), 1)
+    ok = err <= tol and finite
+    print(f"[{tag}] flash_attention {label} {[B, 1, Nq, Nk, C, Dv]} {dtype} max_abs_err "
+          f"{err:.3e} (tol {tol:.3e}) finite {finite} kernel {ms:.4f} ms plain {plain_ms:.3f} ms "
+          f"sdpa {lib_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}) | "
+          f"{rates(ms, flops, bound_ms, lib_ms, grid)} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"flash_attention {label} {dtype}: err {err}, finite {finite}")
+    return dict(shape=label, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=lib_ms, splits=grid[1])
+
+
+def kv_random_args(rng, B: int, spec, rows, mask, dtype, L: int = 4, C: int = 256, Dv: int = 64):
+    """The kv-cached call's arguments for a bank of ``spec`` at batch B
+    (layer 2), unit-scale random tensors around the given slot -> row map
+    and kv mask."""
+    F_, P = spec.max_cond_frames + spec.noncond_ring, spec.mem_spatial
+    Nptr, Rr = spec.num_ptr_tokens, spec.num_frames_attended
+    return (rand(rng, (B, P, C), dtype), rand(rng, (B, F_, L, P, C), dtype),
+            rand(rng, (Rr, L, P, C), dtype), rows, rand(rng, (B, Nptr, C), dtype),
+            rand(rng, (B, F_, P, Dv), dtype), rand(rng, (B, Nptr, Dv), dtype), mask, 2)
+
+
 def phase_session_kernels():
     """Phase 3c: B2 at the folded-volume batch B = 4 (hiera_t @512: 1 cond
     slot and a 7-slot ring of 1024 keys, 64 pointer tokens) with the slot ->
@@ -1578,9 +1692,7 @@ def phase_session_kernels():
     rng = np.random.default_rng(8)
     out = {"kv_cached_attention": [], "flash_attention": []}
     spec = session_spec(sam2_hiera_t(image_size=512))
-    Mc, R = spec.max_cond_frames, spec.noncond_ring
-    F_, P, L, Nptr, Rr = Mc + R, spec.mem_spatial, 4, spec.num_ptr_tokens, spec.num_frames_attended
-    B, Nq, C, Dv = 4, P, 256, 64
+    R, P, Nptr, B = spec.noncond_ring, spec.mem_spatial, spec.num_ptr_tokens, 4
     for dtype in (torch.bfloat16, torch.float32):
         set_tf32(False)
         for reverse in (False, True):
@@ -1594,80 +1706,25 @@ def phase_session_kernels():
             for b in range(B):
                 ptr_valid[b, :4 * (1 + 5 * b)] = True
             mask = torch.cat([valid.repeat_interleave(P, dim=1), ptr_valid], dim=1)
-            q = rand(rng, (B, Nq, C), dtype)
-            kc, pos = rand(rng, (B, F_, L, P, C), dtype), rand(rng, (Rr, L, P, C), dtype)
-            pk, vs, pv = rand(rng, (B, Nptr, C), dtype), rand(rng, (B, F_, P, Dv), dtype), \
-                rand(rng, (B, Nptr, Dv), dtype)
-            args = (q, kc, pos, rows, pk, vs, pv, mask, 2)
-            got = A.kv_cached_attention(*args)
-            want = A.kv_cached_attention_plain(q.float(), kc, pos, rows, pk, vs.float(),
-                                               pv.float(), mask, 2)
-            err = (got.float() - want).abs().max().item()
-            tol = tolerance(want, dtype)
-            ms = graph_ms(lambda: A.kv_cached_attention(*args))
-            plain_ms = cuda_ms(lambda: A.kv_cached_attention_plain(*args), reps=3)
-            k_mat = torch.cat([(kc[:, :, 2] + pos[rows.long(), 2][None]).reshape(B, F_ * P, C),
-                               pk], dim=1)[:, None]
-            v_mat = torch.cat([vs.reshape(B, F_ * P, Dv), pv], dim=1)[:, None]
-            lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(
-                q[:, None], k_mat, v_mat, attn_mask=mask[:, None, None, :]))
-            keys = float(mask.sum().item())
-            flops = 2.0 * Nq * keys * (C + Dv)
-            nbytes = q.element_size() * (B * Nq * C + B * F_ * P * C + Rr * P * C
-                                         + B * Nptr * C + B * F_ * P * Dv + B * Nptr * Dv
-                                         + B * Nq * Dv) + B * (F_ * P + Nptr)
-            bound_ms, bound_by = bound(flops, nbytes, dtype)
-            grid = (bf16_grid(B, Nq, F_ * P + Nptr) if dtype == torch.bfloat16
-                    else (B * -(-Nq // 64), 1))
-            ok = err <= tol
             layout = "reverse" if reverse else "forward"
-            print(f"[3c session kernel] kv_cached_attention folded volumes @512 B={B} "
-                  f"{layout} row_of_slot {rows.tolist()} {[B, Nq, F_, L, P, C, Dv, Nptr]} "
-                  f"{dtype} max_abs_err {err:.3e} (tol {tol:.3e}) kernel {ms:.4f} ms plain "
-                  f"{plain_ms:.3f} ms sdpa {lib_ms:.4f} ms bound {bound_ms:.4f} ms "
-                  f"({bound_by}) | {rates(ms, flops, bound_ms, lib_ms, grid)} "
-                  f"{'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise AssertionError(f"kv_cached_attention B={B} {layout} {dtype}: err {err}")
+            res = check_kv_cached("3c session kernel",
+                                  f"folded volumes @512 B={B}, {layout} layout",
+                                  kv_random_args(rng, B, spec, rows, mask, dtype), dtype)
             if dtype == torch.bfloat16:
-                out["kv_cached_attention"].append(dict(
-                    shape=f"folded volumes @512 B={B}, {layout} layout", max_abs_err=err,
-                    ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                    library_ms=lib_ms, splits=grid[1]))
-            del args, q, kc, pos, pk, vs, pv, got, want, k_mat, v_mat
+                out["kv_cached_attention"].append(res)
         Fa, Pk = 7, 4096
         Nk = Fa * Pk + Nptr
-        q = rand(rng, (1, 1, Pk, C), dtype)
-        k, v = rand(rng, (1, 1, Nk, C), dtype), rand(rng, (1, 1, Nk, Dv), dtype)
+        q = rand(rng, (1, 1, Pk, 256), dtype)
+        k, v = rand(rng, (1, 1, Nk, 256), dtype), rand(rng, (1, 1, Nk, 64), dtype)
         m = np.ones((1, Nk), bool)
         m[:, 3 * Pk:4 * Pk] = False            # a stale ring target
         m[:, Fa * Pk + 8:] = False             # two pointers of 4 tokens
-        mask = torch.from_numpy(m).to(DEV)
-        got = A.flash_attention(q, k, v, kv_mask=mask)
-        want = A.flash_attention_plain(q.float(), k.float(), v.float(), kv_mask=mask)
-        err = (got.float() - want).abs().max().item()
-        tol = tolerance(want, dtype)
-        ms = graph_ms(lambda: A.flash_attention(q, k, v, kv_mask=mask))
-        plain_ms = cuda_ms(lambda: A.flash_attention_plain(q, k, v, kv_mask=mask), reps=3)
-        lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=mask[:, None, None, :]))
-        _, flops, nbytes = flash_work(1, 1, Pk, Nk, C, Dv, m, q.element_size())
-        bound_ms, bound_by = bound(flops, nbytes + m.size, dtype)
-        grid = bf16_grid(1, Pk, Nk) if dtype == torch.bfloat16 else (-(-Pk // 64), 1)
-        ok = err <= tol
-        print(f"[3c session kernel] flash_attention read-order cross-attention @1024, no LSE "
-              f"{[1, 1, Pk, Nk, C, Dv]} {dtype} max_abs_err {err:.3e} (tol {tol:.3e}) kernel "
-              f"{ms:.4f} ms plain {plain_ms:.3f} ms sdpa {lib_ms:.4f} ms bound {bound_ms:.4f} ms "
-              f"({bound_by}) | {rates(ms, flops, bound_ms, lib_ms, grid)} "
-              f"{'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError(f"flash_attention read-order inference {dtype}: err {err}")
+        res = check_read_order_flash("3c session kernel",
+                                     "read-order cross-attention @1024, no LSE", q, k, v,
+                                     torch.from_numpy(m).to(DEV), dtype)
         if dtype == torch.bfloat16:
-            out["flash_attention"].append(dict(
-                shape="read-order cross-attention @1024, no LSE", max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
-                splits=grid[1]))
-        del q, k, v, got, want
+            out["flash_attention"].append(res)
+        del q, k, v
     torch.cuda.empty_cache()
     return out
 
@@ -1847,11 +1904,357 @@ def phase_volumes_full_width(power_line: str):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Corrections on tracked frames, clear_non_cond_mem_around_input, and
+# training over the roped-key cache
+# ---------------------------------------------------------------------------
+
+# bf16 first-step train losses with the roped-key cache against without it,
+# relative: the cache rounds each memory's projected and rotated keys and
+# its positional half to bf16 apart and adds them in bf16, where the
+# per-frame projection rounds their sum once; about one bf16 ulp (2^-8) of
+# each key, reaching the logits as a random walk over the 4 layers x 4
+# tracked frames of phase 7's step: sqrt(16) x 2^-8 = 1.6e-2. A cache read
+# at a wrong slot, or without its positional half, moves the loss by O(1).
+TOL_KCACHE_LOSS = 2e-2
+
+
+def session_bank(spec, B: int, reverse: bool, clear=None):
+    """A bank as a session leaves it (the feature and pointer rings, no
+    payload): cond frame 0 and frames 1-10 tracked forward, read at frame 11;
+    or cond frame 15 and frames 14-4 tracked in reverse, read at frame 3.
+    ``clear`` = (center, radius) then invalidates that window. Returns
+    (bank, the frame read)."""
+    from medsam2_tpu_torch.state import memory_bank as MB
+
+    bank = MB.init_bank(spec, B, DEV)
+    cond, tracked, cur = (15, range(14, 3, -1), 3) if reverse else (0, range(1, 11), 11)
+    bank["cond_frame_idx"][:, 0] = cond
+    for f in tracked:
+        bank["noncond_frame_idx"][:, f % spec.noncond_ring] = f
+        bank["ptr_frame_idx"][:, f % spec.ptr_ring] = f
+    if clear is not None:
+        MB.clear_noncond_window(bank, *clear)
+    return bank, cur
+
+
+def dead_splits(kv_mask, nq: int):
+    """The kv splits of a bf16 launch at batch 1 (the wrapper's split rule
+    over 64-key tiles, ``bf16_grid``) in which ``kv_mask`` [1, Nk] leaves no
+    valid key."""
+    nk = kv_mask.shape[1]
+    tiles = -(-nk // 64)
+    per_split = -(-tiles // bf16_grid(1, nq, nk)[1]) * 64
+    return [i for i in range(-(-nk // per_split))
+            if not kv_mask[0, i * per_split:(i + 1) * per_split].any()]
+
+
+def phase_clear_kernels():
+    """Phase 3d: the kernel cases ``clear_non_cond_mem_around_input`` makes,
+    hiera_t @1024, bf16 and fp32, against the twins, timed as phase 3.
+    B1 at the read-order inference shape ([1,1,4096,28736], D 256 / Dv 64, no
+    LSE) read at frame 11 after frames 5-9 were cleared: read slots 1-5 are
+    holes, so kv splits 1 and 2 of 4 (7232 keys each) hold no valid key. B2
+    at the session shape (1 cond slot + 7 ring slots of 4096 keys, 64 pointer
+    tokens) after frames 8-10 were cleared, forward (read at 11) and reverse
+    (read at 3): ring slots 1-3, storage slots 2-4, mid-ring, so kv split 1
+    of 4 (129 tiles) holds no valid key. Masks from the bank's own readouts
+    (``read_bank``, ``kv_storage_layout``, ``read_ptrs``). A split without a
+    valid key must give the merge weight 0 and no NaN. Returns the bf16
+    results."""
+    from medsam2_tpu_torch.state import memory_bank as MB
+
+    rng = np.random.default_rng(9)
+    cfg = sam2_hiera_t()
+    spec = session_spec(cfg)
+    P, Nptr, D = spec.mem_spatial, spec.num_ptr_tokens, spec.mem_dim
+    out = {"kv_cached_attention": [], "flash_attention": []}
+    for dtype in (torch.bfloat16, torch.float32):
+        set_tf32(False)
+        bank, cur = session_bank(spec, 1, False, clear=(7, 2))
+        zeros = torch.zeros(cfg.num_maskmem, D, device=DEV)
+        valid = MB.read_bank(spec, bank, cur, zeros, torch.zeros(P, D, device=DEV))[2]
+        Nk = valid.shape[1]
+        dead = dead_splits(valid, P)
+        assert dead == [1, 2], dead
+        q = rand(rng, (1, 1, P, 256), dtype)
+        k, v = rand(rng, (1, 1, Nk, 256), dtype), rand(rng, (1, 1, Nk, 64), dtype)
+        res = check_read_order_flash(
+            "3d clear kernel", "read-order cross-attention @1024 after a clear, kv splits "
+            f"{dead} of the bf16 launch's 4 without a valid key", q, k, v, valid, dtype)
+        if dtype == torch.bfloat16:
+            out["flash_attention"].append(res)
+        del q, k, v
+        for reverse in (False, True):
+            bank, cur = session_bank(spec, 1, reverse, clear=(9, 1))
+            rows, slot_valid = MB.kv_storage_layout(spec, bank, cur, track_in_reverse=reverse)
+            ring = slot_valid[0, spec.max_cond_frames:].tolist()
+            assert [i for i, ok in enumerate(ring) if not ok][:3] == [1, 2, 3], ring
+            ptr_valid = MB.read_ptrs(spec, bank, cur, track_in_reverse=reverse)[1]
+            mask = torch.cat([slot_valid.repeat_interleave(P, dim=1), ptr_valid], dim=1)
+            assert dead_splits(mask, P) == [1], dead_splits(mask, P)
+            layout = "reverse" if reverse else "forward"
+            res = check_kv_cached(
+                "3d clear kernel", f"session @1024 B=1, {layout} layout, ring slots 1-3 "
+                "cleared (kv split 1 of the bf16 launch's 4 without a valid key)",
+                kv_random_args(rng, 1, spec, rows, mask, dtype), dtype)
+            if dtype == torch.bfloat16:
+                out["kv_cached_attention"].append(res)
+    torch.cuda.empty_cache()
+    return out
+
+
+def mask_at(size: int, cx: float, cy: float, r: float) -> np.ndarray:
+    yy, xx = np.mgrid[:size, :size]
+    return ((yy - cy) ** 2 + (xx - cx) ** 2 < r ** 2).astype(np.float32)
+
+
+def correction_session(model, video, readout: str):
+    """Two objects clicked on frame 0 (the disc, and a point at 70 %, 70 %),
+    propagate; a point correction of object 1 on frame 9 (its ring slot is
+    frame 2's) and a mask correction of object 2 on frame 5; propagate twice
+    (the third reuses the consolidated decodes). Returns the three (frames,
+    masks)."""
+    size = video.shape[1]
+    with readout_env(readout) as use_kcache:
+        pred = SAM2VideoPredictor(model, max_cond_frames=1, use_kcache=use_kcache)
+        state = pred.init_state(images=video)
+        pred.add_new_points(state, 0, 1, np.array([disc_point(size, 0)]), np.array([1]))
+        pred.add_new_points(state, 0, 2, np.array([[0.7 * size, 0.7 * size]]), np.array([1]))
+        outs = [pred.propagate_in_video_batch(state)]
+        pred.add_new_points(state, 9, 1, np.array([disc_point(size, 9), [0.1 * size] * 2]),
+                            np.array([1, 0]))
+        pred.add_new_mask(state, 5, 2, mask_at(size, 0.7 * size, 0.7 * size, 0.08 * size))
+        outs += [pred.propagate_in_video_batch(state), pred.propagate_in_video_batch(state)]
+    return outs
+
+
+def reverse_correction_session(model, video, readout: str):
+    """One object clicked on the last frame, tracked in reverse; a correction
+    on frame 3 (tracked in reverse, so its decode reads the frames after
+    it); reverse again. Returns the two (frames, masks)."""
+    size, T = video.shape[1], video.shape[0]
+    with readout_env(readout) as use_kcache:
+        pred = SAM2VideoPredictor(model, max_cond_frames=1, use_kcache=use_kcache)
+        state = pred.init_state(images=video)
+        pred.add_new_points(state, T - 1, 1, np.array([disc_point(size, T - 1)]), np.array([1]))
+        outs = [pred.propagate_in_video_batch(state, reverse=True)]
+        pred.add_new_points(state, 3, 1, np.array([disc_point(size, 3)]), np.array([1]))
+        outs.append(pred.propagate_in_video_batch(state, reverse=True))
+    return outs
+
+
+def clear_session(model, video, readout: str):
+    """``clear_non_cond_mem_around_input``, one object: clicks on frames 0
+    and 6 (visiting frame 6 clears the memories of frames 1-5 tracked
+    before it), propagate; a correction on frame 9 (it pops the retained
+    outputs of frames 2-16, its own included), then a resume from frame 10,
+    which warns that the correction had no effect. Returns the two (frames,
+    masks) and the warnings' count."""
+    import warnings
+
+    size = video.shape[1]
+    with readout_env(readout) as use_kcache:
+        pred = SAM2VideoPredictor(model, max_cond_frames=2, use_kcache=use_kcache,
+                                  clear_non_cond_mem_around_input=True)
+        state = pred.init_state(images=video)
+        for f in (0, 6):
+            pred.add_new_points(state, f, 1, np.array([disc_point(size, f)]), np.array([1]))
+        outs = [pred.propagate_in_video_batch(state)]
+        pred.add_new_points(state, 9, 1, np.array([disc_point(size, 9)]), np.array([1]))
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            outs.append(pred.propagate_in_video_batch(state, start_frame_idx=10))
+    return outs, len(caught)
+
+
+def phase_correction_parity():
+    """Phase 13a: sam2_hiera_t @512 fp32, TF32 off, kernels on the card
+    against the plain path on the CPU, in each readout: the correction
+    session (12 frames), the reverse correction session (8 frames) and the
+    clear session (12 frames). Low-res logits of every propagation to 1e-3."""
+    cfg = sam2_hiera_t(image_size=512, compute_dtype="float32")
+    set_tf32(False)
+    models = {d: SAM2Model(cfg, seed=0, device=d) for d in (DEV, "cpu")}
+    sessions = {"correction": (correction_session, volume(12, 512, seed=3)),
+                "reverse correction": (reverse_correction_session, volume(8, 512, seed=4)),
+                "clear": (clear_session, volume(12, 512, seed=5))}
+    with torch.no_grad():
+        for name, (run, video) in sessions.items():
+            for readout in READOUTS:
+                A.reset_launch_counts()
+                t0 = time.perf_counter()
+                cuda = run(models[DEV], video, readout)
+                torch.cuda.synchronize()
+                t_cuda = time.perf_counter() - t0
+                counts = A.launch_counts()
+                t0 = time.perf_counter()
+                cpu = run(models["cpu"], video, readout)
+                t_cpu = time.perf_counter() - t0
+                extra = ""
+                if name == "clear":
+                    (cuda, n_warn), (cpu, n_warn_cpu) = cuda, cpu
+                    extra = f", warnings {n_warn} / {n_warn_cpu}"
+                same_frames = [c[0] for c in cuda] == [c[0] for c in cpu]
+                err = max((c[1].cpu() - w[1]).abs().max().item() for c, w in zip(cuda, cpu))
+                finite = all(bool(torch.isfinite(c[1]).all()) for c in cuda)
+                ok = (same_frames and finite and err <= 1e-3 and counts["flash_attention"] > 0
+                      and (readout == "storage") == (counts["kv_cached_attention"] > 0)
+                      and (name != "clear" or n_warn == n_warn_cpu == 1))
+                print(f"[13 correction parity] sam2_hiera_t @512 fp32 TF32 off, {name} session, "
+                      f"{readout}: orders {[c[0] for c in cuda]} | cuda (launches {counts}) vs "
+                      f"cpu: low-res logits max_abs_err {err:.3e} (tol 1e-3, |logits| max "
+                      f"{max(w[1].abs().max().item() for w in cpu):.2f}){extra} | cuda "
+                      f"{t_cuda:.1f} s cpu {t_cpu:.1f} s {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"correction parity {name} {readout}: err {err}, "
+                                         f"launches {counts}")
+    del models
+    torch.cuda.empty_cache()
+
+
+def correction_launches(cfg, readout: str, T: int, corrections) -> dict:
+    """Kernel launches of a correction round (one object, cond frame 0, the
+    whole video tracked once before): a click on each frame of
+    ``corrections``, then the re-propagation over all T frames
+    (``readout_launches``). Encoded frames: each click's preview, the cond
+    frame's preflight, for each fresh correction at f its rebuilt ring (the
+    frames before it that the feature ring (7) or the pointer ring (15)
+    reaches, min(f - 1, 15)) and its decode, every tracked frame, and each
+    correction's memory re-encoded at its place in the order. Memory
+    attention runs for every tracked frame and every correction decode."""
+    spec = session_spec(cfg)
+    n = len(corrections)
+    tracked = T - 1 - n
+    window = sum(min(f - 1, max(spec.noncond_ring, spec.ptr_ring)) for f in corrections)
+    return readout_launches(cfg, readout, n + 1 + window + n + tracked + n, tracked + n)
+
+
+def phase_correction_full_width(power_line: str):
+    """Phase 13b: sam2_hiera_t @1024 bf16, 16 frames, a click on frame 0,
+    propagate; then the correction round a clinician feels: clicks on frames
+    5 and 12 and the re-propagation, host clock from the first click to the
+    end of the propagation (synchronised, after a warm-up session), in each
+    readout: exact launch counts, ms per tracked frame of the round, peak
+    memory, storage order against read order over the cache
+    (``TOL_READOUT``). Returns {readout: launch counts}."""
+    cfg = sam2_hiera_t()
+    T, corrections = 16, (5, 12)
+    video = volume(T, 512, seed=2)
+    size = video.shape[1]
+    set_tf32(False)
+    model = SAM2Model(cfg, seed=0, device=DEV)
+    counts, masks = {}, {}
+    for readout in READOUTS:
+        with readout_env(readout) as use_kcache, torch.no_grad():
+            for rep in range(2):                                 # warm-up, then timed
+                pred = SAM2VideoPredictor(model, max_cond_frames=1, use_kcache=use_kcache)
+                state = pred.init_state(images=video)
+                pred.add_new_points(state, 0, 1, np.array([disc_point(size, 0)]), np.array([1]))
+                pred.propagate_in_video_batch(state)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                A.reset_launch_counts()
+                t0 = time.perf_counter()
+                for f in corrections:
+                    pred.add_new_points(state, f, 1, np.array([disc_point(size, f)]),
+                                        np.array([1]))
+                frames, m = pred.propagate_in_video_batch(state)
+                torch.cuda.synchronize()
+                round_ms = (time.perf_counter() - t0) * 1e3
+        counts[readout] = A.launch_counts()
+        masks[readout] = m.float()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        tracked = T - 1 - len(corrections)
+        want = correction_launches(cfg, readout, T, corrections)
+        finite = bool(torch.isfinite(m).all())
+        shapes = tuple(m.shape) == (T, 1, 1, 256, 256) and frames == list(range(T))
+        consolidated = state["corr_consolidated"] == set(corrections)
+        ok = counts[readout] == want and finite and shapes and consolidated
+        print(f"[13 correction full width] sam2_hiera_t @1024 bf16, {readout}, {T} frames, "
+              f"click on frame 0 then correction clicks on frames {list(corrections)}: round "
+              f"(clicks + re-propagation) {round_ms:.2f} ms = {round_ms / tracked:.2f} ms per "
+              f"tracked frame ({tracked} tracked, {len(corrections)} correction decodes and "
+              f"their rebuilt rings included) | launches {counts[readout]} expected {want} | "
+              f"finite {finite} shapes {shapes} consolidated {consolidated} | peak memory "
+              f"{peak:.2f} GiB | {power_line} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"correction full width {readout}: launches {counts[readout]} "
+                                 f"vs {want}, finite {finite}, shapes {shapes}")
+    scale = masks["storage"].abs().max().item()
+    err = (masks["storage"] - masks["read_kcache"]).abs().max().item()
+    ok = err <= TOL_READOUT * scale
+    print(f"[13 correction full width] storage order vs read_kcache after the correction round: "
+          f"low-res logits max_abs_err {err:.3e} = {err / scale:.3e} of max|logits| {scale:.2f} "
+          f"(tol {TOL_READOUT:.0e} of max) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"correction round storage vs read_kcache: err {err} of {scale}")
+    del model
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_train_kcache_full_width(power_line: str):
+    """Phase 14b: phase 7's bf16 train step (sam2_hiera_t @512, 8 frames, 2
+    objects) with the roped-key cache on against off, in turns off, on, on,
+    off, each run a fresh seeded model, a warm-up step and 3 timed steps:
+    seconds per step, exact launch counts (equal: the cache changes where
+    the cross-attention's keys come from, not the calls), the first step's
+    losses on against off (``TOL_KCACHE_LOSS``). Returns the cache-on
+    counts over 3 steps."""
+    cfg = sam2_hiera_t(image_size=512)
+    batch = train_batch(8, 2, cfg.image_size, 4, seed=0)
+    set_tf32(False)
+    secs, first, counts = {False: [], True: []}, {}, {}
+    for use_kcache in (False, True, True, False):
+        rcfg = recipe_3d.Recipe3DConfig(video_length=8, prompt_freq=2, num_objects=2,
+                                        max_cond_frames=4, use_kcache=use_kcache)
+        model = SAM2Model(cfg, seed=0, device=DEV)
+        step = recipe_3d.make_train_step(model, rcfg, recipe_3d.make_optimizers(model, rcfg))
+        gen = torch.Generator(device=DEV).manual_seed(0)
+        m0 = step(batch, gen)
+        first.setdefault(use_kcache, {k: float(v) for k, v in m0.items()})
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        A.reset_launch_counts()
+        t0 = time.perf_counter()
+        losses = [step(batch, gen) for _ in range(3)]
+        torch.cuda.synchronize()
+        secs[use_kcache].append((time.perf_counter() - t0) / 3)
+        counts[use_kcache] = A.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        finite = all(np.isfinite(float(m[k])) for m in losses for k in m)
+        want = {k: 3 * n for k, n in train_launches(cfg, rcfg, bf16=True).items()}
+        ok = finite and counts[use_kcache] == want
+        print(f"[14 train kcache] sam2_hiera_t @512 bf16, 8 frames, 2 objects, use_kcache "
+              f"{use_kcache}: {secs[use_kcache][-1]:.3f} s per step | first-step losses "
+              f"{first[use_kcache]['prompt_loss']:.5f}/{first[use_kcache]['non_prompt_loss']:.5f} "
+              f"finite {finite} | launches over 3 steps {counts[use_kcache]} expected {want} | "
+              f"peak memory {peak:.2f} GiB | {power_line} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"train kcache {use_kcache}: launches {counts[use_kcache]} vs "
+                                 f"{want}, finite {finite}")
+        del model, step
+    err = max(abs(first[True][k] - first[False][k]) / abs(first[False][k])
+              for k in ("prompt_loss", "non_prompt_loss"))
+    ok = err <= TOL_KCACHE_LOSS
+    on, off = np.mean(secs[True]), np.mean(secs[False])
+    print(f"[14 train kcache] on vs off: {on:.3f} vs {off:.3f} s per step ({on / off:.3f}x; runs "
+          f"on {', '.join(f'{x:.3f}' for x in secs[True])}, off "
+          f"{', '.join(f'{x:.3f}' for x in secs[False])}) | first-step losses rel err "
+          f"{err:.3e} (tol {TOL_KCACHE_LOSS:.0e}) | {power_line} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"train kcache on vs off: loss rel err {err}")
+    torch.cuda.empty_cache()
+    return counts[True]
+
+
 def main() -> None:
     power_line = phase_device()
     phase_build()
     best = phase_kernels()
     session_shapes = phase_session_kernels()
+    clear_shapes = phase_clear_kernels()
     best.update(phase_train_kernels())
     phase_e2e_parity()
     paths = {"propagation": phase_full_width(power_line)}
@@ -1866,10 +2269,17 @@ def main() -> None:
         paths[f"3d session {readout}"] = c
     for form, c in phase_volumes_full_width(power_line).items():
         paths[f"3d volumes {form}"] = c
+    phase_correction_parity()
+    for readout, c in phase_correction_full_width(power_line).items():
+        paths[f"correction round {readout}"] = c
+    phase_train_parity(use_kcache=True)
+    paths["training kcache"] = phase_train_kcache_full_width(power_line)
     rows = []
     for name in KERNELS:
         by_path = {p: c[name] for p, c in paths.items() if c.get(name)}
-        extra = {"session_shapes": session_shapes[name]} if name in session_shapes else {}
+        extra = {key: shapes[name] for key, shapes in (("session_shapes", session_shapes),
+                                                       ("clear_shapes", clear_shapes))
+                 if name in shapes}
         rows.append(dict(name=name, route="cuda", **KERNELS[name],
                          launches=sum(by_path.values()), launches_by_path=by_path,
                          **best[name], **extra))

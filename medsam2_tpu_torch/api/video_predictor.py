@@ -18,16 +18,27 @@ session) first re-encodes their memories into the ring
 (:meth:`SAM2VideoPredictor._reconstruct_ring`), as the reference's
 persistent output dict still holds them.
 
+A prompt on a frame that was already tracked is a correction
+(``sam2_video_predictor.py:292-399``), kept out of the conditioning frames
+unless ``add_all_frames_to_correct_as_cond``. The next propagation decodes it
+memory-conditioned against the bank as it stood when the frame was tracked
+(rebuilt from the retained outputs, so two corrections of one round do not
+see each other), in the direction it was tracked; the decode is spliced into
+the frame order and its memory re-encoded there. A later propagation reuses
+the stored decode until the frame is clicked again. With
+``clear_non_cond_mem_around_input`` the non-cond memories and retained
+outputs within ``num_maskmem * r`` frames of a newly prompted frame are
+dropped, as the reference does (``:1424-1440``).
+
 The memory readout is chosen as the JAX package chooses it: storage order
 over the bank's roped-key cache (the default), read order over the same
 cache (``MEDSAM2_KV_STORAGE=0``), or read order over raw memory tokens
-(``use_kcache=False``). :func:`propagate_volumes_batched` streams several
-volumes, folded onto the batch axis of one bank (``MEDSAM2_FOLD``) or one
-after another.
+(``use_kcache=False``); a correction decode reads as the tracked frames do.
+:func:`propagate_volumes_batched` streams several volumes, folded onto the
+batch axis of one bank (``MEDSAM2_FOLD``) or one after another.
 
 Not ported yet, and raising ``NotImplementedError`` with a pointer to
-``ROADMAP.md``: corrections on tracked frames,
-``clear_non_cond_mem_around_input`` and ``propagate_volumes_batched(mesh=...)``.
+``ROADMAP.md``: ``propagate_volumes_batched(mesh=...)``.
 
 :func:`_prompt_step` is also the 3D training recipe's prompt-frame step: with
 grad enabled it is differentiable and returns ``pred_masks_high_res``.
@@ -38,6 +49,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import os
+import warnings
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -61,10 +73,12 @@ def _kv_storage_enabled() -> bool:
 class SAM2VideoPredictor:
     def __init__(self, model: SAM2Model, max_cond_frames: int = 8,
                  fill_hole_area: int = 0, non_overlap_masks: bool = False,
-                 use_kcache: bool = True, clear_non_cond_mem_around_input: bool = False):
-        if clear_non_cond_mem_around_input:
-            raise NotImplementedError("clear_non_cond_mem_around_input is not ported yet "
-                                      "(ROADMAP.md, queue A)")
+                 use_kcache: bool = True, clear_non_cond_mem_around_input: bool = False,
+                 clear_non_cond_mem_for_multi_obj: bool = False):
+        # clearing acts on single-object sessions only, unless the
+        # multi-object flag is set (sam2_video_predictor.py:935-937)
+        self.clear_non_cond_mem_around_input = clear_non_cond_mem_around_input
+        self.clear_non_cond_mem_for_multi_obj = clear_non_cond_mem_for_multi_obj
         self.model = model
         self.cfg = model.cfg
         self.max_cond_frames = max_cond_frames
@@ -155,11 +169,18 @@ class SAM2VideoPredictor:
             "point_inputs_per_obj": {},      # {obj_idx: {frame: (coords, labels)}}
             "mask_inputs_per_obj": {},       # {obj_idx: {frame: [S, S] 0/1 mask}}
             "cond_frame_idx": set(),
+            # corrections: prompts on tracked frames that stay non-cond
+            "noncond_prompt_frame_idx": set(),
             "frames_tracked": {},            # {frame: tracked in reverse}
             # each tracked frame's outputs as (stack, row): low-res mask
             # logits [T, B, 1, h4, w4] and object pointers [T, B, C]
             "last_masks": {},
             "last_ptrs": {},
+            # corrections whose decode a propagation has consumed: later
+            # rounds reuse it until the frame is clicked again
+            "corr_consolidated": set(),
+            # frames prompted since the last propagation
+            "new_prompt_frames": set(),
             "tracked": False,
             "is_eval": True,
         }
@@ -188,8 +209,10 @@ class SAM2VideoPredictor:
         """Forget every object, prompt and tracked output; keep the
         session's frames."""
         state.update(obj_id_to_idx={}, obj_ids=[], point_inputs_per_obj={},
-                     mask_inputs_per_obj={}, cond_frame_idx=set(), frames_tracked={},
-                     last_masks={}, last_ptrs={}, tracked=False)
+                     mask_inputs_per_obj={}, cond_frame_idx=set(),
+                     noncond_prompt_frame_idx=set(), frames_tracked={}, last_masks={},
+                     last_ptrs={}, corr_consolidated=set(), new_prompt_frames=set(),
+                     tracked=False)
 
     # ------------------------------------------------------------------
     # Prompts
@@ -206,18 +229,27 @@ class SAM2VideoPredictor:
             state["mask_inputs_per_obj"][state["obj_id_to_idx"][obj_id]] = {}
         return state["obj_id_to_idx"][obj_id]
 
-    def _check_cond_frame(self, state, frame_idx: int) -> None:
-        if (frame_idx in state["frames_tracked"] and frame_idx not in state["cond_frame_idx"]
-                and not self.cfg.add_all_frames_to_correct_as_cond):
-            raise NotImplementedError("corrections on tracked frames are not ported yet "
-                                      "(ROADMAP.md, queue A)")
+    def _record_prompt_frame(self, state, frame_idx: int) -> None:
+        """Classify a prompted frame (``video_predictor._record_prompt_frame``):
+        a frame not yet tracked is a conditioning frame; a tracked one is a
+        correction, non-cond unless ``add_all_frames_to_correct_as_cond``
+        (``sam2_video_predictor.py:292-341``). A new click re-opens a
+        consolidated correction."""
+        state["corr_consolidated"].discard(frame_idx)
+        state["new_prompt_frames"].add(frame_idx)
+        if (frame_idx in state["frames_tracked"]
+                and not self.cfg.add_all_frames_to_correct_as_cond
+                and frame_idx not in state["cond_frame_idx"]):
+            state["noncond_prompt_frame_idx"].add(frame_idx)
+        else:
+            state["noncond_prompt_frame_idx"].discard(frame_idx)
+            state["cond_frame_idx"].add(frame_idx)
 
     def add_new_points(self, state, frame_idx: int, obj_id, points, labels,
                        clear_old_points: bool = True, normalize_coords: bool = True):
         """Record click prompts (video-resolution pixels unless
         ``normalize_coords=False``); returns (frame_idx, obj_ids, low-res mask
         logits preview [B, 1, h4, w4])."""
-        self._check_cond_frame(state, frame_idx)
         obj_idx = self._obj_idx(state, obj_id)
         points = np.asarray(points, np.float32).reshape(-1, 2)
         labels = np.asarray(labels, np.int32).reshape(-1)
@@ -231,7 +263,7 @@ class SAM2VideoPredictor:
             labels = np.concatenate([old_l, labels], 0)
         store[frame_idx] = (points, labels)
         state["mask_inputs_per_obj"][obj_idx].pop(frame_idx, None)
-        state["cond_frame_idx"].add(frame_idx)
+        self._record_prompt_frame(state, frame_idx)
         return self._preview(state, frame_idx)
 
     def add_new_bbox(self, state, frame_idx: int, obj_id, bbox,
@@ -247,7 +279,6 @@ class SAM2VideoPredictor:
         bilinearly to the model and re-binarised at 0.5
         (``video_predictor.add_new_mask``); the object takes the
         mask-as-output path on this frame."""
-        self._check_cond_frame(state, frame_idx)
         obj_idx = self._obj_idx(state, obj_id)
         S = self.cfg.image_size
         m = torch.as_tensor(np.asarray(mask, np.float32))
@@ -256,7 +287,7 @@ class SAM2VideoPredictor:
                  > 0.5).float()
         state["mask_inputs_per_obj"][obj_idx][frame_idx] = m.numpy()
         state["point_inputs_per_obj"][obj_idx].pop(frame_idx, None)
-        state["cond_frame_idx"].add(frame_idx)
+        self._record_prompt_frame(state, frame_idx)
         return self._preview(state, frame_idx)
 
     @torch.no_grad()
@@ -267,11 +298,11 @@ class SAM2VideoPredictor:
         out, _ = self._run_prompt_frame(state, bank, frame_idx, spec)
         return frame_idx, list(state["obj_ids"]), out["pred_masks"]
 
-    def _run_prompt_frame(self, state, bank, frame_idx: int, spec: mb.BankSpec):
-        """Assemble per-object prompts (padded to the frame's max point count
-        with label -1) and run the prompt step. An object with a mask prompt,
-        or without a prompt on this conditioning frame (an empty mask), takes
-        the mask-as-output path."""
+    def _frame_prompts(self, state, frame_idx: int):
+        """Per-object prompts of a frame, as numpy: point coords [B, P, 2]
+        and labels [B, P] padded to the frame's max point count with label
+        -1, mask prompts [B, S, S, 1], which objects have points and which a
+        mask (and no points), and the max point count."""
         B = len(state["obj_ids"])
         S = self.cfg.image_size
         P = max(1, min(self.cfg.max_prompt_points, max(
@@ -279,29 +310,56 @@ class SAM2VideoPredictor:
              for o in range(B)), default=1)))
         coords = np.zeros((B, P, 2), np.float32)
         labels = -np.ones((B, P), np.int32)
-        use_mask = np.zeros((B,), bool)
         mask_inputs = np.zeros((B, S, S, 1), np.float32)
+        has_pts = np.zeros((B,), bool)
+        has_mask = np.zeros((B,), bool)
         max_pts = 0
         for o in range(B):
             pts = state["point_inputs_per_obj"][o].get(frame_idx)
-            if pts is None:
-                use_mask[o] = True
-                msk = state["mask_inputs_per_obj"][o].get(frame_idx)
-                if msk is not None:
-                    mask_inputs[o, :, :, 0] = msk
-                continue
-            c, l = pts
-            n = min(len(l), P)
-            coords[o, :n] = c[:n]
-            labels[o, :n] = l[:n]
-            max_pts = max(max_pts, n)
+            msk = state["mask_inputs_per_obj"][o].get(frame_idx)
+            if pts is not None:
+                c, l = pts
+                n = min(len(l), P)
+                coords[o, :n] = c[:n]
+                labels[o, :n] = l[:n]
+                has_pts[o] = True
+                max_pts = max(max_pts, n)
+            elif msk is not None:
+                mask_inputs[o, :, :, 0] = msk
+                has_mask[o] = True
+        return coords, labels, mask_inputs, has_pts, has_mask, max_pts
+
+    def _run_prompt_frame(self, state, bank, frame_idx: int, spec: mb.BankSpec,
+                          write_cond: bool = True):
+        """Run the prompt step on a frame's prompts. An object with a mask
+        prompt, or without a prompt on this conditioning frame (an empty
+        mask), takes the mask-as-output path. ``write_cond=False`` writes the
+        memory to the non-cond ring (a correction frame without retained
+        outputs)."""
+        coords, labels, mask_inputs, has_pts, _, max_pts = self._frame_prompts(state, frame_idx)
         dev = self.device
         return _prompt_step(
             self.model, self._session_images(state), bank, frame_idx,
             torch.from_numpy(coords).to(dev), torch.from_numpy(labels).to(dev),
-            torch.from_numpy(mask_inputs).to(dev), use_mask, spec=spec,
+            torch.from_numpy(mask_inputs).to(dev), ~has_pts, spec=spec,
             multimask_output=use_multimask(self.cfg, True, max_pts),
-            is_eval=state["is_eval"], num_frames=state["num_frames"])
+            is_eval=state["is_eval"], num_frames=state["num_frames"], write_cond=write_cond)
+
+    def _assemble_correction(self, state, frame_idx: int):
+        """Inputs of a correction decode (``video_predictor._assemble_correction``):
+        the frame's prompts, per-object ``corrected`` (points) and
+        ``use_mask`` (a mask prompt) flags, its retained outputs and the
+        multimask choice. Objects without a prompt on the frame keep their
+        previous output."""
+        coords, labels, mask_inputs, has_pts, has_mask, max_pts = self._frame_prompts(
+            state, frame_idx)
+        dev = self.device
+        prev_low, prev_ptr = self._last_output(state, frame_idx)
+        return dict(coords=torch.from_numpy(coords).to(dev),
+                    labels=torch.from_numpy(labels).to(dev),
+                    mask_inputs=torch.from_numpy(mask_inputs).to(dev), use_mask=has_mask,
+                    corrected=has_pts, prev_low=prev_low, prev_ptr=prev_ptr,
+                    multimask_output=use_multimask(self.cfg, False, max_pts))
 
     # ------------------------------------------------------------------
     # Propagation
@@ -335,7 +393,16 @@ class SAM2VideoPredictor:
         w4]). The order spans ``max_frame_num_to_track + 1`` frames from
         ``start_frame_idx`` (default: the first prompt frame), forward or, with
         ``reverse``, backward; reverse from frame 0 is empty
-        (``sam2_video_predictor.py:1063-1079``)."""
+        (``sam2_video_predictor.py:1063-1079``).
+
+        The preflight writes the cond memories and decodes each fresh
+        correction against the bank of its own tracking (cond memories plus
+        the ring rebuilt from the retained outputs, a copy); consolidated
+        corrections reuse their stored decode, and a correction frame with no
+        retained output takes the memoryless prompt decode. At a correction
+        frame of the order the run is flushed, the decode spliced in and its
+        memory re-encoded as mask-from-points; at a cond frame, with clearing
+        active, the surrounding non-cond memories are dropped."""
         if not state["cond_frame_idx"]:
             raise RuntimeError("No prompts added; call add_new_points first.")
         state["tracked"] = True
@@ -351,11 +418,46 @@ class SAM2VideoPredictor:
         if max_frame_num_to_track is None:
             max_frame_num_to_track = num_frames
         images = self._session_images(state)
+        kv_on = self.use_kcache and _kv_storage_enabled()
+        is_eval = state["is_eval"]
 
         stored = {}
         for f in cond_frames:
             out, bank = self._run_prompt_frame(state, bank, f, spec)
             stored[f] = (out["pred_masks"].float(), out["obj_ptr"].float())
+        fresh_corr, corr_reuse, corr_mem = set(), {}, {}
+        for f in sorted(state["noncond_prompt_frame_idx"]):
+            if f not in state["last_masks"]:
+                out, bank = self._run_prompt_frame(state, bank, f, spec, write_cond=False)
+                stored[f] = (out["pred_masks"].float(), out["obj_ptr"].float())
+                corr_mem[f] = (out["maskmem_features"], out["obj_ptr"])
+            elif f in state["corr_consolidated"]:
+                corr_reuse[f] = self._last_output(state, f)
+            else:
+                fresh_corr.add(f)
+                # decoded in the direction the frame was tracked, against a
+                # copy: the preflight's bank does not change
+                rev_f = state["frames_tracked"][f]
+                bank_f = {k: v.clone() for k, v in bank.items()}
+                bank_f, _ = self._reconstruct_ring(state, images, bank_f, f, rev_f, spec)
+                out, _ = _correction_step(
+                    model, images, bank_f, f, **self._assemble_correction(state, f), spec=spec,
+                    is_eval=is_eval, num_frames=num_frames, track_in_reverse=rev_f,
+                    pos_kcache=pos_kcache, kv_storage=kv_on)
+                corr_reuse[f] = (out["pred_masks"].float(), out["obj_ptr"].float())
+
+        # clear_non_cond_mem_around_input, preflight half: after the
+        # correction decodes (click time in the reference), pop the retained
+        # outputs around each newly prompted frame, non-cond frames first
+        clear_active = (self.clear_non_cond_mem_around_input
+                        and (self.clear_non_cond_mem_for_multi_obj or B <= 1))
+        clear_w = self.cfg.memory_temporal_stride_for_eval * self.cfg.num_maskmem
+        if clear_active:
+            new = state["new_prompt_frames"]
+            for c in (sorted(new & state["noncond_prompt_frame_idx"])
+                      + sorted(new & state["cond_frame_idx"])):
+                self._pop_retention_window(state, c, clear_w)
+        state["new_prompt_frames"] = set()
 
         if reverse:
             end = max(start_frame_idx - max_frame_num_to_track, 0)
@@ -366,19 +468,60 @@ class SAM2VideoPredictor:
         if not order:
             return [], torch.zeros((0, B, 1, 1, 1), device=self.device)
 
-        bank, _ = self._reconstruct_ring(state, images, bank, order[0], reverse, spec)
+        bank, window = self._reconstruct_ring(state, images, bank, order[0], reverse, spec)
+
+        def at_stored(f: int, bank):
+            """Bank work at a spliced frame, after the run before it."""
+            if f in corr_reuse:
+                return _reencode_memory(model, images, bank, f, *corr_reuse[f], spec=spec,
+                                        is_eval=is_eval, mask_from_pts=True)
+            if clear_active and f in state["cond_frame_idx"]:
+                bank = mb.clear_noncond_window(bank, f, clear_w)
+            if f in corr_mem:
+                # the fallback decode's memory, restored: a frame sharing its
+                # ring slot may have overwritten it since the preflight
+                feats_f, ptr_f = corr_mem[f]
+                kcache = (model.memory_kcache(feats_f, bank["kcache"].dtype)
+                          if "kcache" in bank else None)
+                bank = mb.write_bank(spec, bank, f, feats_f, ptr_f, is_cond=False,
+                                     kcache=kcache)
+            return bank
+
         trunk_pe = _trunk_pos_embed(model, images)
         masks, ptrs = _run_segments(
-            model, images, bank, order, stored, spec=spec, pos_kcache=pos_kcache,
-            trunk_pe=trunk_pe, num_frames=num_frames, is_eval=state["is_eval"],
-            track_in_reverse=reverse, kv_storage=self.use_kcache and _kv_storage_enabled())
+            model, images, bank, order, {**stored, **corr_reuse}, at_stored=at_stored,
+            spec=spec, pos_kcache=pos_kcache, trunk_pe=trunk_pe, num_frames=num_frames,
+            is_eval=is_eval, track_in_reverse=reverse, kv_storage=kv_on)
         keep_m, keep_p = masks, ptrs
         if state["offload_state"]:
             keep_m, keep_p = masks.cpu().numpy(), ptrs.cpu().numpy()
+        pre_keys = set(state["last_masks"])
         for i, f in enumerate(order):
             state["frames_tracked"][f] = reverse
             state["last_masks"][f] = (keep_m, i)
             state["last_ptrs"][f] = (keep_p, i)
+        if clear_active:
+            # replay the run's writes and clears over the retained outputs: a
+            # non-cond frame cleared at a cond frame and not tracked again
+            # since offers no output to later corrections or resumes
+            cond_set = state["cond_frame_idx"]
+            held = {f for f in pre_keys if f not in cond_set}
+            for f in order:
+                if f in cond_set:
+                    held.difference_update(range(f - clear_w, f + clear_w + 1))
+                else:
+                    held.add(f)
+            for p in [f for f in state["last_masks"] if f not in cond_set and f not in held]:
+                state["last_masks"].pop(p)
+                state["last_ptrs"].pop(p)
+        state["corr_consolidated"].update(fresh_corr & set(order))
+        missed = ((fresh_corr - set(order))
+                  | (set(corr_reuse) - fresh_corr - set(order) - set(window)))
+        if missed:
+            warnings.warn(
+                f"corrections on frames {sorted(missed)} are outside this propagation's frame "
+                "order (and its resume window) and had no effect; re-propagate with an order "
+                "covering them.", stacklevel=2)
         return order, masks
 
     def _reconstruct_ring(self, state, images, bank, anchor: int, reverse: bool,
@@ -388,7 +531,10 @@ class SAM2VideoPredictor:
         as the feature ring and the (possibly longer) pointer ring reach
         (``video_predictor._reconstruct_ring``). They are written oldest in
         scan time first, so frames that share a ring slot leave it as a
-        continuous scan would. Returns (bank, the re-encoded frames)."""
+        continuous scan would; consolidated corrections re-encode as
+        mask-from-points. A tracked frame whose output was popped by
+        ``clear_non_cond_mem_around_input`` still owns its ring slots but adds
+        no memory. Returns (bank, the re-encoded frames)."""
         window: List[int] = []
         step = -1 if reverse else 1
         owned_f: set = set()
@@ -403,13 +549,26 @@ class SAM2VideoPredictor:
                 break
             owned_f.add(j % spec.noncond_ring)
             owned_p.add(j % spec.ptr_ring)
-            window.append(j)
+            if j in state["last_masks"]:
+                window.append(j)
             j -= step
         for wf in reversed(window):
             prev_low, prev_ptr = self._last_output(state, wf)
             bank = _reencode_memory(self.model, images, bank, wf, prev_low, prev_ptr,
-                                    spec=spec, is_eval=state["is_eval"])
+                                    spec=spec, is_eval=state["is_eval"],
+                                    mask_from_pts=wf in state["corr_consolidated"])
         return bank, window
+
+    @staticmethod
+    def _pop_retention_window(state, center: int, radius: int) -> None:
+        """Drop the retained outputs of the non-cond frames within
+        ``[center - radius, center + radius]``: the session half of
+        ``_clear_non_cond_mem_around_input``. ``frames_tracked`` keeps them,
+        as the reference's ``frames_already_tracked`` does."""
+        for p in range(center - radius, center + radius + 1):
+            if p not in state["cond_frame_idx"]:
+                state["last_masks"].pop(p, None)
+                state["last_ptrs"].pop(p, None)
 
     def _last_output(self, state, frame_idx: int):
         """The frame's retained (mask logits [B, 1, h4, w4], object pointer
@@ -535,10 +694,12 @@ def _expand(xs, B: int):
 
 def _prompt_step(model: SAM2Model, images, bank, frame_idx: int, coords, labels,
                  mask_inputs, use_mask: np.ndarray, *, spec: mb.BankSpec,
-                 multimask_output: bool, is_eval: bool, num_frames: int):
+                 multimask_output: bool, is_eval: bool, num_frames: int,
+                 write_cond: bool = True):
     """Conditioning-frame step (``video_predictor._prompt_step``): encode,
     run the point path and/or the mask-as-output path per object, encode and
-    write the cond memory. A path no object takes is skipped (its outputs
+    write the memory, to a cond slot or with ``write_cond=False`` to the
+    non-cond ring. A path no object takes is skipped (its outputs
     would be selected away, and so would its gradients). Differentiable when
     grad is enabled (the 3D recipe's prompt frames); the bank is then a new
     dict. Returns (outputs with ``pred_masks``, ``pred_masks_high_res``,
@@ -581,19 +742,79 @@ def _prompt_step(model: SAM2Model, images, bank, frame_idx: int, coords, labels,
         apply_non_overlap=(cfg.non_overlap_masks_for_mem_enc and is_eval))
     kcache = (model.memory_kcache(maskmem, bank["kcache"].dtype)
               if "kcache" in bank else None)
-    bank = mb.write_bank(spec, bank, frame_idx, maskmem, obj_ptr, is_cond=True,
+    bank = mb.write_bank(spec, bank, frame_idx, maskmem, obj_ptr, is_cond=write_cond,
                          kcache=kcache)
     return {"pred_masks": low_res, "pred_masks_high_res": high_res_masks, "obj_ptr": obj_ptr,
             "object_score_logits": obj_score, "maskmem_features": maskmem}, bank
 
 
+def _correction_step(model: SAM2Model, images, bank, frame_idx: int, *, coords, labels,
+                     mask_inputs, use_mask: np.ndarray, corrected: np.ndarray, prev_low,
+                     prev_ptr, spec: mb.BankSpec, multimask_output: bool, is_eval: bool,
+                     num_frames: int, track_in_reverse: bool, pos_kcache=None,
+                     kv_storage: bool = False):
+    """Correction-frame step (``video_predictor._correction_step``, the
+    reference's re-prompt, ``sam2_video_predictor.py:293-399``): objects
+    corrected by points decode memory-conditioned, with their previous logits
+    clamped to +/-32 fed back as a mask prompt; objects with a mask take the
+    mask-as-output path; the others keep their previous output. The selection
+    is encoded with ``is_mask_from_pts=True`` and written to the non-cond
+    ring. A path no object takes is skipped. prev_low [B, 1, h4, w4] and
+    prev_ptr [B, C]: the frame's retained outputs. Returns ({pred_masks,
+    obj_ptr}, bank)."""
+    cfg = model.cfg
+    S = cfg.image_size
+    B = coords.shape[0]
+    feats, pos = _encode_frame(model, _select_frame(images, frame_idx))
+    feats, pos = _expand(feats, B), _expand(pos, B)
+    high_res = feats[:-1] if len(feats) > 1 else None
+    dev = feats[-1].device
+    prev_low = prev_low.float()
+    low_res = prev_low
+    high_res_masks = layers.interpolate(prev_low.permute(0, 2, 3, 1), (S, S),
+                                        method="bilinear").permute(0, 3, 1, 2)
+    obj_ptr = prev_ptr
+
+    def pick(sel: np.ndarray, new, old):
+        m = torch.from_numpy(sel).to(dev).reshape((B,) + (1,) * (new.ndim - 1))
+        return torch.where(m, new.to(old.dtype), old)       # old: fp32, as JAX promotes
+
+    for sel, path in ((corrected, "points"), (use_mask, "mask")):
+        if not sel.any():
+            continue
+        if path == "points":
+            pix = model.prepare_memory_conditioned_features(
+                spec, bank, frame_idx, False, feats[-1], pos[-1], num_frames=num_frames,
+                is_eval=is_eval, pos_kcache=pos_kcache, track_in_reverse=track_in_reverse,
+                kv_storage=kv_storage)
+            sam = model.forward_sam_heads(
+                pix, point_inputs={"point_coords": coords, "point_labels": labels},
+                mask_inputs=prev_low.clamp(-32.0, 32.0).permute(0, 2, 3, 1),
+                high_res_features=high_res, multimask_output=multimask_output,
+                eval_dynamic_multimask=is_eval)
+        else:
+            sam = model.use_mask_as_output(feats[-1], high_res, mask_inputs)
+        low_res = pick(sel, sam.low_res_masks, low_res)
+        high_res_masks = pick(sel, sam.high_res_masks, high_res_masks)
+        obj_ptr = pick(sel, sam.obj_ptr, obj_ptr)
+    maskmem, _ = model.encode_new_memory(
+        feats[-1], high_res_masks, is_mask_from_pts=True, binarize=is_eval,
+        apply_non_overlap=(cfg.non_overlap_masks_for_mem_enc and is_eval))
+    kcache = (model.memory_kcache(maskmem, bank["kcache"].dtype)
+              if "kcache" in bank else None)
+    bank = mb.write_bank(spec, bank, frame_idx, maskmem, obj_ptr, is_cond=False,
+                         kcache=kcache)
+    return {"pred_masks": low_res, "obj_ptr": obj_ptr}, bank
+
+
 def _reencode_memory(model: SAM2Model, images, bank, frame_idx: int, prev_low, prev_ptr, *,
-                     spec: mb.BankSpec, is_eval: bool):
-    """Re-encode a tracked frame's memory from its stored output (mask
-    logits [B, 1, h4, w4] and pointer [B, C]) as its track-time encode did,
-    and write it to the non-cond ring without decoding again (the JAX
-    package's ``_reencode_correction`` with ``mask_from_pts=False``).
-    Returns the bank (in place under ``torch.no_grad``)."""
+                     spec: mb.BankSpec, is_eval: bool, mask_from_pts: bool = False):
+    """Re-encode a frame's memory from its stored output (mask logits
+    [B, 1, h4, w4] and pointer [B, C]) and write it to the non-cond ring
+    without decoding again (``video_predictor._reencode_correction``):
+    ``mask_from_pts=False`` as a tracked frame's encode did (the ring of a
+    resume), True as a correction's consolidation encodes. Returns the bank
+    (in place under ``torch.no_grad``)."""
     cfg = model.cfg
     S = cfg.image_size
     feats, _ = _encode_frame(model, _select_frame(images, frame_idx))
@@ -601,7 +822,7 @@ def _reencode_memory(model: SAM2Model, images, bank, frame_idx: int, prev_low, p
     prev_high = layers.interpolate(prev_low.float().permute(0, 2, 3, 1), (S, S),
                                    method="bilinear").permute(0, 3, 1, 2)
     maskmem, _ = model.encode_new_memory(
-        feats[-1], prev_high, is_mask_from_pts=False, binarize=is_eval,
+        feats[-1], prev_high, is_mask_from_pts=mask_from_pts, binarize=is_eval,
         apply_non_overlap=(cfg.non_overlap_masks_for_mem_enc and is_eval))
     kcache = (model.memory_kcache(maskmem, bank["kcache"].dtype)
               if "kcache" in bank else None)
@@ -632,10 +853,13 @@ def _track_run(model: SAM2Model, images, bank, frames: List[int], *, spec: mb.Ba
     return torch.stack(masks, dim=0), torch.stack(ptrs, dim=0)
 
 
-def _run_segments(model: SAM2Model, images, bank, order: List[int], stored: Dict, **kw):
+def _run_segments(model: SAM2Model, images, bank, order: List[int], stored: Dict,
+                 at_stored=None, **kw):
     """Track ``order``, splicing the stored (mask logits, pointer) of its
-    prompt frames between the runs of tracked frames. Returns (masks
-    [len(order), B, 1, h4, w4], pointers [len(order), B, C])."""
+    prompt and correction frames between the runs of tracked frames;
+    ``at_stored(frame, bank) -> bank`` does the bank work of a spliced frame
+    once the run before it is done. Returns (masks [len(order), B, 1, h4,
+    w4], pointers [len(order), B, C])."""
     masks, ptrs, run = [], [], []
 
     def flush():
@@ -648,6 +872,8 @@ def _run_segments(model: SAM2Model, images, bank, order: List[int], stored: Dict
     for f in order:
         if f in stored:
             flush()
+            if at_stored is not None:
+                bank = at_stored(f, bank)
             masks.append(stored[f][0][None])
             ptrs.append(stored[f][1][None])
         else:

@@ -9,7 +9,7 @@ Builds the model from a preset on ``-device`` (the card by default),
 optionally loads released SAM2 weights, trains with the two-optimizer recipe
 over a volume batch, validates with the video predictor and threshold-averaged
 IoU/Dice, and writes a checkpoint (weights, both optimizer states, epoch)
-after each validation. Not ported, and raising with a pointer to ROADMAP:
+after each validation. Not ported, and raising with a pointer to ROADMAP queue A.7:
 ``-distributed``, ``-vis`` and the NIfTI datasets.
 """
 
@@ -56,7 +56,7 @@ def build_dataset(args, mode: str):
     if args.dataset == "synthetic" or args.data_path is None:
         return SyntheticVolumes(args)
     if args.dataset in ("btcv_nifti", "amos_nifti"):
-        raise NotImplementedError("NIfTI datasets are not ported; see ROADMAP queue A.8")
+        raise NotImplementedError("NIfTI datasets are not ported; see ROADMAP queue A.7")
     cls = {"btcv": BTCV, "amos": AMOS}[args.dataset]
     return cls(args.data_path, mode=mode, image_size=args.image_size,
                video_length=args.video_length if mode == "Training" else None,
@@ -126,10 +126,10 @@ def validation_sam(args, model: SAM2Model, val_loader, logger) -> Dict[str, floa
 def main(argv=None):
     args = parse_args(argv)
     if args.distributed != "none":
-        raise NotImplementedError("-distributed is not ported; see ROADMAP queue A.8")
+        raise NotImplementedError("-distributed is not ported; see ROADMAP queue A.7")
     if args.vis:
         raise NotImplementedError("-vis (validation figures) is not ported; "
-                                  "see ROADMAP queue A.8")
+                                  "see ROADMAP queue A.7")
     cfg = get_config(args.sam_config, image_size=args.image_size)
     rcfg = recipe_3d.Recipe3DConfig(
         video_length=args.video_length, prompt_freq=args.prompt_freq,

@@ -9,7 +9,9 @@ inference attention consumes it as stored (:func:`kv_storage_layout`) or
 gathered in read order (:func:`read_kcache`); training, and a bank without
 the cache, read raw memory tokens in read order (:func:`read_bank`). Every
 readout takes ``track_in_reverse``: tracking backwards, the stride-r targets
-and the pointer window lie after the current frame.
+and the pointer window lie after the current frame. A slot whose stored frame
+index is -1 (never written, or dropped by :func:`clear_noncond_window`) is
+read by none of them, wherever it lies in the ring.
 
 For inference :func:`write_bank` updates the bank in place (the cache is
 ~67 MB at 1024 px for one object; copying it every frame buys nothing in
@@ -171,6 +173,28 @@ def write_bank(spec: BankSpec, bank, frame_idx: int, maskmem_feats, obj_ptr,
         pslot = frame_idx % spec.ptr_ring
         put("ptr_ring", pslot, obj_ptr)
         put("ptr_frame_idx", pslot, frame)
+    return bank
+
+
+def clear_noncond_window(bank, center: int, radius: int):
+    """Invalidate every non-cond memory (feature ring and pointer ring)
+    whose stored frame lies in ``[center - radius, center + radius]``
+    (``memory_bank.clear_noncond_window``; the reference's
+    ``_clear_non_cond_mem_around_input``, ``sam2_video_predictor.py:1424-1440``).
+    The stored index becomes -1, which no readout's target matches; the
+    payloads stay in place, masked. Cond memories are untouched. In place
+    for inference; a new dict when grad is enabled and the bank requires
+    grad, as :func:`write_bank`."""
+    inplace = not (torch.is_grad_enabled() and any(t.requires_grad for t in bank.values()))
+    if not inplace:
+        bank = dict(bank)
+    for key in ("noncond_frame_idx", "ptr_frame_idx"):
+        stored = bank[key]
+        hit = (stored >= center - radius) & (stored <= center + radius)
+        if inplace:
+            stored.masked_fill_(hit, -1)
+        else:
+            bank[key] = stored.masked_fill(hit, -1)
     return bank
 
 

@@ -16,11 +16,20 @@ gradients are two ``torch.autograd.grad`` pulls through that one graph (the
 JAX package's two vjp pulls). The frozen image encoder runs without autograd
 (``remat="enc_saved"``); ``remat="full"`` also recomputes each tracked frame
 in the backward (``torch.utils.checkpoint``).
+
+With ``use_kcache`` (or ``MEDSAM2_TRAIN_KCACHE=1``) the bank carries the
+roped-key cache: each memory's keys are projected and rotated once, when it
+is written, and every tracked frame reads them in read order
+(``memory_bank.read_kcache``) instead of projecting the whole memory again.
+The positional half is computed inside the loss, so the k projection's
+gradient keeps both of its parts; the spatial keys reach the loss through
+the cache writes and the gather.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -28,7 +37,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from medsam2_tpu_torch.api.video_predictor import _encode_frame, _expand, _prompt_step
-from medsam2_tpu_torch.core.sam2_model import SAM2Model, use_multimask
+from medsam2_tpu_torch.core.sam2_model import SAM2Model, compute_dtype, kcache_shape, use_multimask
 from medsam2_tpu_torch.state import memory_bank as mb
 from medsam2_tpu_torch.train.losses import bce_with_logits
 
@@ -48,9 +57,14 @@ class Recipe3DConfig:
     # "enc_saved": the frozen encoder keeps no graph (the default);
     # "full": each tracked frame is also recomputed in the backward
     remat: str = "enc_saved"
-    # training over the bank's roped-key cache (off by default, as in the
-    # JAX package). Not ported: raises when on.
-    use_kcache: bool = False
+    # training over the bank's roped-key cache; None reads
+    # MEDSAM2_TRAIN_KCACHE (default off), as the JAX package does
+    use_kcache: Optional[bool] = None
+
+    def kcache_enabled(self) -> bool:
+        if self.use_kcache is not None:
+            return self.use_kcache
+        return os.environ.get("MEDSAM2_TRAIN_KCACHE", "0") == "1"
 
     @property
     def prompt_frames(self) -> Tuple[int, ...]:
@@ -91,7 +105,11 @@ def volume_losses(model: SAM2Model, spec: mb.BankSpec, rcfg: Recipe3DConfig, bat
     gt = batch["gt_masks"]
     obj_valid = batch["obj_valid"].float()
     prompt_frames = rcfg.prompt_frames
-    bank = mb.init_bank(spec, O, dev)
+    kshape = kcache_shape(cfg) if rcfg.kcache_enabled() else (0, 0)
+    bank = mb.init_bank(spec, O, dev, kcache_shape=kshape, kcache_dtype=compute_dtype(cfg))
+    # the cache's positional half depends on trainable weights: made inside
+    # the loss, once per volume
+    pos_kcache = model.make_pos_kcache(spec) if kshape[0] > 0 else None
 
     def frame_loss(high_res_masks, frame_gt):
         # high_res_masks [O, 1, S, S] logits; frame_gt [O, S, S] -> per object [O]
@@ -127,7 +145,7 @@ def volume_losses(model: SAM2Model, spec: mb.BankSpec, rcfg: Recipe3DConfig, bat
             spec, bank, f, is_init_cond_frame=False, current_vision_feats=_expand(feats, O),
             current_vision_pos=_expand(pos, O), multimask_output=multimask,
             run_mem_encoder=True, is_cond_frame=False, num_frames=T, is_eval=False,
-            generator=gen)
+            pos_kcache=pos_kcache, kv_storage=False, generator=gen)
         return bank, frame_loss(out["pred_masks_high_res"], gt[f])
 
     if rcfg.remat not in ("enc_saved", "full"):
@@ -164,9 +182,6 @@ def make_train_step(model: SAM2Model, rcfg: Recipe3DConfig,
     [Bv, ...]): per-volume losses averaged over the batch, two gradient pulls
     through one forward, the two Adam updates. After a step each trainable
     parameter's ``.grad`` holds the gradient its optimizer applied."""
-    if rcfg.use_kcache:
-        raise NotImplementedError("training over the roped-key cache (use_kcache) is not "
-                                  "ported; see ROADMAP queue A.1")
     spec = mb.BankSpec.from_config(model.cfg, max_cond_frames=rcfg.max_cond_frames)
     params = {g: [p for group in opt.param_groups for p in group["params"]]
               for g, opt in optimizers.items()}

@@ -508,6 +508,220 @@ def test_flash_at_read_order_inference_shape(dev, dtype, splits, O):
     assert (got.float() - want).abs().max().item() <= _tol(want, dtype)
 
 
+# ---------------------------------------------------------------------------
+# The cases of corrections, clear_non_cond_mem_around_input and training over
+# the roped-key cache
+# ---------------------------------------------------------------------------
+
+
+def _cleared_session_bank(spec, reverse, clear, dev):
+    """A bank's rings as a session leaves them (``chip_smoke.session_bank``):
+    cond frame 0 and frames 1-10 tracked forward, read at 11, or cond frame
+    15 and frames 14-4 in reverse, read at 3; then the frames within
+    ``clear`` = (center, radius) invalidated. Returns (bank, frame read)."""
+    from medsam2_tpu_torch.state import memory_bank as MB
+
+    bank = MB.init_bank(spec, 1, dev)
+    cond, tracked, cur = (15, range(14, 3, -1), 3) if reverse else (0, range(1, 11), 11)
+    bank["cond_frame_idx"][:, 0] = cond
+    for f in tracked:
+        bank["noncond_frame_idx"][:, f % spec.noncond_ring] = f
+        bank["ptr_frame_idx"][:, f % spec.ptr_ring] = f
+    MB.clear_noncond_window(bank, *clear)
+    return bank, cur
+
+
+def _session_spec_1024():
+    from medsam2_tpu_torch.configs import sam2_hiera_t
+    from medsam2_tpu_torch.state import memory_bank as MB
+
+    return MB.BankSpec.from_config(sam2_hiera_t(), max_cond_frames=1)
+
+
+def _partials_spy(monkeypatch):
+    """Keep the fp32 partial buffers (o, lse) each split launch allocates,
+    to read what the kernel wrote into them."""
+    seen = []
+    partials = A._partials
+
+    def spy(*args):
+        bufs = partials(*args)
+        if bufs[0] is not None:
+            seen.append(bufs)
+        return bufs
+
+    monkeypatch.setattr(A, "_partials", spy)
+    return seen
+
+
+def _empty_splits_are_inert(seen, dead):
+    """Each split without a valid key wrote a zero output and an LSE of
+    -1e30 (weight 0 in the merge), and exactly the ``dead`` splits did."""
+    (o_parts, lse_parts), = seen
+    empty = [i for i in range(lse_parts.shape[0]) if (lse_parts[i] <= -1e29).all()]
+    assert empty == dead, (empty, dead)
+    for i in dead:
+        assert (o_parts[i] == 0).all()
+
+
+@pytest.mark.parametrize("dtype,splits,dead", [(torch.float32, None, []),
+                                               (torch.bfloat16, None, [1, 2]),
+                                               (torch.bfloat16, 5, [1, 2, 3])],
+                         ids=["f32", "bf16", "bf16-5splits"])
+def test_flash_read_order_with_kv_splits_left_empty_by_a_clear(dev, monkeypatch, dtype, splits,
+                                                                dead):
+    """B1 at the read-order inference shape @1024 (q [1,1,4096,256], 7 read
+    slots of 4096 keys and 64 pointer tokens, Dv 64, no LSE) read at frame
+    11 after frames 5-9 were cleared: read slots 1-5 hold no valid key, so
+    bf16 kv splits 1 and 2 of 4 (1-3 of 5 when forced) see only masked
+    tiles. Those splits write a zero partial and an LSE of -1e30, so the
+    merge gives them weight 0: the output is finite and equals the twin."""
+    from medsam2_tpu_torch.state import memory_bank as MB
+
+    spec = _session_spec_1024()
+    bank, cur = _cleared_session_bank(spec, False, (7, 2), dev)
+    D, P = spec.mem_dim, spec.mem_spatial
+    mask = MB.read_bank(spec, bank, cur, torch.zeros(7, D, device=dev),
+                        torch.zeros(P, D, device=dev))[2]
+    Nk = mask.shape[1]
+    assert not mask[0, P:6 * P].any() and mask[0, 6 * P:7 * P].all()
+    rng = np.random.default_rng(21)
+    q = _t(rng, (1, 1, P, 256), dev, dtype)
+    k, v = _t(rng, (1, 1, Nk, 256), dev, dtype), _t(rng, (1, 1, Nk, 64), dev, dtype)
+    seen = _partials_spy(monkeypatch)
+    before = A.launch_counts()
+    with torch.no_grad():
+        if splits is None:
+            got = A.flash_attention(q, k, v, kv_mask=mask)
+        else:
+            got = A._flash_forward(q, k, v, mask, 256 ** -0.5, with_lse=False,
+                                   _splits=splits)[0]
+    torch.cuda.synchronize()
+    after = A.launch_counts()
+    split = dtype == torch.bfloat16 and (splits or A.split_count(32, -(-Nk // 64), _sms(dev))) > 1
+    assert after["flash_attention"] == before["flash_attention"] + 1
+    assert after["attention_merge"] == before["attention_merge"] + int(split)
+    assert len(seen) == int(split)
+    if split:
+        _empty_splits_are_inert(seen, dead)
+    want = A.flash_attention_plain(q.float(), k.float(), v.float(), kv_mask=mask)
+    assert torch.isfinite(got).all()
+    assert (got.float() - want).abs().max().item() <= _tol(want, dtype)
+
+
+@pytest.mark.parametrize("reverse", [False, True], ids=["forward", "reverse"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_kv_cached_kernel_with_a_mid_ring_hole(dev, monkeypatch, dtype, reverse):
+    """B2 at the session shape @1024 (1 cond slot + 7 ring slots of 4096
+    keys, 64 pointer tokens, B = 1) after frames 8-10 were cleared: ring
+    slots 1-3 (storage slots 2-4) are a hole inside the ring, in the slot ->
+    row map and validity a bank gives forward and in reverse, and bf16 kv
+    split 1 of 4 holds no valid key (a zero partial, LSE -1e30). Against
+    the twin."""
+    from medsam2_tpu_torch.state import memory_bank as MB
+
+    spec = _session_spec_1024()
+    bank, cur = _cleared_session_bank(spec, reverse, (9, 1), dev)
+    rows, valid = MB.kv_storage_layout(spec, bank, cur, track_in_reverse=reverse)
+    Mc, P, Nptr = spec.max_cond_frames, spec.mem_spatial, spec.num_ptr_tokens
+    F, Rr = Mc + spec.noncond_ring, spec.num_frames_attended
+    assert not valid[0, Mc + 1:Mc + 4].any() and valid[0, Mc + 5:].all()
+    ptr_valid = MB.read_ptrs(spec, bank, cur, track_in_reverse=reverse)[1]
+    mask = torch.cat([valid.repeat_interleave(P, dim=1), ptr_valid], dim=1)
+    rng = np.random.default_rng(22)
+    q = _t(rng, (1, P, C), dev, dtype)
+    kcache, pos_rows = _t(rng, (1, F, 4, P, C), dev, dtype), _t(rng, (Rr, 4, P, C), dev, dtype)
+    ptr_k, v_slots = _t(rng, (1, Nptr, C), dev, dtype), _t(rng, (1, F, P, DV), dev, dtype)
+    ptr_v = _t(rng, (1, Nptr, DV), dev, dtype)
+    seen = _partials_spy(monkeypatch)
+    before = A.launch_counts()
+    got = A.kv_cached_attention(q, kcache, pos_rows, rows, ptr_k, v_slots, ptr_v, mask, 1)
+    torch.cuda.synchronize()
+    after = A.launch_counts()
+    assert after["kv_cached_attention"] == before["kv_cached_attention"] + 1
+    assert after["attention_merge"] == before["attention_merge"] + int(dtype == torch.bfloat16)
+    if dtype == torch.bfloat16:
+        _empty_splits_are_inert(seen, [1])
+    want = A.kv_cached_attention_plain(q.float(), kcache, pos_rows, rows, ptr_k,
+                                       v_slots.float(), ptr_v.float(), mask, 1)
+    assert torch.isfinite(got).all()
+    assert (got.float() - want).abs().max().item() <= _tol(want, dtype)
+
+
+class _TwinFlash(torch.autograd.Function):
+    """The twins as an autograd function: forward and LSE from
+    ``flash_attention_lse_plain`` in fp32, the backward from
+    ``flash_attention_bwd_plain`` (the kernels' roundings of P and dS)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask):
+        o, lse = A.flash_attention_lse_plain(q.float(), k.float(), v.float(), mask)
+        o = o.to(q.dtype)
+        ctx.save_for_backward(q, k, v, mask, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, mask, o, lse = ctx.saved_tensors
+        return (*A.flash_attention_bwd_plain(q, k, v, mask, o, lse, do.to(q.dtype)), None)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_backward_through_a_cache_built_key(dev, dtype):
+    """B1 with LSE, B3 and B4 as training over the roped-key cache runs them
+    (the train cross-attention @512: two objects, 4 cond slots + 6 read
+    targets of 1024 keys and 76 pointer tokens, D 256 / Dv 64): K is built
+    as ``rope_attn_apply`` builds it, the cache gathered in read order
+    (``read_kcache``), this layer's positional half added, the pointer keys
+    appended. That K is contiguous, so the wrappers copy nothing. The
+    gradients reaching the cache, the positional half, the pointer keys, q
+    and v equal those of the twins through the same graph."""
+    from medsam2_tpu_torch.configs import sam2_hiera_t
+    from medsam2_tpu_torch.state import memory_bank as MB
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    spec = MB.BankSpec.from_config(sam2_hiera_t(image_size=512), max_cond_frames=4)
+    B, L, C_, P, Fa = 2, 4, 256, spec.mem_spatial, spec.num_frames_attended
+    bank = MB.init_bank(spec, B, dev, kcache_shape=(L, C_), kcache_dtype=dtype)
+    for f in (0, 2, 4, 6):
+        bank["cond_frame_idx"][:, f // 2] = f
+    for f in (1, 3, 5):
+        bank["noncond_frame_idx"][:, f % spec.noncond_ring] = f
+        bank["ptr_frame_idx"][:, f % spec.ptr_ring] = f
+    rng = np.random.default_rng(23)
+    cache = _t(rng, tuple(bank["kcache"].shape), dev, dtype).requires_grad_()
+    pos = _t(rng, (Fa, L, P, C_), dev, dtype).requires_grad_()
+    k_ptr = _t(rng, (B, spec.num_ptr_tokens, C_), dev, dtype).requires_grad_()
+    q = _t(rng, (B, 1, P, C_), dev, dtype).requires_grad_()
+    mask = MB.read_bank(spec, bank, 7, torch.zeros(spec.num_maskmem, 64, device=dev),
+                        torch.zeros(P, 64, device=dev), num_frames=8)[2]
+    Nk = mask.shape[1]
+    assert Nk == 10316 and not mask.all()
+    v = _t(rng, (B, 1, Nk, 64), dev, dtype).requires_grad_()
+    w = _t(rng, (B, 1, P, 64), dev, torch.float32)
+
+    def grads(attend):
+        kc = MB.read_kcache(spec, {**bank, "kcache": cache}, 7)[:, :, 1] + pos[None, :, 1]
+        kp = torch.cat([kc.reshape(B, Fa * P, C_), k_ptr], dim=1)
+        k = kp.reshape(B, Nk, 1, C_).transpose(1, 2)
+        assert k.is_contiguous() and A._aligned(k.reshape(B, Nk, C_)).data_ptr() == k.data_ptr()
+        loss = (attend(q, k, v, mask).float() * w).sum()
+        return torch.autograd.grad(loss, (q, cache, pos, k_ptr, v))
+
+    before = A.launch_counts()
+    got = grads(lambda q, k, v, m: A.flash_attention(q, k, v, kv_mask=m))
+    torch.cuda.synchronize()
+    after = A.launch_counts()
+    for name in ("flash_attention", "flash_attention_bwd_dkv", "flash_attention_bwd_dq"):
+        assert after[name] == before[name] + 1, name
+    want = grads(_TwinFlash.apply)
+    tol = TOL_GRAD_F32 if dtype == torch.float32 else TOL_GRAD_BF16
+    for name, g, r in zip(("q", "cache", "pos", "k_ptr", "v"), got, want):
+        assert g.shape == r.shape and g.dtype == dtype, name
+        assert torch.isfinite(g).all(), name
+        assert _rel_err(g, r) <= tol, (name, _rel_err(g, r))
+
+
 @pytest.mark.parametrize("widths", [(128, 64), (256, 96), (64, 64)],
                          ids=lambda w: "x".join(map(str, w)))
 def test_kv_cached_kernel_rejects_unbuilt_widths(dev, widths):

@@ -56,11 +56,14 @@ def test_sources_have_no_jax_import_library_attention_or_compile():
                 assert word not in text, f"{path.relative_to(ROOT)} contains {word!r}"
 
 
-# the modules of the 3D session, and the other modules they run
+# the modules of the 3D session (corrections and clearing included) and of
+# the 3D recipe (training over the roped-key cache included), and the other
+# modules they run
 SESSION_MODULES = ["medsam2_tpu_torch.api.video_predictor", "medsam2_tpu_torch.core.sam2_model",
                    "medsam2_tpu_torch.core.memory", "medsam2_tpu_torch.core.transformer",
                    "medsam2_tpu_torch.state.memory_bank",
-                   "medsam2_tpu_torch.ops.connected_components"]
+                   "medsam2_tpu_torch.ops.connected_components",
+                   "medsam2_tpu_torch.train.recipe_3d", "medsam2_tpu_torch.cli.train_3d"]
 
 
 @pytest.mark.parametrize("module", SESSION_MODULES)

@@ -9,6 +9,9 @@
   max|grad| (the JAX gradients come from the two vjp pulls of
   ``recipe_3d.make_train_step`` and cross into reference keys through
   ``state_dict_from_jax``); frozen tensors unchanged, both groups updated.
+  The same over the bank's roped-key cache (``use_kcache=True``), which
+  also equals the port's step without the cache; ``MEDSAM2_TRAIN_KCACHE``
+  switches it as in JAX.
 - Dropout: its rate, and that a step without a generator is deterministic.
 - The ``train_3d`` CLI on synthetic data with ``-device cpu``, then a resume
   from its checkpoint.
@@ -188,15 +191,30 @@ def _jax_losses_and_grads(params, batch, rcfg):
 
 def test_train_step_losses_and_gradients_match_jax(models):
     params, _ = models
+    _step_matches_jax(params, RCFG)
+
+
+def test_kcache_train_step_matches_jax(models):
+    """One step over the bank's roped-key cache (``use_kcache=True``) against
+    the JAX step with the cache: the same losses and gradients, to the same
+    tolerances as the step without it."""
+    params, _ = models
+    _step_matches_jax(params, dict(RCFG, use_kcache=True))
+
+
+def _step_matches_jax(params, rcfg_kw):
+    """One port ``make_train_step`` against the JAX step on the same weights
+    and batch: both losses to 1e-5 relative, every trainable gradient to 1e-4
+    of its max|grad|, frozen tensors unchanged, both groups updated."""
     model = _port(params, TINY)
-    rcfg = JR.Recipe3DConfig(**RCFG)
+    rcfg = JR.Recipe3DConfig(**rcfg_kw)
     batch = synth_batch()
     want_p, want_np, jgrads = _jax_losses_and_grads(params, batch, rcfg)
     ref_grads = state_dict_from_jax(jax.tree_util.tree_map(np.asarray, jgrads), TINY)
 
     before = {k: v.detach().clone() for k, v in model.state_dict().items()}
-    opts = TR.make_optimizers(model, TR.Recipe3DConfig(**RCFG))
-    step = TR.make_train_step(model, TR.Recipe3DConfig(**RCFG), opts)
+    opts = TR.make_optimizers(model, TR.Recipe3DConfig(**rcfg_kw))
+    step = TR.make_train_step(model, TR.Recipe3DConfig(**rcfg_kw), opts)
     metrics = step({k: np.array(v) for k, v in batch.items()})
     np.testing.assert_allclose(float(metrics["prompt_loss"]), float(want_p), rtol=1e-5)
     np.testing.assert_allclose(float(metrics["non_prompt_loss"]), float(want_np), rtol=1e-5)
@@ -289,10 +307,60 @@ def test_model_defaults_to_the_card():
         SAM2Model(TINY)
 
 
-def test_use_kcache_training_raises(models):
-    _, model = models
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TR.make_train_step(model, TR.Recipe3DConfig(use_kcache=True), {})
+def test_kcache_training_matches_no_cache(models):
+    """``tests/test_train_3d.py:169`` on the port: the cache is a pure
+    lowering, so the losses and the gradients of every trainable group
+    equal those of the per-frame projection (fp32), with either remat
+    policy."""
+    params, _ = models
+    model = _port(params, TINY)
+    batch = {k: torch.from_numpy(np.array(v[0])) for k, v in synth_batch().items()
+             if k != "prompt_use_mask"}
+    batch["prompt_use_mask"] = np.zeros((2, 2), bool)
+    spec = TB.BankSpec.from_config(TINY, max_cond_frames=RCFG["max_cond_frames"])
+    names = [n for g in model.set_trainable_groups().values() for n, _ in g]
+    params_t = dict(model.named_parameters())
+    out = {}
+    for cached, remat in ((True, "enc_saved"), (True, "full"), (False, "enc_saved")):
+        rcfg = TR.Recipe3DConfig(use_kcache=cached, remat=remat, **RCFG)
+        pl_, npl = TR.volume_losses(model, spec, rcfg, batch)
+        grads = torch.autograd.grad(pl_ + npl, [params_t[n] for n in names], allow_unused=True)
+        out[cached, remat] = ((pl_ + npl).item(), grads)
+    loss, want = out[False, "enc_saved"]
+    for key in ((True, "enc_saved"), (True, "full")):
+        np.testing.assert_allclose(out[key][0], loss, rtol=1e-5)
+        for name, g, w in zip(names, out[key][1], want):
+            if w is None:
+                assert g is None, name
+                continue
+            np.testing.assert_allclose(g.numpy(), w.numpy(), atol=1e-5, rtol=2e-3,
+                                       err_msg=f"{key} {name}")
+
+
+def test_train_kcache_env_switch(monkeypatch):
+    """``MEDSAM2_TRAIN_KCACHE=1`` turns the cache on when ``use_kcache`` is
+    None, as the JAX package reads it; an explicit value wins; off by
+    default. With it on, the step's bank is made with the cache."""
+    monkeypatch.delenv("MEDSAM2_TRAIN_KCACHE", raising=False)
+    assert not TR.Recipe3DConfig().kcache_enabled()
+    monkeypatch.setenv("MEDSAM2_TRAIN_KCACHE", "1")
+    for use in (None, True, False):
+        assert (TR.Recipe3DConfig(use_kcache=use).kcache_enabled()
+                == JR.Recipe3DConfig(use_kcache=use).kcache_enabled() == (use is not False))
+    shapes = []
+    init_bank = TB.init_bank
+
+    def spy(*a, **k):
+        shapes.append(k.get("kcache_shape", (0, 0)))
+        return init_bank(*a, **k)
+
+    monkeypatch.setattr(TR.mb, "init_bank", spy)
+    model = SAM2Model(TINY, seed=0, device="cpu")
+    step = TR.make_train_step(model, TR.Recipe3DConfig(**RCFG),
+                              TR.make_optimizers(model, TR.Recipe3DConfig(**RCFG)))
+    metrics = step({k: np.array(v) for k, v in synth_batch().items()})
+    assert np.isfinite(float(metrics["loss"]))
+    assert shapes == [(TINY.memory_attention.num_layers, TINY.memory_attention.d_model)]
 
 
 # ---------------------------------------------------------------------------

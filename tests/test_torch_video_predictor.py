@@ -95,23 +95,12 @@ def test_two_objects_second_cond_frame_match_jax(models):
 
 def test_out_of_scope_paths_raise(models):
     """What the port still leaves out raises NotImplementedError with a
-    pointer to ROADMAP.md: corrections on tracked frames (points and masks),
-    ``clear_non_cond_mem_around_input`` and ``propagate_volumes_batched``
-    over a mesh. Everything else of the session runs (the parity tests of
-    ``tests/test_torch_video_session.py``)."""
+    pointer to ROADMAP.md: ``propagate_volumes_batched`` over a mesh.
+    Everything else of the session runs (the parity tests of
+    ``tests/test_torch_video_session.py``, ``test_torch_video_corrections.py``
+    and ``test_torch_video_clear.py``)."""
     _, model = models
-    video, gt = moving_square_video(T=6)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SAM2VideoPredictor(model, clear_non_cond_mem_around_input=True)
-    tp = SAM2VideoPredictor(model, max_cond_frames=2)
-    state = tp.init_state(images=video)
-    tp.add_new_points(state, 0, 1, np.array([[16.0, 28.0]]), np.array([1]))
-    frames, masks = tp.propagate_in_video_batch(state)
-    assert frames == list(range(6)) and torch.isfinite(masks).all()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):   # a correction
-        tp.add_new_points(state, 3, 1, np.array([[20.0, 28.0]]), np.array([1]))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):   # a mask correction, too
-        tp.add_new_mask(state, 3, 1, gt[3])
+    video, _ = moving_square_video(T=6)
     spec = mb.BankSpec.from_config(TINY, max_cond_frames=1)
     videos = np.stack([video, video])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
