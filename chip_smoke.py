@@ -54,7 +54,13 @@ Phases, each printing its own line:
      LN-MLP, fused window block) against their twins at the hiera_t @1024
      shapes and the hiera_b+ / hiera_l widths, bf16 and fp32, with kernel,
      twin, library and bound times (kernels and library calls by CUDA-graph
-     replay);
+     replay); the persistent bf16 encoder linear at every B7 / B8 linear of
+     the four presets @1024 and at a ragged N, against the plain product
+     rounded as its epilogue, beside ``F.linear``; the fused block split
+     into its launches at every ``BLOCK_CASES`` width (each alone by graph
+     replay, and the chain's kernels and idle share in a replayed graph
+     under ``torch.profiler``); eight fused blocks captured in one CUDA
+     graph against the twin, block by block;
   9. sam2_hiera_t @512 fp32 (TF32 off), the three encoder switches on:
      ``SAM2ImagePredictor.set_image`` + ``predict`` (points, box) on the card
      against the same seeded model on the CPU, low-res logits to 1e-3;
@@ -91,7 +97,9 @@ Phases, each printing its own line:
      and phase 7's step with the cache on against off in turns (seconds per
      step, exact launch counts, first-step losses within
      ``TOL_KCACHE_LOSS``).
-Then one JSON line of per-kernel results, the card's name and power limit,
+Then one JSON line of per-kernel results (B8 also once per phase-8 width,
+``fused_block C<width>``, with its launches in phases 10 and 11), the card's
+name and power limit,
 and, last, the device line. Any failure raises and exits non-zero; without a
 CUDA device nothing runs.
 """
@@ -121,6 +129,7 @@ from medsam2_tpu_torch.configs import sam2_hiera_b_plus, sam2_hiera_l, sam2_hier
 from medsam2_tpu_torch.core.sam2_model import TRAINABLE_GROUPS, SAM2Model  # noqa: E402
 from medsam2_tpu_torch.ops import _build  # noqa: E402
 from medsam2_tpu_torch.ops import attention as A  # noqa: E402
+from medsam2_tpu_torch.ops import encoder_linear as EL  # noqa: E402
 from medsam2_tpu_torch.ops import fused_block as FB  # noqa: E402
 from medsam2_tpu_torch.ops import fused_mlp as FM  # noqa: E402
 from medsam2_tpu_torch.ops import window_attention as WA  # noqa: E402
@@ -179,15 +188,16 @@ ENCODER_SWITCHES = ("MEDSAM2_FUSED_BLOCK", "MEDSAM2_FUSED_WINDOW", "MEDSAM2_FUSE
 NO_ENCODER_LAUNCHES = {"window_attention": 0, "fused_mlp": 0, "fused_block": 0}
 # bf16 kernels whose SASS must hold HGMMA (wgmma): (mangled-name pattern,
 # instantiations): B1 (25 (D, Dv) pairs), B2, B4 and B3 (2 pairs each), B5
-# (ws 1 to 14 at d 96, 4 at d 56, 3 at d 72), the encoder linear of B7 / B8
-# (64- and 128-wide tiles) and B7's one-kernel form (C 96, 112, 144, 192, 224)
+# (ws 1 to 14 at d 96, 4 at d 56, 3 at d 72), the persistent encoder linear of
+# B7 / B8 (column tiles 16 to 192 in steps of 16) and B7's one-kernel form
+# (C 96, 112, 144, 192, 224)
 SM90_KERNELS = (("flash_sm90_kernel", 25), ("kv_cached_sm90_kernel", 1),
                 ("flash_bwd_dq_sm90_kernel", 2), ("flash_bwd_dkv_sm90_kernel", 2),
-                ("window_sm90_kernel", 21), ("linear_sm90_kernel", 2),
+                ("window_sm90_kernel", 21), ("linear_persistent_sm90_kernel", 12),
                 ("mlp_fused_sm90_kernel", 5))
 # the ones a spill fails
 NO_SPILL = ("flash_bwd_dq_sm90_kernel", "flash_bwd_dkv_sm90_kernel", "window_sm90_kernel",
-            "linear_sm90_kernel", "mlp_fused_sm90_kernel")
+            "linear_persistent_sm90_kernel", "mlp_fused_sm90_kernel")
 
 
 def tolerance(want: torch.Tensor, dtype) -> float:
@@ -1143,6 +1153,11 @@ def _check(name, label, dtype, got, want, ms, plain_ms, lib_ms, bnd, best, main)
                           bound_by=bnd[1], library_ms=lib_ms)
 
 
+# (rows, C) of the fused MLP (B7) in phase 8, hidden 4C: the MLP tails of
+# hiera_t @1024 (the first the kernels line's shape), a ragged row count, and
+# the stage 2-4 tails of hiera_b+ and hiera_l @1024
+MLP_CASES = ((16384, 192), (65536, 96), (4096, 384), (1024, 768), (1000, 96), (16384, 224),
+             (4096, 448), (1024, 896), (16384, 288), (4096, 576), (1024, 1152))
 # (Bn, ws, C, heads) of the fused window block (B8) in phase 8: hiera_t
 # blocks 0 (ws 8, C 96, 1 head; the kernels line's shape) and 2 (ws 4, C 192,
 # 2 heads) @1024, a ragged row count (5 ws-4 windows, 80 rows), and every
@@ -1157,7 +1172,7 @@ def phase_encoder_kernels():
     shapes and the hiera_b+ / hiera_l widths @1024. Returns the bf16
     main-shape results per kernel."""
     rng = np.random.default_rng(8)
-    best = {}
+    best, widths = {}, {}
     for dtype in (torch.bfloat16, torch.float32):
         set_tf32(False)
         it = 2 if dtype == torch.bfloat16 else 4
@@ -1186,12 +1201,8 @@ def phase_encoder_kernels():
                 _check(name, f"[1,{Hp},{Hp},{3 * C}] ws {ws} heads {heads} d {d} ({grid})", dtype,
                        got, want, ms, plain_ms, lib_ms, bnd, best, main)
             del qkv, q, k, v, want
-        # B7: the MLP tails of hiera_t @1024 (rows x C, hidden 4C), a ragged
-        # row count, and the stage 2-4 tails of hiera_b+ and hiera_l @1024
-        for N, C, main in ((16384, 192, True), (65536, 96, False), (4096, 384, False),
-                           (1024, 768, False), (1000, 96, False), (16384, 224, False),
-                           (4096, 448, False), (1024, 896, False), (16384, 288, False),
-                           (4096, 576, False), (1024, 1152, False)):
+        for N, C in MLP_CASES:
+            main = (N, C) == MLP_CASES[0]
             x = rand(rng, (N, C), dtype)
             g, b = 1 + 0.1 * rand(rng, (C,), dtype), 0.1 * rand(rng, (C,), dtype)
             (w1, b1), (w2, b2) = linear_params(rng, 4 * C, C, dtype), linear_params(rng, C, 4 * C, dtype)
@@ -1218,9 +1229,198 @@ def phase_encoder_kernels():
                         it * (2 * N * C + 12 * C * C + 13 * C), dtype)
             _check("fused_block", f"N {N} C {C} ws {ws} heads {heads}", dtype, got, want, ms,
                    plain_ms, None, bnd, best, main)
+            if dtype == torch.bfloat16 and N >= 1024:
+                widths.setdefault(C, dict(
+                    shape=f"N {N} C {C} ws {ws} heads {heads}",
+                    max_abs_err=(got.float() - want.float()).abs().max().item(), ms=ms,
+                    plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1], library_ms=None))
             del wins, p, got, want
+    linear_rows()
+    for Bn, ws, C, heads in BLOCK_CASES:
+        if Bn * ws * ws >= 1024:
+            block_split(Bn, ws, C, heads)
+    block_chain()
     torch.cuda.empty_cache()
+    best["fused_block_widths"] = widths
     return best
+
+
+# (rows, C) of every encoder stage of hiera_t / s, b+ and l @1024, and the
+# linears of a block at that width: (name, N, K, epilogue)
+PRESET_STAGES = ((65536, 96), (16384, 192), (4096, 384), (1024, 768), (65536, 112),
+                 (16384, 224), (4096, 448), (1024, 896), (65536, 144), (16384, 288),
+                 (4096, 576), (1024, 1152))
+EPI_NAMES = {EL.EPI_BIAS: "bias", EL.EPI_BIAS_GELU: "gelu", EL.EPI_RESIDUAL: "residual"}
+
+
+def block_linears(C: int):
+    return (("qkv", 3 * C, C, EL.EPI_BIAS), ("proj", C, C, EL.EPI_RESIDUAL),
+            ("fc1", 4 * C, C, EL.EPI_BIAS_GELU), ("fc2", C, 4 * C, EL.EPI_RESIDUAL))
+
+
+def linear_rows():
+    """Phase 8: the bf16 encoder linear at every B7 / B8 linear of the four
+    presets @1024, and a ragged N no allowed tile width divides (the TMA
+    store clips its last column chunk), against the plain fp32 product
+    rounded as the epilogue; kernel and ``F.linear`` by CUDA-graph replay."""
+    rng = np.random.default_rng(81)
+    bf16 = torch.bfloat16
+    cases = [(M, C, *lin) for M, C in PRESET_STAGES for lin in block_linears(C)]
+    cases += [(1000, 200, f"ragged {EPI_NAMES[e]}", 200, 200, e) for e in EPI_NAMES]
+    for M, C, name, N, K, epi in cases:
+        a = rand(rng, (M, K), bf16)
+        w, b = linear_params(rng, N, K, bf16)
+        resid = rand(rng, (M, N), bf16) if epi == EL.EPI_RESIDUAL else None
+        got = EL.linear(a, w, b, resid, epi)
+        want = EL.linear_plain(a, w, b, resid, epi)
+        err = (got.float() - want.float()).abs().max().item()
+        tol = tolerance(want.float(), bf16)
+        ms = graph_ms(lambda: EL.linear(a, w, b, resid, epi))
+        lib_ms = graph_ms(lambda: F.linear(a, w, b))
+        bn = EL.tile_n(M, N, K, sm_count())
+        tiles = -(-M // EL.TILE_M) * -(-N // bn)
+        bnd = bound(2.0 * M * N * K,
+                    2 * (M * K + N * K + M * N * (2 if resid is not None else 1) + N), bf16)
+        ok = err <= tol and bool(torch.isfinite(got).all())
+        print(f"[8 encoder linear] {name} {M}x{C}: N {N} K {K} {EPI_NAMES[epi]} | BN {bn}, "
+              f"{tiles} tiles on {min(tiles, sm_count())} CTAs, {-(-tiles // sm_count())} rounds | "
+              f"max_abs_err {err:.3e} (tol {tol:.3e}) kernel {ms:.4f} ms (graph) F.linear "
+              f"{lib_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}), {bnd[0] / ms:.1%} of bound "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"encoder linear {name} {M}x{C}: err {err} (tol {tol})")
+        del a, w, b, resid, got, want
+
+
+def chain_trace(fn, reps: int = 10, replays: int = 3):
+    """``fn``'s kernels inside a CUDA graph of ``reps`` calls, replayed
+    ``replays`` times under ``torch.profiler``: ({kernel name: device ms
+    per call}, the share of the replays' span in which no kernel ran)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(replays):
+            graph.replay()
+        torch.cuda.synchronize()
+    spans, by_name = [], {}
+    for e in prof.events():
+        if str(e.device_type).endswith("CUDA") and e.time_range.end > e.time_range.start:
+            spans.append((e.time_range.start, e.time_range.end))
+            name = e.name.replace("(anonymous namespace)::", "").removeprefix("void ")
+            short = re.split(r"[<(]", name)[0].split("::")[-1]
+            by_name[short] = by_name.get(short, 0.0) + e.time_range.end - e.time_range.start
+    del graph
+    if not spans:
+        return {}, None
+    spans.sort()
+    busy, (lo, hi) = 0.0, spans[0]
+    for s0, e0 in spans[1:]:
+        if s0 > hi:
+            busy += hi - lo
+            lo, hi = s0, e0
+        else:
+            hi = max(hi, e0)
+    busy += hi - lo
+    return ({k: v / (reps * replays) / 1e3 for k, v in by_name.items()},
+            1.0 - busy / (spans[-1][1] - spans[0][0]))
+
+
+def block_split(Bn: int, ws: int, C: int, heads: int) -> dict:
+    """Phase 8: the bf16 fused block at one width split into its launches,
+    each timed alone by CUDA-graph replay (LN1, qkv, the window attention,
+    proj, then B7's one kernel or LN2 / fc1 / fc2), beside the whole block;
+    and the block's kernels and idle share inside a replayed graph
+    (``chain_trace``). Prints one line; returns the numbers."""
+    rng = np.random.default_rng(82)
+    bf16 = torch.bfloat16
+    wins = rand(rng, (Bn, ws, ws, C), bf16)
+    p = block_params(rng, C, bf16)
+    N = Bn * ws * ws
+    x = wins.reshape(N, C)
+    normed = EL.layer_norm(x, p.norm1_weight, p.norm1_bias)
+    qkv = EL.linear(normed, p.qkv_weight, p.qkv_bias)
+    att = WA.window_attention(qkv.reshape(Bn, ws, ws, 3 * C), heads, ws).reshape(N, C)
+    x1 = EL.linear(att, p.proj_weight, p.proj_bias, x, EL.EPI_RESIDUAL)
+    parts = {"ln1": lambda: EL.layer_norm(x, p.norm1_weight, p.norm1_bias),
+             "qkv": lambda: EL.linear(normed, p.qkv_weight, p.qkv_bias),
+             "window": lambda: WA.window_attention(qkv.reshape(Bn, ws, ws, 3 * C), heads, ws),
+             "proj": lambda: EL.linear(att, p.proj_weight, p.proj_bias, x, EL.EPI_RESIDUAL)}
+    mlp = (x1, p.norm2_weight, p.norm2_bias, p.fc1_weight, p.fc1_bias, p.fc2_weight, p.fc2_bias)
+    if FM.kernel_launches(C, 4 * C, 1) == 1:
+        parts["mlp"] = lambda: FM.ln_mlp_residual(*mlp)
+    else:
+        n2 = EL.layer_norm(x1, p.norm2_weight, p.norm2_bias)
+        h = EL.linear(n2, p.fc1_weight, p.fc1_bias, None, EL.EPI_BIAS_GELU)
+        parts["ln2"] = lambda: EL.layer_norm(x1, p.norm2_weight, p.norm2_bias)
+        parts["fc1"] = lambda: EL.linear(n2, p.fc1_weight, p.fc1_bias, None, EL.EPI_BIAS_GELU)
+        parts["fc2"] = lambda: EL.linear(h, p.fc2_weight, p.fc2_bias, x1, EL.EPI_RESIDUAL)
+    alone = {k: graph_ms(fn) for k, fn in parts.items()}
+    block_ms = graph_ms(lambda: FB.fused_window_block(wins, p, heads))
+    kernels, idle = chain_trace(lambda: FB.fused_window_block(wins, p, heads))
+    tiles = {name: EL.tile_n(N, n_out, K, sm_count()) for name, n_out, K, _ in block_linears(C)
+             if name in parts}
+    print(f"[8 block split] N {N} C {C} ws {ws} heads {heads} | block {block_ms:.4f} ms (graph) "
+          f"| alone: " + " ".join(f"{k} {v:.4f}" for k, v in alone.items())
+          + f" (sum {sum(alone.values()):.4f}) | linear BN {tiles} | in a replayed graph: "
+          + " ".join(f"{k} {v:.4f}" for k, v in sorted(kernels.items()))
+          + f" ms, idle share {'not traced' if idle is None else f'{idle:.3f}'}", flush=True)
+    return dict(block_ms=block_ms, alone=alone, kernels=kernels, idle=idle, tiles=tiles)
+
+
+def block_chain():
+    """Phase 8: eight bf16 fused blocks with their own weights captured in
+    one CUDA graph (hiera_l's C 576 and hiera_t's C 96), replayed twice on
+    new inputs; each block's output against the twin on that block's own
+    input, so a launch that read its input early would miss."""
+    rng = np.random.default_rng(83)
+    bf16 = torch.bfloat16
+    for Bn, ws, C, heads in ((16, 16, 576, 8), (1024, 8, 96, 1)):
+        params = [block_params(rng, C, bf16) for _ in range(8)]
+        x0 = rand(rng, (Bn, ws, ws, C), bf16)
+
+        def chain():
+            outs, y = [], x0
+            for p in params:
+                y = FB.fused_window_block(y, p, heads)
+                outs.append(y)
+            return outs
+
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            chain()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            outs = chain()
+        worst = 0.0
+        for _ in range(2):
+            x0.copy_(rand(rng, (Bn, ws, ws, C), bf16))
+            graph.replay()
+            torch.cuda.synchronize()
+            prev = x0
+            for p, got in zip(params, outs):
+                want = FB.fused_window_block_plain(prev.reshape(-1, C), p, heads, ws * ws)
+                worst = max(worst, rel_err(got.reshape(-1, C), want))
+                prev = got
+        ok = worst <= TOL_BF16_REL and all(bool(torch.isfinite(o).all()) for o in outs)
+        print(f"[8 block chain] 8 blocks N {Bn * ws * ws} C {C} in one CUDA graph, 2 replays: "
+              f"worst block err rel max|output| {worst:.3e} (tol {TOL_BF16_REL:.0e}) "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"fused block chain C {C}: err {worst}")
+        del graph, outs, params, x0
 
 
 def test_image(size: int, seed: int) -> np.ndarray:
@@ -1330,6 +1530,7 @@ def phase_image_full_width(power_line: str):
         masks, ious, low = pred.predict(**IMAGE_PROMPTS["points"])
         torch.cuda.synchronize()
         counts = A.launch_counts()
+        by_width = dict(FB.fused_window_block.launches_by_width)
         peak_predictor = torch.cuda.max_memory_allocated() / 2 ** 30
         predict_ms = float(np.median([_sync_s(lambda: pred.predict(**IMAGE_PROMPTS["points"]))[0]
                                       for _ in range(10)])) * 1e3
@@ -1371,7 +1572,7 @@ def phase_image_full_width(power_line: str):
     if not ok:
         raise AssertionError(f"image full width: launches {counts} vs {want}, finite {finite}, "
                              f"loaded masks {loaded_n}")
-    return counts
+    return {**counts, "fused_block_by_width": by_width}
 
 
 # bf16 image embeddings with the switches on against off, relative to their
@@ -1393,7 +1594,7 @@ def phase_bl_set_image(power_line: str):
     Returns the summed launch counts of the two bf16 set_image calls."""
     set_tf32(False)
     img = test_image(1024, seed=11)
-    total = {}
+    total, by_width = {}, {}
     for label, make in (("sam2_hiera_b+", sam2_hiera_b_plus), ("sam2_hiera_l", sam2_hiera_l)):
         cfg = make()
         pred = SAM2ImagePredictor(SAM2Model(cfg, seed=0, device=DEV))
@@ -1409,6 +1610,8 @@ def phase_bl_set_image(power_line: str):
             pred.set_image(img)
             torch.cuda.synchronize()
             counts = A.launch_counts()
+            for C, n in FB.fused_window_block.launches_by_width.items():
+                by_width[C] = by_width.get(C, 0) + n
         for k, n in counts.items():
             total[k] = total.get(k, 0) + n
         want = {**{k: 0 for k in counts}, "flash_attention": global_flash(cfg),
@@ -1455,7 +1658,7 @@ def phase_bl_set_image(power_line: str):
     if not ok:
         raise AssertionError(f"hiera_l image parity: errs {errs}, launches {counts} vs {want}")
     torch.cuda.empty_cache()
-    return total
+    return {**total, "fused_block_by_width": by_width}
 
 
 # ---------------------------------------------------------------------------
@@ -2261,6 +2464,7 @@ def main() -> None:
     phase_train_parity()
     paths["training"] = phase_train_full_width(power_line)
     best.update(phase_encoder_kernels())
+    block_widths = best.pop("fused_block_widths")
     phase_image_parity()
     paths["2d serving"] = phase_image_full_width(power_line)
     paths["2d serving b+/l"] = phase_bl_set_image(power_line)
@@ -2283,6 +2487,14 @@ def main() -> None:
         rows.append(dict(name=name, route="cuda", **KERNELS[name],
                          launches=sum(by_path.values()), launches_by_path=by_path,
                          **best[name], **extra))
+    # B8 at each width of phase 8: launches from the image-serving runs
+    for C, res in sorted(block_widths.items()):
+        by_path = {p: c["fused_block_by_width"].get(C, 0) for p, c in paths.items()
+                   if c.get("fused_block_by_width", {}).get(C)}
+        if not by_path:
+            raise AssertionError(f"fused_block C {C}: no launch on the main path")
+        rows.append(dict(name=f"fused_block C{C}", route="cuda", **KERNELS["fused_block"],
+                         launches=sum(by_path.values()), launches_by_path=by_path, **res))
     print(json.dumps({"kernels": rows}))
     print(power_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

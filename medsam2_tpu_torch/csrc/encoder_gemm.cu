@@ -11,19 +11,10 @@
 // ridge for every encoder shape (M >= 1024, K >= 112): tensor-core issue.
 // The LayerNorm pass moves 4 M C bytes and is bound by device memory.
 //
-// bf16 linear: a block owns a 128 x BN tile of the output (BN 128, or 64
-// when 128-wide tiles leave SMs idle). Warpgroup 0 is the producer: one
-// thread TMA-loads the 64-wide k chunks of the A rows and of the weight rows
-// (a torch Linear weight [N, K] is already the K-major B operand) into a ring
-// of stages, each a [128][64] and a [BN][64] region in the 128-byte swizzle,
-// one `full` and one `empty` mbarrier a stage. Warpgroups 1 and 2 are the
-// consumers, 64 output rows each: per chunk four k16 steps of
-// wgmma.m64n{BN}k16 with both operands in shared memory, one commit group a
-// chunk, and a stage handed back as soon as the next chunk's group is
-// issued (wait_group 1). The fp32 accumulator stays in registers; the
-// epilogue rounds and adds in the Pallas order and writes bf16 pairs. TMA
-// zero-fills rows past M and N and columns past K, so any M and any N, K
-// that are multiples of 8 work; the epilogue masks the ragged edge.
+// bf16 linear: encoder_linear_sm90.cuh, a persistent warp-specialised
+// wgmma + TMA product whose column tile BN (a multiple of 16 up to 192) is
+// matched to N by tile_n below, with the epilogue stored by TMA from a
+// swizzled shared-memory tile. Any M, any N and K that are multiples of 8.
 //
 // fp32 linear (TF32 off, as the JAX package pins Precision.HIGHEST): plain
 // FMA on 64 x 64 output tiles, 16-deep k slices staged in shared memory.
@@ -42,6 +33,7 @@
 // 1536, 9.4 MB at hiera_l's 1024 x 4608).
 
 #include "encoder_gemm.cuh"
+#include "encoder_linear_sm90.cuh"
 #include "encoder_tile.cuh"
 #include "hopper_attention.cuh"
 
@@ -147,124 +139,11 @@ __global__ void __launch_bounds__(256)
 }
 
 // ---------------------------------------------------------------------------
-// bf16 linear: warp-specialised wgmma + TMA
-// ---------------------------------------------------------------------------
-
-constexpr int kGM = 128;  // output rows a block: two consumer warpgroups
-constexpr int kGK = 64;   // k a stage: one 128-byte swizzled chunk
-
-template <int BN>
-struct GemmLayout {
-  static constexpr int kABytes = kGM * kGK * 2;
-  static constexpr int kBBytes = BN * kGK * 2;
-  static constexpr int kStage = kABytes + kBBytes;  // multiples of 1024
-  static constexpr int kFit = (hopper::kSmemLimit - 2048) / kStage;
-  static constexpr int kStages = kFit > 6 ? 6 : kFit;
-  static constexpr int bar_off = kStages * kStage;
-  static constexpr int bytes = bar_off + 256 + 1024;  // barriers, base alignment
-  static_assert(kStages >= 2 && bytes <= hopper::kSmemLimit, "two stages do not fit");
-};
-
-struct GemmMaps {
-  CUtensorMap a, w;
-};
-
-template <int BN>
-__global__ void __launch_bounds__(384, 1)
-    linear_sm90_kernel(const __grid_constant__ GemmMaps maps, const Epi<bf16> e, int K) {
-  using namespace hopper;
-  using L = GemmLayout<BN>;
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* base = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  uint64_t* full = reinterpret_cast<uint64_t*>(base + L::bar_off);
-  uint64_t* empty = full + L::kStages;
-  const int n0 = blockIdx.x * BN;
-  const int m0 = blockIdx.y * kGM;
-  const int k_tiles = (K + kGK - 1) / kGK;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < L::kStages; ++s) {
-      mbar_init(full + s, 1);
-      mbar_init(empty + s, 256);
-    }
-    fence_barrier_init();
-  }
-  __syncthreads();
-
-  if (threadIdx.x < 128) {
-    // ---- producer: one thread issues every load ----
-    regs_dec<40>();
-    if (threadIdx.x == 0) {
-      Ring ring;
-      for (int kt = 0; kt < k_tiles; ++kt) {
-        const int s = ring.stage;
-        mbar_wait(empty + s, ring.phase ^ 1u);
-        unsigned char* st = base + s * L::kStage;
-        mbar_arrive_expect_tx(full + s, L::kStage);
-        tma_load_3d(st, &maps.a, full + s, kt * kGK, m0, 0);
-        tma_load_3d(st + L::kABytes, &maps.w, full + s, kt * kGK, n0, 0);
-        ring.advance<L::kStages>();
-      }
-    }
-    return;
-  }
-
-  // ---- consumers: 64 output rows each ----
-  regs_inc<232>();
-  const int wg = threadIdx.x / 128 - 1;
-  float acc[BN / 2];
-#pragma unroll
-  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
-  Ring ring;
-  int prev = -1;
-  for (int kt = 0; kt < k_tiles; ++kt) {
-    const int s = ring.stage;
-    mbar_wait(full + s, ring.phase);
-    const uint32_t a_addr = smem_u32(base + s * L::kStage) + wg * 64 * 128;
-    const uint32_t b_addr = smem_u32(base + s * L::kStage + L::kABytes);
-    wg_fence();
-#pragma unroll
-    for (int i = 0; i < kGK / 16; ++i) {
-      const uint64_t da = make_desc(a_addr + 32 * i, 64, 16, 1024);
-      const uint64_t db = make_desc(b_addr + 32 * i, 64, 16, 1024);
-      if constexpr (BN == 128)
-        wgmma_ss_n128(acc, da, db, 1);
-      else
-        wgmma_ss_n64(acc, da, db, 1);
-    }
-    wg_commit();
-    wg_wait_1();  // the previous chunk's products are done: hand its stage back
-    if (prev >= 0) mbar_arrive(empty + prev);
-    prev = s;
-    ring.advance<L::kStages>();
-  }
-  wg_wait_all();
-  fence_regs<BN / 2>(acc);
-
-  // ---- epilogue: rows r_a and r_a + 8, columns 8 j + 2 quad (+1) ----
-  const int t = threadIdx.x % 128;
-  const int quad = t % 4;
-  const int r_a = m0 + wg * 64 + (t / 32) * 16 + (t % 32) / 4;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = r_a + 8 * h;
-    if (r >= e.M) continue;
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-      const int c = n0 + 8 * j + 2 * quad;
-      if (c >= e.N) continue;
-      const __nv_bfloat162 v = __floats2bfloat162_rn(e.apply(r, c, acc[4 * j + 2 * h]),
-                                                     e.apply(r, c + 1, acc[4 * j + 2 * h + 1]));
-      *reinterpret_cast<__nv_bfloat162*>(e.out + (size_t)r * e.N + c) = v;
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
 // bf16 fused MLP at C <= 256: one kernel, the hidden rows never leave the SM
 // ---------------------------------------------------------------------------
 
-constexpr int kHC = 64;  // hidden columns a chunk
+constexpr int kGM = 128;  // rows a block: two consumer warpgroups
+constexpr int kHC = 64;   // hidden columns a chunk
 
 template <int C>
 struct MlpLayout {
@@ -495,24 +374,6 @@ int sm_count() {
   return n;
 }
 
-template <int BN>
-cudaError_t launch_sm90(const bf16* a, const bf16* w, const Epi<bf16>& e, int K,
-                        cudaStream_t stream) {
-  using L = GemmLayout<BN>;
-  GemmMaps maps;
-  if (!hopper::make_map(&maps.a, a, K, e.M, 1, kGK, kGM) ||
-      !hopper::make_map(&maps.w, w, K, e.N, 1, kGK, BN))
-    return cudaErrorInvalidValue;
-  auto kern = linear_sm90_kernel<BN>;
-  static unsigned long long smem_set = 0;
-  const cudaError_t err =
-      hopper::allow_smem(reinterpret_cast<const void*>(kern), L::bytes, smem_set);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((e.N + BN - 1) / BN, (e.M + kGM - 1) / kGM);
-  kern<<<grid, 384, L::bytes, stream>>>(maps, e, K);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 template <typename T>
@@ -526,20 +387,46 @@ cudaError_t layer_norm(const T* x, const T* g, const T* b, T* out, int N, int C,
 template <typename T>
 cudaError_t linear(const T* a, const T* w, const T* bias, const T* resid, T* out, int M, int N,
                    int K, int epi, cudaStream_t stream) {
+  auto misaligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; };
   if (M <= 0 || N <= 0 || K <= 0 || N % 8 || K % 8 || epi < kEpiBias || epi > kEpiResidual ||
-      (epi == kEpiResidual && resid == nullptr))
+      (epi == kEpiResidual && (resid == nullptr || misaligned(resid))) || misaligned(a) ||
+      misaligned(w) || misaligned(bias) || misaligned(out))
     return cudaErrorInvalidValue;
-  const Epi<T> e{bias, resid, out, M, N, epi};
   if constexpr (std::is_same<T, bf16>::value) {
-    // 128-wide tiles, or 64-wide ones where those leave SMs idle
-    const long tiles = (long)((M + kGM - 1) / kGM) * ((N + 127) / 128);
-    if (tiles < sm_count()) return launch_sm90<64>(a, w, e, K, stream);
-    return launch_sm90<128>(a, w, e, K, stream);
+    const int sms = sm_count();
+    const LinearCall c{a, w, bias, resid, out, M, N, K, epi, sms, stream};
+    switch (tile_n(M, N, K, sms)) {
+#define MEDSAM2_LINEAR_CASE(BN) \
+  case BN:                      \
+    return launch_linear<BN>(c);
+      MEDSAM2_LINEAR_WIDTHS(MEDSAM2_LINEAR_CASE)
+#undef MEDSAM2_LINEAR_CASE
+      default: return cudaErrorInvalidValue;
+    }
   } else {
+    const Epi<T> e{bias, resid, out, M, N, epi};
     const dim3 grid((N + kFT - 1) / kFT, (M + kFT - 1) / kFT);
     linear_fma_kernel<<<grid, 256, 0, stream>>>(a, w, e, K);
     return cudaGetLastError();
   }
+}
+
+int tile_n(int M, int N, int K, int sms) {
+  (void)K;  // every tile walks the same K
+  bool divides = false;
+  for (int bn = 16; bn <= 192; bn += 16) divides = divides || N % bn == 0;
+  int best = 0;
+  long best_cost = -1;
+  for (int bn = 16; bn <= 192; bn += 16) {
+    if (divides && N % bn) continue;
+    const long tiles = (long)((M + kLM - 1) / kLM) * ((N + bn - 1) / bn);
+    const long cost = (tiles + sms - 1) / sms * ((bn > 64 ? bn : 64) + 32);
+    if (best_cost < 0 || cost <= best_cost) {
+      best = bn;
+      best_cost = cost;
+    }
+  }
+  return best;
 }
 
 int mlp_launches(int C, int H, bool is_bf16) {

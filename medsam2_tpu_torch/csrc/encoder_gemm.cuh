@@ -23,10 +23,19 @@ cudaError_t layer_norm(const T* x, const T* g, const T* b, T* out, int N, int C,
 
 // out[M, N] = epilogue(a[M, K] @ w[N, K]^T) (w a torch Linear weight), with
 // bias [N] and, for kEpiResidual, x = resid [M, N]. N and K multiples of 8,
-// pointers 16-byte aligned. bf16: wgmma + TMA; fp32: FMA (no TF32).
+// pointers 16-byte aligned; any other shape returns cudaErrorInvalidValue.
+// bf16: the persistent wgmma + TMA kernel (encoder_linear_sm90.cuh) at
+// column tiles of tile_n(M, N, K, SMs); fp32: FMA (no TF32).
 template <typename T>
 cudaError_t linear(const T* a, const T* w, const T* bias, const T* resid, T* out, int M, int N,
                    int K, int epi, cudaStream_t stream);
+
+// The bf16 linear's column-tile width on `sms` SMs: among the multiples of
+// 16 up to 192 that divide N (all of them where none does), the one with
+// the fewest rounds x (max(BN, 64) + 32), rounds = ceil(ceil(M / 128)
+// ceil(N / BN) / sms), the wider on a tie. ops/encoder_linear.tile_n
+// restates it.
+int tile_n(int M, int N, int K, int sms);
 
 // The launches mlp_residual makes at (C, H): 1 in bf16 at C in {96, 112,
 // 144, 192, 224} with H = 4C (the fused kernel), else 3.

@@ -57,3 +57,49 @@ extern "C" int medsam2_fused_mlp_fwd(const void* x, const void* gamma, const voi
   }
   return (int)cudaErrorInvalidValue;
 }
+
+// The building blocks of B7 and B8 on their own, for the tests and the
+// per-launch split of scripts/profile_port_block_split.py: the LayerNorm
+// rows (out [N, C]) and the linear out[M, N] = epilogue(a[M, K] @ w[N, K]^T)
+// with epi 0 = bias, 1 = bias + GELU, 2 = residual (resid [M, N]; see
+// encoder_gemm.cuh). All contiguous, 16-byte aligned, one dtype (0 =
+// float32, 1 = bfloat16). Return the cudaError_t of the launch.
+extern "C" int medsam2_encoder_layer_norm(const void* x, const void* g, const void* b, void* out,
+                                          int N, int C, float eps, int dtype, void* stream) {
+  using namespace medsam2::enc;
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) {
+    using T = __nv_bfloat16;
+    return (int)layer_norm<T>(static_cast<const T*>(x), static_cast<const T*>(g),
+                              static_cast<const T*>(b), static_cast<T*>(out), N, C, eps, s);
+  }
+  if (dtype == 0)
+    return (int)layer_norm<float>(static_cast<const float*>(x), static_cast<const float*>(g),
+                                  static_cast<const float*>(b), static_cast<float*>(out), N, C,
+                                  eps, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The bf16 linear's column-tile width for an [M, K] x [K, N] product on
+// `sms` SMs (encoder_gemm.cuh's tile_n).
+extern "C" int medsam2_linear_tile_n(int M, int N, int K, int sms) {
+  return medsam2::enc::tile_n(M, N, K, sms);
+}
+
+extern "C" int medsam2_encoder_linear(const void* a, const void* w, const void* bias,
+                                      const void* resid, void* out, int M, int N, int K, int epi,
+                                      int dtype, void* stream) {
+  using namespace medsam2::enc;
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) {
+    using T = __nv_bfloat16;
+    return (int)linear<T>(static_cast<const T*>(a), static_cast<const T*>(w),
+                          static_cast<const T*>(bias), static_cast<const T*>(resid),
+                          static_cast<T*>(out), M, N, K, epi, s);
+  }
+  if (dtype == 0)
+    return (int)linear<float>(static_cast<const float*>(a), static_cast<const float*>(w),
+                              static_cast<const float*>(bias), static_cast<const float*>(resid),
+                              static_cast<float*>(out), M, N, K, epi, s);
+  return (int)cudaErrorInvalidValue;
+}

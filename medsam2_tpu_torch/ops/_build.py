@@ -128,6 +128,15 @@ def load_library() -> ctypes.CDLL:
     fn = lib.medsam2_fused_mlp_launches
     fn.argtypes = [i, i, i]
     fn.restype = i
+    fn = lib.medsam2_encoder_layer_norm
+    fn.argtypes = [vp] * 4 + [i, i, f, i, vp]
+    fn.restype = i
+    fn = lib.medsam2_linear_tile_n
+    fn.argtypes = [i] * 4
+    fn.restype = i
+    fn = lib.medsam2_encoder_linear
+    fn.argtypes = [vp] * 5 + [i] * 5 + [vp]
+    fn.restype = i
     fn = lib.medsam2_fused_block_fwd
     fn.argtypes = [vp] * 15 + [i, i, i, i, f, i, vp]
     fn.restype = i

@@ -670,6 +670,8 @@ def _counted() -> dict:
 def reset_launch_counts() -> None:
     for fn in _counted().values():
         fn.launches = 0
+        if hasattr(fn, "launches_by_width"):
+            fn.launches_by_width = {}
 
 
 def launch_counts() -> dict:

@@ -12,7 +12,8 @@ launch ``csrc/fused_block.cu``, a sequence of the port's kernels at every
 preset width: LN1, the qkv linear, the window attention kernel, the proj
 linear with its residual, and the fused MLP (one launch where
 :func:`~medsam2_tpu_torch.ops.fused_mlp.kernel_launches` says so, else
-three); ``fused_window_block.launches`` counts one a block. CPU tensors
+three); ``fused_window_block.launches`` counts one a block (and
+``launches_by_width`` by the block's C). CPU tensors
 run :func:`fused_window_block_plain`. Both follow the Pallas kernel's
 arithmetic (``fused_block.py:90-132``): LN scale and bias cast to the input
 dtype, qkv rounded before its bias, fp32 softmax with the probabilities cast
@@ -129,6 +130,8 @@ def _launch(x2d, p: BlockParams, num_heads: int, n: int, eps: float):
         num_heads, n, ctypes.c_float(eps), code, _stream(x2d))
     _raise_on_error(rc, "fused_block")
     fused_window_block.launches += 1
+    by_width = fused_window_block.launches_by_width
+    by_width[C] = by_width.get(C, 0) + 1
     return out
 
 
@@ -146,3 +149,5 @@ def fused_window_block(wins, p: BlockParams, num_heads: int, eps: float = 1e-6):
 
 
 fused_window_block.launches = 0
+# the same launches by block width C
+fused_window_block.launches_by_width = {}

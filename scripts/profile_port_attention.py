@@ -1,9 +1,10 @@
 """Time the bf16 attention wrappers (B1 flash forward, B2 kv-cached, the
 B3/B4 backward pair, B5 window attention) of one copy of the port at the
 main path's shapes, on one GPU; with ``--block``, the fused window block
-(B8) at phase 8's shapes instead.
+(B8) at phase 8's shapes instead, and with ``--mlp`` the fused MLP (B7) at
+phase 8's shapes of three launches (C > 224).
 
-    python3 scripts/profile_port_attention.py [ROOT ...] [--graph] [--block]
+    python3 scripts/profile_port_attention.py [ROOT ...] [--graph] [--block] [--mlp]
 
 Each ROOT is a directory holding a ``medsam2_tpu_torch`` package (default:
 this checkout); each runs in its own process, in the order given, so
@@ -30,7 +31,7 @@ import torch
 CHECKOUT = Path(__file__).resolve().parents[1]
 
 
-def measure(root: str, graph: bool, block: bool) -> None:
+def measure(root: str, graph: bool, block: bool, mlp: bool) -> None:
     # chip_smoke's own imports of the package then resolve to ROOT's copy
     sys.path.insert(0, root)
     spec = importlib.util.spec_from_file_location("chip_smoke", CHECKOUT / "chip_smoke.py")
@@ -41,12 +42,21 @@ def measure(root: str, graph: bool, block: bool) -> None:
     rng = np.random.default_rng(0)
     bf16 = torch.bfloat16
     res = {}
-    if block:
-        for Bn, ws, C, heads in s.BLOCK_CASES:
+    if block or mlp:
+        for Bn, ws, C, heads in s.BLOCK_CASES if block else ():
             wins = s.rand(rng, (Bn, ws, ws, C), bf16)
             p = s.block_params(rng, C, bf16)
             res[f"fused_block N {Bn * ws * ws} C {C} ws {ws} heads {heads}"] = timed(
                 lambda: s.FB.fused_window_block(wins, p, heads))
+        for N, C in s.MLP_CASES if mlp else ():
+            if C <= 224:
+                continue
+            x = s.rand(rng, (N, C), bf16)
+            g, b = 1 + 0.1 * s.rand(rng, (C,), bf16), 0.1 * s.rand(rng, (C,), bf16)
+            (w1, b1), (w2, b2) = (s.linear_params(rng, 4 * C, C, bf16),
+                                  s.linear_params(rng, C, 4 * C, bf16))
+            res[f"fused_mlp {N}x{C}x{4 * C}"] = timed(
+                lambda: s.FM.ln_mlp_residual(x, g, b, w1, b1, w2, b2))
         for name, ms in res.items():
             print(f"{root:>16} {name:48s} {ms:.4f} ms", flush=True)
         return
@@ -81,19 +91,20 @@ def main() -> None:
     ap.add_argument("roots", nargs="*", default=[str(CHECKOUT)])
     ap.add_argument("--graph", action="store_true")
     ap.add_argument("--block", action="store_true")
+    ap.add_argument("--mlp", action="store_true")
     ap.add_argument("--one", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_port_attention: needs a CUDA device")
     if args.one:
-        measure(args.one, args.graph, args.block)
+        measure(args.one, args.graph, args.block, args.mlp)
         return
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True,
                          timeout=60).stdout.strip().splitlines()[0])
     for root in args.roots:
         cmd = ([sys.executable, __file__, "--one", root] + (["--graph"] if args.graph else [])
-               + (["--block"] if args.block else []))
+               + (["--block"] if args.block else []) + (["--mlp"] if args.mlp else []))
         subprocess.run(cmd, check=True, timeout=600)
 
 

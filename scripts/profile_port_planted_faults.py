@@ -8,7 +8,8 @@ are copied to ``<DIR>/planted_<fault>`` (default DIR: ``build/planted`` of
 this checkout, which git ignores), one passage of one CUDA source is
 changed there, and the copy builds the kernels, runs the fault's phase
 (3 for the propagation kernels, 3b for the backward, 8 for the encoder
-kernels; not phase 2's SASS check, so that a fault is caught on values) and
+kernels and the encoder linear; not phase 2's SASS check, so that a fault
+is caught on values) and
 the fault's cases of ``tests/test_torch_kernels_cuda.py``. Each must
 fail; the script prints the phase's lines, the failing tests, and exits
 non-zero if a fault went unnoticed. With ``--e2e`` an encoder fault runs
@@ -31,6 +32,7 @@ BACKWARD = ("phase_train_kernels()", "[3b train kernel]", "dq or lse_and_backwar
 DKV = ("phase_train_kernels()", "[3b train kernel]", "dkv or lse_and_backward")
 WINDOW = ("phase_encoder_kernels()", "[8 encoder kernel] window", "window")
 MLP = ("phase_encoder_kernels()", "[8 encoder kernel]", "fused_mlp or fused_block")
+LINEAR = ("phase_encoder_kernels()", "[8 encoder", "linear or fused_mlp or fused_block")
 E2E = ("phase_bl_set_image('')", "[11 b+/l set_image]")
 # name: (source, text, replacement, check)
 FAULTS = {
@@ -87,11 +89,29 @@ FAULTS = {
                              "tma_load_3d(st + L::kW1Bytes, &maps.w2, full + s, j * kHC, 0, 0);",
                              "tma_load_3d(st + L::kW1Bytes, &maps.w2, full + s, "
                              "(j == kChunks - 1 ? j - 1 : j) * kHC, 0, 0);", MLP),
-    # B7 at C > 256 (and B8's linears): the last 64-wide k chunk of every
-    # product is dropped (the last hidden chunk of fc2)
-    "mlp_last_chunk": ("medsam2_tpu_torch/csrc/encoder_gemm.cu",
-                       "const int k_tiles = (K + kGK - 1) / kGK;",
-                       "const int k_tiles = (K + kGK - 1) / kGK - 1;", MLP),
+    # B7 at C > 224 (and B8's linears): the products of the last 64-wide k
+    # chunk of every tile are not issued (the last hidden chunk of fc2); the
+    # ring still loads and hands back every chunk
+    "mlp_last_chunk": ("medsam2_tpu_torch/csrc/encoder_linear_sm90.cuh",
+                       "      for (int i = 0; i < kLK / 16; ++i)\n        WgmmaSS<BN>::mma(",
+                       "      for (int i = 0; i < (kt + 1 < k_chunks ? kLK / 16 : 0); ++i)\n"
+                       "        WgmmaSS<BN>::mma(", LINEAR),
+    # the persistent linear's schedule skips its last round's tiles (all of
+    # them where there is one round): producer and consumers alike
+    "linear_last_round": ("medsam2_tpu_torch/csrc/encoder_linear_sm90.cuh",
+                          "const int tiles = (a.M + kLM - 1) / kLM * n_tiles;",
+                          "const int tiles = ((a.M + kLM - 1) / kLM * n_tiles - 1) / "
+                          "(int)gridDim.x * (int)gridDim.x;", LINEAR),
+    # the residual tile of each consumer warpgroup is loaded from the other
+    # warpgroup's 64-row block
+    "linear_resid_rows": ("medsam2_tpu_torch/csrc/encoder_linear_sm90.cuh",
+                          "n0 + c * kLC, m0 + 64 * h, 0);",
+                          "n0 + c * kLC, m0 + 64 * (1 - h), 0);", LINEAR),
+    # the TMA store drops the 16-column chunk that straddles N (a ragged
+    # column edge: N not a multiple of 16)
+    "linear_store_edge": ("medsam2_tpu_torch/csrc/encoder_linear_sm90.cuh",
+                          "c < BN / kLC && n0 + c * kLC < a.N; ++c)",
+                          "c < BN / kLC && n0 + c * kLC + kLC <= a.N; ++c)", LINEAR),
 }
 
 

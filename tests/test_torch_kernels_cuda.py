@@ -926,3 +926,136 @@ def test_encoder_wrappers_take_every_block_the_dispatch_sends(dev, preset):
             want = FM.ln_mlp_residual_plain(*args)
             assert (got.float() - want.float()).abs().max().item() <= _tol(want.float(), dt), key
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# The bf16 encoder linear (csrc/encoder_linear_sm90.cuh): every B7 / B8
+# linear at the four presets' widths @1024, each epilogue at ragged shapes,
+# the tile rule, and a chain of fused blocks captured in one CUDA graph.
+# The plain product runs in fp32 (TF32 off) on the same bf16 values and is
+# rounded as the kernel's epilogue; 1e-2 of the largest |output|.
+# ---------------------------------------------------------------------------
+
+from medsam2_tpu_torch.ops import encoder_linear as EL  # noqa: E402
+
+# (rows, C) of every encoder stage of hiera_t / s, b+ and l @1024
+PRESET_STAGES = [(65536, 96), (16384, 192), (4096, 384), (1024, 768), (65536, 112),
+                 (16384, 224), (4096, 448), (1024, 896), (65536, 144), (16384, 288),
+                 (4096, 576), (1024, 1152)]
+LINEAR_SHAPES = [(M, N, K, epi, f"{name}-{M}x{C}")
+                 for M, C in PRESET_STAGES
+                 for name, N, K, epi in (("qkv", 3 * C, C, EL.EPI_BIAS),
+                                         ("proj", C, C, EL.EPI_RESIDUAL),
+                                         ("fc1", 4 * C, C, EL.EPI_BIAS_GELU),
+                                         ("fc2", C, 4 * C, EL.EPI_RESIDUAL))]
+
+
+def _linear_case(rng, dev, dtype, M, N, K, epi):
+    a = _t(rng, (M, K), dev, dtype)
+    w, b = _linear_w(rng, N, K, dev)
+    w, b = w.to(dtype), b.to(dtype)
+    resid = _t(rng, (M, N), dev, dtype) if epi == EL.EPI_RESIDUAL else None
+    return a, w, b, resid
+
+
+def _check_linear(dev, dtype, M, N, K, epi, seed=21):
+    rng = np.random.default_rng(seed)
+    a, w, b, resid = _linear_case(rng, dev, dtype, M, N, K, epi)
+    before = EL.linear.launches
+    got = EL.linear(a, w, b, resid, epi)
+    torch.cuda.synchronize()
+    assert EL.linear.launches == before + 1
+    want = EL.linear_plain(a, w, b, resid, epi)
+    assert got.shape == (M, N) and got.dtype == dtype
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= _tol(want.float(), dtype), (M, N, K, epi, err)
+
+
+@pytest.mark.parametrize("shape", LINEAR_SHAPES, ids=lambda s: s[4])
+def test_linear_kernel_at_every_preset_shape(dev, shape):
+    M, N, K, epi, _ = shape
+    _check_linear(dev, torch.bfloat16, M, N, K, epi)
+
+
+@pytest.mark.parametrize("epi", [EL.EPI_BIAS, EL.EPI_BIAS_GELU, EL.EPI_RESIDUAL],
+                         ids=["bias", "gelu", "residual"])
+@pytest.mark.parametrize("M,N,K", [(1000, 576, 576), (77, 200, 200), (4096, 200, 200),
+                                   (300, 1152, 4608), (129, 8, 24), (4096, 1728, 576)],
+                         ids=lambda v: str(v))
+def test_linear_kernel_every_epilogue_at_ragged_shapes(dev, epi, M, N, K):
+    """Rows that do not fill a 128-row tile, N that no allowed tile width
+    divides (the TMA store clips the last column tile), K past the last
+    whole 64-wide chunk; bf16 on the persistent kernel, fp32 on FMA."""
+    _check_linear(dev, torch.bfloat16, M, N, K, epi)
+    _check_linear(dev, torch.float32, min(M, 1000), N, min(K, 576), epi)
+
+
+def test_linear_kernel_rejects_untaken_shapes(dev):
+    from medsam2_tpu_torch.ops._build import load_library
+
+    z = lambda *shape: torch.zeros(shape, device=dev, dtype=torch.bfloat16)  # noqa: E731
+    with pytest.raises(ValueError, match="kernel built for"):
+        EL.linear(z(4, 16), z(12, 16), z(12))                 # N not a multiple of 8
+    with pytest.raises(ValueError, match="kernel built for"):
+        EL.linear(z(4, 12), z(16, 12), z(16))                 # K not a multiple of 8
+    lib = load_library()
+    a, w, b, out = z(64, 72), z(64, 72), z(64), z(64, 64)
+    stream = torch.cuda.current_stream().cuda_stream
+    call = lambda a_ptr, K: lib.medsam2_encoder_linear(  # noqa: E731
+        a_ptr, w.data_ptr(), b.data_ptr(), None, out.data_ptr(), 64, 64, K, 0, 1, stream)
+    assert call(a.data_ptr(), 72) == 0
+    assert call(a.data_ptr() + 2, 72) != 0                   # a misaligned by one element
+    assert call(a.data_ptr(), 68) != 0                       # K not a multiple of 8
+    torch.cuda.synchronize()
+
+
+def test_linear_tile_rule_matches_its_python_restatement(dev):
+    from medsam2_tpu_torch.ops._build import load_library
+
+    lib = load_library()
+    for sms in (132, 114):
+        for M in (1, 77, 1000, 1024, 4096, 16384, 65536):
+            for N in list(range(8, 520, 8)) + [576, 864, 1152, 1728, 2304, 3456, 4608]:
+                for K in (96, 4608):
+                    assert lib.medsam2_linear_tile_n(M, N, K, sms) == EL.tile_n(M, N, K, sms), (
+                        M, N, K, sms)
+
+
+@pytest.mark.parametrize("Bn,ws,C,heads", [(16, 16, 576, 8), (64, 8, 96, 1), (16, 8, 1152, 16)],
+                         ids=lambda v: str(v))
+def test_fused_block_chain_in_one_graph(dev, Bn, ws, C, heads):
+    """Eight bf16 blocks with their own weights, captured in one CUDA graph
+    and replayed twice on new inputs: each block's output against the twin
+    on that block's own input, so a launch that read its input before the
+    previous one had written it would miss."""
+    rng = np.random.default_rng(31)
+    dt = torch.bfloat16
+    params = [FB.BlockParams(*(t.to(dt) for t in _block_params(rng, C, dev))) for _ in range(8)]
+    x0 = _t(rng, (Bn, ws, ws, C), dev, dt)
+
+    def chain():
+        outs, y = [], x0
+        for p in params:
+            y = FB.fused_window_block(y, p, heads)
+            outs.append(y)
+        return outs
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        chain()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = chain()
+    for trial in range(2):
+        x0.copy_(_t(rng, (Bn, ws, ws, C), dev, dt))
+        graph.replay()
+        torch.cuda.synchronize()
+        prev = x0
+        for i, (p, got) in enumerate(zip(params, outs)):
+            want = FB.fused_window_block_plain(prev.reshape(-1, C), p, heads, ws * ws)
+            err = (got.reshape(-1, C).float() - want.float()).abs().max().item()
+            assert err <= _tol(want.float(), dt), (trial, i, err)
+            prev = got
+    del graph
