@@ -1,7 +1,8 @@
 """Drive the PyTorch port's 3D propagation (the whole session: reverse and
 resumed propagation, corrections on tracked frames, clearing around new
 prompts, the three memory readouts, batched volumes), 3D training (over raw
-memory and over the roped-key cache) and 2D image serving on one NVIDIA GPU.
+memory and over the roped-key cache), 2D image serving and REFUGE 2D
+training on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -33,7 +34,9 @@ Phases, each printing its own line:
      forced q split counts, and the two split sums)
      against their twins at the training path's shapes, bf16 and fp32, with
      a kv mask holding stale frames, a ragged Nk and a batch whose keys are
-     all masked; times of kernel, twin and
+     all masked, and at the Hiera global blocks that 2D training
+     differentiates (hiera_s [4,4,4096,96] and hiera_l [4,8,4096,72] @1024
+     batch 4); times of kernel, twin and
      ``F.scaled_dot_product_attention`` forward and backward (kernels and
      library calls by CUDA-graph replay; the library backward is its
      captured forward + backward less its forward);
@@ -96,15 +99,30 @@ Phases, each printing its own line:
   14. training over the roped-key cache: phase 6 with ``use_kcache=True``,
      and phase 7's step with the cache on against off in turns (seconds per
      step, exact launch counts, first-step losses within
-     ``TOL_KCACHE_LOSS``).
+     ``TOL_KCACHE_LOSS``);
+  15. REFUGE 2D training at @512 fp32 (TF32 off, memory-attention dropout
+     0), sam2_hiera_t batch 2: two steps (the empty bank, then the bank the
+     first wrote with injected draws) on the card against the CPU: losses,
+     every clipped gradient and the bank, with the encoder switches off and
+     with B8 + B7 on (their backward re-runs the twin), exact launch counts;
+  16. the REFUGE step at ``bench.py``'s train_2d shape, sam2_hiera_s @1024
+     bf16 batch 4: a warm-up step on the empty bank and 3 timed steps,
+     finite losses, every tensor with a gradient updated, exact launch counts
+     of B1 / B3 / B4 (B3 / B4 by head dims), seconds per step, images/s,
+     peak memory, one traced step (device busy time, idle share); the step
+     with B8 + B7 on; two hiera_l @512 steps (B3 / B4 at head dim 72); and
+     ``cli.train_2d -dataset synthetic`` for 2 steps and 1 validation sample.
 Then one JSON line of per-kernel results (B8 also once per phase-8 width,
-``fused_block C<width>``, with its launches in phases 10 and 11), the card's
+``fused_block C<width>``, with its launches in phases 10 and 11; B3 and B4
+also once per Hiera head dim, ``flash_attention_bwd_dkv (96, 96)`` ..., with
+their phase 3b numbers and phase 16 launches), the card's
 name and power limit,
 and, last, the device line. Any failure raises and exits non-zero; without a
 CUDA device nothing runs.
 """
 
 import contextlib
+import dataclasses
 import json
 import os
 import re
@@ -112,6 +130,7 @@ import shutil
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -125,7 +144,9 @@ from medsam2_tpu_torch.api import automatic_mask_generator as amg_api  # noqa: E
 from medsam2_tpu_torch.api.image_predictor import SAM2ImagePredictor  # noqa: E402
 from medsam2_tpu_torch.api.video_predictor import (SAM2VideoPredictor,  # noqa: E402
                                                    propagate_volumes_batched)
-from medsam2_tpu_torch.configs import sam2_hiera_b_plus, sam2_hiera_l, sam2_hiera_t  # noqa: E402
+from medsam2_tpu_torch.cli import train_2d as train_2d_cli  # noqa: E402
+from medsam2_tpu_torch.configs import (sam2_hiera_b_plus, sam2_hiera_l,  # noqa: E402
+                                       sam2_hiera_s, sam2_hiera_t)
 from medsam2_tpu_torch.core.sam2_model import TRAINABLE_GROUPS, SAM2Model  # noqa: E402
 from medsam2_tpu_torch.ops import _build  # noqa: E402
 from medsam2_tpu_torch.ops import attention as A  # noqa: E402
@@ -133,7 +154,9 @@ from medsam2_tpu_torch.ops import encoder_linear as EL  # noqa: E402
 from medsam2_tpu_torch.ops import fused_block as FB  # noqa: E402
 from medsam2_tpu_torch.ops import fused_mlp as FM  # noqa: E402
 from medsam2_tpu_torch.ops import window_attention as WA  # noqa: E402
-from medsam2_tpu_torch.train import recipe_3d  # noqa: E402
+from medsam2_tpu_torch.data.refuge import pack_refuge_batch  # noqa: E402
+from medsam2_tpu_torch.data.synthetic import synthetic_fundus  # noqa: E402
+from medsam2_tpu_torch.train import recipe_2d, recipe_3d  # noqa: E402
 
 DEV = torch.device("cuda")
 # fp32 (TF32 off): absolute. bf16: relative to the largest |output|, since
@@ -163,6 +186,13 @@ KERNELS = {
                                         replaces="medsam2_tpu/ops/attention.py:227"),
     "flash_attention_bwd_dq": dict(source="medsam2_tpu_torch/csrc/flash_bwd_dq_sm90.cu",
                                    replaces="medsam2_tpu/ops/attention.py:271"),
+    # B3 / B4 at the Hiera global blocks' head dims, which 2D training
+    # differentiates (hiera_t / s: 96; hiera_l: 72): rows of their own, with
+    # the launches of those widths
+    **{f"flash_attention_bwd_{p} ({d}, {d})": dict(
+        source=f"medsam2_tpu_torch/csrc/flash_bwd_{p}_sm90.cu",
+        replaces=f"medsam2_tpu/ops/attention.py:{line}")
+       for d in (96, 72) for p, line in (("dkv", 227), ("dq", 271))},
     # the split-kv second pass of B4: the TPU kernel carried the dQ sum over
     # kv tiles across its sequential grid, the card splits it over blocks
     "flash_attention_bwd_dq_sum": dict(source="medsam2_tpu_torch/csrc/flash_bwd_dq_sm90.cu",
@@ -187,12 +217,13 @@ KERNELS = {
 ENCODER_SWITCHES = ("MEDSAM2_FUSED_BLOCK", "MEDSAM2_FUSED_WINDOW", "MEDSAM2_FUSED_MLP")
 NO_ENCODER_LAUNCHES = {"window_attention": 0, "fused_mlp": 0, "fused_block": 0}
 # bf16 kernels whose SASS must hold HGMMA (wgmma): (mangled-name pattern,
-# instantiations): B1 (25 (D, Dv) pairs), B2, B4 and B3 (2 pairs each), B5
+# instantiations): B1 (25 (D, Dv) pairs), B2, B4 and B3 (4 pairs each:
+# (256, 256), (256, 64), (96, 96), (72, 72)), B5
 # (ws 1 to 14 at d 96, 4 at d 56, 3 at d 72), the persistent encoder linear of
 # B7 / B8 (column tiles 16 to 192 in steps of 16) and B7's one-kernel form
 # (C 96, 112, 144, 192, 224)
 SM90_KERNELS = (("flash_sm90_kernel", 25), ("kv_cached_sm90_kernel", 1),
-                ("flash_bwd_dq_sm90_kernel", 2), ("flash_bwd_dkv_sm90_kernel", 2),
+                ("flash_bwd_dq_sm90_kernel", 4), ("flash_bwd_dkv_sm90_kernel", 4),
                 ("window_sm90_kernel", 21), ("linear_persistent_sm90_kernel", 12),
                 ("mlp_fused_sm90_kernel", 5))
 # the ones a spill fails
@@ -264,7 +295,7 @@ def dkv_sums(bh: int, nq: int, n_keys: int) -> int:
     return int(2 * blocks <= sm_count() and nq > 64)
 
 
-def encoder_launches(cfg) -> dict:
+def encoder_launches(cfg, batch: int = 1) -> dict:
     """Launches of the three encoder kernels in one ``set_image`` with the
     switches on, from the JAX package's dispatch rules restated here apart
     from the wrappers (``hiera._block_apply`` / ``_block_apply_windows``,
@@ -275,14 +306,15 @@ def encoder_launches(cfg) -> dict:
     block's rows, r * r * 4 <= 4 MiB), runs whole as the fused block; a
     windowed block without q-pooling whose extent needs padding takes the
     window attention; every block but a fused one ends in the MLP tail, fused
-    where its rows tile by 128."""
+    where its rows tile by 128. ``batch`` images share each call, so a
+    block's rows are batch x its tokens."""
     hw = cfg.image_size // cfg.trunk.patch_stride[0]
     counts = {"window_attention": 0, "fused_mlp": 0, "fused_block": 0}
     for spec in cfg.trunk.block_schedule():
         ws, qs, C = spec["window_size"], spec["q_stride"], spec["dim_out"]
         if qs is not None:
             hw //= qs[0]
-        rows, n = hw * hw, ws * ws
+        rows, n = batch * hw * hw, ws * ws
         if (qs is None and spec["dim"] == C and ws > 0 and hw % ws == 0
                 and C % spec["num_heads"] == 0
                 and any(r % n == 0 and rows % r == 0 and r * r * 4 <= 4 << 20
@@ -308,6 +340,20 @@ def global_flash(cfg) -> int:
         if spec["window_size"] == 0:
             n += int(hw * hw >= 1024 and spec["dim_out"] // spec["num_heads"] >= 64)
     return n
+
+
+def global_blocks(cfg):
+    """(heads, head dim, tokens) of each global-attention block of the trunk
+    that reaches the flash gate (``global_flash``'s rule)."""
+    hw = cfg.image_size // cfg.trunk.patch_stride[0]
+    out = []
+    for spec in cfg.trunk.block_schedule():
+        if spec["q_stride"] is not None:
+            hw //= spec["q_stride"][0]
+        d = spec["dim_out"] // spec["num_heads"]
+        if spec["window_size"] == 0 and hw * hw >= 1024 and d >= 64:
+            out.append((spec["num_heads"], d, hw * hw))
+    return out
 
 
 def rates(ms: float, flops: float, bound_ms: float, lib_ms: float, grid) -> str:
@@ -599,11 +645,16 @@ TRAIN_CASES = [
     ("memory self-attention @512", 2, 1, 1024, 1024, 256, 256, None),
     ("memory cross-attention @512", 2, 1, 1024, 10316, 256, 64, "stale"),
     ("dead batch, ragged", 2, 1, 100, 77, 256, 64, "dead"),
+    # 2D training differentiates the Hiera trunk: its global blocks @1024 at
+    # batch 4 (bench.py's train_2d shape), hiera_s (C 384 in 4 heads) and
+    # hiera_l (C 576 in 8 heads)
+    ("hiera_s global attention @1024 B 4", 4, 4, 4096, 4096, 96, 96, "hiera"),
+    ("hiera_l global attention @1024 B 4", 4, 8, 4096, 4096, 72, 72, "hiera"),
 ]
 
 
 def train_mask(kind, B, Nk):
-    if kind is None:
+    if kind in (None, "hiera"):
         return None
     m = np.ones((B, Nk), bool)
     if kind == "stale":
@@ -716,6 +767,13 @@ def phase_train_kernels():
                                      f"{fmt(dkv_split_errs)} dq at forced splits "
                                      f"{fmt(split_errs)} grads {fmt(errs)} out {err_out:.3e} "
                                      f"lse {err_lse:.3e}")
+            if dtype == torch.bfloat16 and kind == "hiera":
+                for p, ms, b, abs_err in (("dkv", ms_dkv, b_dkv, abs_dkv),
+                                          ("dq", ms_dq, b_dq, abs_dq)):
+                    best[f"flash_attention_bwd_{p} ({D}, {Dv})"] = dict(
+                        max_abs_err=abs_err, ms=ms, plain_ms=plain_bwd, bound_ms=b[0],
+                        bound_by=b[1], library_ms=lib_bwd, shape=[B, H, Nq, Nk, D, Dv],
+                        fwd_lse_ms=ms_fwd, sdpa_fwd_ms=lib_fwd)
             if dtype == torch.bfloat16 and kind == "stale":
                 best["flash_attention_bwd_dkv"] = dict(
                     max_abs_err=abs_dkv, ms=ms_dkv, plain_ms=plain_bwd, bound_ms=b_dkv[0],
@@ -1105,10 +1163,11 @@ def phase_train_full_width(power_line: str):
 
 
 @contextlib.contextmanager
-def encoder_switches(value: str):
-    """Set the three encoder switches to ``value`` for a block of code."""
+def encoder_switches(value: str, names=ENCODER_SWITCHES):
+    """Set the encoder switches ``names`` to ``value``, and the others to
+    "0", for a block of code."""
     saved = {k: os.environ.get(k) for k in ENCODER_SWITCHES}
-    os.environ.update({k: value for k in ENCODER_SWITCHES})
+    os.environ.update({k: (value if k in names else "0") for k in ENCODER_SWITCHES})
     try:
         yield
     finally:
@@ -2452,7 +2511,335 @@ def phase_train_kcache_full_width(power_line: str):
     return counts[True]
 
 
+# ---------------------------------------------------------------------------
+# REFUGE 2D training: the similarity bank, recipe_2d and the train_2d CLI
+# ---------------------------------------------------------------------------
+
+# the bank draws injected into the non-empty step of phase 15 (slots of the
+# first step's two writes), as the CPU tests inject the JAX package's
+REFUGE_INDICES = np.array([[1, 0], [0, 0]])
+# the bank's memory features card vs CPU, relative L2 (see phase_2d_parity)
+TOL_BANK_FEATS_L2 = 5e-3
+# the encoder switches that 2D training can take: B5 has no backward (the
+# JAX package's window attention has no vjp), so its switch stays off
+TRAIN_2D_SWITCHES = ("MEDSAM2_FUSED_BLOCK", "MEDSAM2_FUSED_MLP")
+# B3 / B4 launches by (D, Dv) of a step (``launches_by_width``)
+BWD_COUNTED = ("flash_attention_bwd_dkv", "flash_attention_bwd_dq")
+
+
+def refuge_batch(B: int, S: int, seed: int) -> dict:
+    """``B`` synthetic fundus samples packed as the CLI packs them."""
+    rng = np.random.default_rng(seed)
+    return pack_refuge_batch([synthetic_fundus(rng, S) for _ in range(B)], S, S)
+
+
+def train_2d_launches(cfg, B: int, nonempty: bool, bf16: bool, switches: bool = False) -> dict:
+    """Kernel launches of one REFUGE step at batch B, from the config. The
+    trunk trains, so each global block that reaches the flash gate runs the
+    forward with LSE and then the backward pair; with a non-empty bank the
+    L memory-attention layers add a self-attention [B, 1, tok, 256] and a
+    cross-attention over the B drawn memories [B, 1, tok, B tok] (D 256 /
+    Dv 64: the low-rank value path), each differentiated too. bf16 splits
+    and sums follow ``merges`` / ``dq_sums`` / ``dkv_sums``. With the 2D
+    encoder switches on, each forward runs ``encoder_launches`` B8 and B7
+    calls (their backward is the twin's, no launch). Also returns the
+    B3 / B4 launches by (D, Dv) under ``by_width``."""
+    L = cfg.memory_attention.num_layers
+    tok = (cfg.image_size // 16) ** 2
+    calls = [(B * h, n, n, d, d) for h, d, n in global_blocks(cfg)]   # (bh, nq, nk, d, dv)
+    if nonempty:
+        calls += [(B, tok, tok, 256, 256), (B, tok, B * tok, 256, 64)] * L
+    by_width = {}
+    for _, _, _, d, dv in calls:
+        by_width[(d, dv)] = by_width.get((d, dv), 0) + 1
+    enc = encoder_launches(cfg, batch=B) if switches else NO_ENCODER_LAUNCHES
+    return {"flash_attention": len(calls), "flash_attention_bwd_dkv": len(calls),
+            "flash_attention_bwd_dq": len(calls),
+            "flash_attention_bwd_dq_sum": sum(dq_sums(bh, nq, nk, dv)
+                                              for bh, nq, nk, _, dv in calls) if bf16 else 0,
+            "flash_attention_bwd_dkv_sum": sum(dkv_sums(bh, nq, nk)
+                                               for bh, nq, nk, _, _ in calls) if bf16 else 0,
+            "kv_cached_attention": 0,
+            "attention_merge": sum(merges(bh, nq, nk) for bh, nq, nk, _, _ in calls) if bf16
+            else 0,
+            "window_attention": 0, "fused_mlp": enc["fused_mlp"] if switches else 0,
+            "fused_block": enc["fused_block"] if switches else 0, "by_width": by_width}
+
+
+def step_counts() -> dict:
+    """The launch counts since the last reset, with B3 / B4's by (D, Dv)
+    (one dict: every dK/dV launch has its dQ launch)."""
+    widths = {name: dict(getattr(A, name).launches_by_width) for name in BWD_COUNTED}
+    if widths["flash_attention_bwd_dq"] != widths["flash_attention_bwd_dkv"]:
+        raise AssertionError(f"dK/dV and dQ launches differ by width: {widths}")
+    return {**A.launch_counts(), "by_width": widths["flash_attention_bwd_dkv"]}
+
+
+def trainable_grads(model) -> dict:
+    return {n: t.grad.detach().float().cpu() for n, t in recipe_2d.named_trainables(model)}
+
+
+def grad_errors(got: dict, want: dict):
+    """(worst error relative to a leaf's max|grad| and its leaf, whether the
+    leaves zero in exact arithmetic or not reached hold at most round-off)."""
+    largest = max(g.abs().max().item() for g in want.values())
+    worst, worst_name, zero_ok = 0.0, "", True
+    for name, w in want.items():
+        g = got[name]
+        if name.startswith("sam_mask_decoder.") and name.endswith("k_proj.bias"):
+            # zero in exact arithmetic (softmax is shift-invariant and the
+            # decoder's attention has no RoPE): round-off on both sides
+            zero_ok &= max(g.abs().max().item(), w.abs().max().item()) <= 1e-6 * largest
+            continue
+        if w.abs().max().item() == 0:
+            zero_ok &= g.abs().max().item() == 0      # not reached (memory encoder)
+            continue
+        err = rel_err(g, w)
+        if err > worst:
+            worst, worst_name = err, name
+    return worst, worst_name, zero_ok
+
+
+def phase_2d_parity():
+    """Phase 15: two REFUGE steps of sam2_hiera_t @512 fp32 (TF32 off,
+    memory-attention dropout 0) at batch 2 on the card (kernels) against the
+    same seeded model and batches on the CPU (plain twins): the empty-bank
+    step, then the bank it wrote with injected draws. Losses, every gradient
+    AdamW applies (after clipping), and the bank after each step; once with
+    the encoder switches off and once with B8 and B7 on (their backward
+    re-runs the twin: card against the CPU, where the forward is the twin
+    too). Exact launch counts on the card, B3 / B4 by width included."""
+    base = sam2_hiera_t(image_size=512, compute_dtype="float32")
+    cfg = dataclasses.replace(base, memory_attention=dataclasses.replace(
+        base.memory_attention, dropout=0.0))
+    rcfg = recipe_2d.Recipe2DConfig(memory_bank_size=8, out_size=512)
+    B = 2
+    batches = [refuge_batch(B, cfg.image_size, seed=s) for s in (7, 8)]
+    set_tf32(False)
+    for switches in (False, True):
+        runs = []                                        # the card's run, then the CPU's
+        with encoder_switches("1" if switches else "0", TRAIN_2D_SWITCHES):
+            for dev in (DEV, torch.device("cpu")):
+                model = SAM2Model(cfg, seed=0, device=dev)
+                step = recipe_2d.make_train_step_2d(model, rcfg,
+                                                    recipe_2d.make_optimizer_2d(model, rcfg))
+                bank = recipe_2d.init_bank(model, 8)
+                out = []
+                t0 = time.perf_counter()
+                for i, batch in enumerate(batches):
+                    A.reset_launch_counts()
+                    bank, m = step(batch, bank, None, bool(i),
+                                   indices=torch.from_numpy(REFUGE_INDICES) if i else None)
+                    out.append(({k: float(v) for k, v in m.items()}, trainable_grads(model),
+                                step_counts(), {k: v.float().cpu() for k, v in bank.items()}))
+                if dev.type == "cuda":
+                    torch.cuda.synchronize()
+                runs.append((out, time.perf_counter() - t0))
+                del model, step, bank
+        ok_all = True
+        for i in range(2):
+            (mc, gc, counts, bc), (mp, gp, _, bp) = runs[0][0][i], runs[1][0][i]
+            loss_err = max(abs(mc[k] - mp[k]) / abs(mp[k]) for k in mp)
+            worst, worst_name, zero_ok = grad_errors(gc, gp)
+            bank_err = max(rel_err(bc[k], bp[k]) for k in ("embeds", "iou"))
+            # the memory encoder reads the thresholded prediction (pred > 0):
+            # a logit within round-off of 0 flips that pixel's mask between
+            # card and CPU, which moves the memory of its 16 x 16 cell by
+            # O(1e-2) of the features' max (1.8e-2 at one cell on an H100)
+            # but the whole tensor little in norm
+            feats_max = rel_err(bc["feats"], bp["feats"])
+            feats_l2 = ((bc["feats"] - bp["feats"]).norm() / bp["feats"].norm()).item()
+            valid_ok = torch.equal(bc["valid"], bp["valid"])
+            want = train_2d_launches(cfg, B, bool(i), bf16=False, switches=switches)
+            ok = (loss_err <= 1e-4 and worst <= 1e-3 and zero_ok and bank_err <= 1e-3
+                  and feats_l2 <= TOL_BANK_FEATS_L2 and valid_ok and counts == want)
+            ok_all &= ok
+            print(f"[15 2d parity] sam2_hiera_t @512 fp32 TF32 off, batch {B}, dropout 0, "
+                  f"encoder switches {'B8+B7 on' if switches else 'off'}, step {i} "
+                  f"({'bank non-empty, injected draws' if i else 'empty bank'}): cuda "
+                  f"(kernels, launches {counts}, expected {want}) vs cpu (plain): losses "
+                  f"{mc['loss']:.6f} vs {mp['loss']:.6f} rel err {loss_err:.2e} (tol 1e-4) | "
+                  f"{len(gp)} trainable leaves, worst clipped grad err rel max|grad| "
+                  f"{worst:.2e} at {worst_name} (tol 1e-3), zero leaves at round-off {zero_ok} "
+                  f"| bank embeds / iou rel err {bank_err:.2e} (tol 1e-3), feats rel L2 err "
+                  f"{feats_l2:.2e} (tol {TOL_BANK_FEATS_L2:.0e}; max {feats_max:.2e} of max), "
+                  f"valid equal {valid_ok} "
+                  f"({int(bc['valid'].sum())} slots) | cuda {runs[0][1]:.1f} s cpu "
+                  f"{runs[1][1]:.1f} s for both steps {'ok' if ok else 'FAIL'}")
+        if not ok_all:
+            raise AssertionError(f"2d parity, switches {switches}: see the lines above")
+
+
+def trace_step(fn):
+    """(host ms, device busy ms, kernel launches) of one ``fn`` under
+    ``torch.profiler`` (busy: the kernels' summed device time;
+    ``scripts/profile_port_train.py``'s rule)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_us, count = 0.0, 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation:
+            busy_us += e.time_range.elapsed_us()
+            count += 1
+    return wall_ms, busy_us / 1e3, count
+
+
+def phase_2d_full_width(power_line: str):
+    """Phase 16: the REFUGE step at ``bench.py``'s train_2d shape, sam2_hiera_s
+    @1024 bf16 batch 4 (bank 16, loss at 1024 px, dropout on as the CLI):
+    a warm-up step on the empty bank and 3 timed steps on the non-empty
+    one: finite losses, every parameter updated, exact launch counts of
+    B1 / B3 / B4 and their merges and sums (B3 / B4 by width), seconds per
+    step, images/s, peak memory, then one traced step (device busy time and
+    idle share). Then one step with B8 and B7 on, exact counts; a hiera_l
+    @512 bf16 step at batch 2 for the D 72 widths of B3 / B4; and the port's
+    ``train_2d`` CLI on synthetic data for 2 steps and 1 validation sample.
+    Returns {path: launch counts}."""
+    B = 4
+    cfg = sam2_hiera_s()
+    rcfg = recipe_2d.Recipe2DConfig()
+    set_tf32(False)
+    batches = [refuge_batch(B, cfg.image_size, seed=s) for s in range(5)]
+    model = SAM2Model(cfg, seed=0, device=DEV)
+    step = recipe_2d.make_train_step_2d(model, rcfg, recipe_2d.make_optimizer_2d(model, rcfg))
+    bank = recipe_2d.init_bank(model, rcfg.memory_bank_size)
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    before = {n: t.detach().clone() for n, t in recipe_2d.named_trainables(model)}
+    A.reset_launch_counts()
+    bank, m0 = step(batches[0], bank, gen, False)                       # warm-up
+    torch.cuda.synchronize()
+    warm = step_counts()
+    want_warm = train_2d_launches(cfg, B, False, bf16=True)
+    torch.cuda.reset_peak_memory_stats()
+    A.reset_launch_counts()
+    t0 = time.perf_counter()
+    metrics = []
+    for batch in batches[1:4]:
+        bank, m = step(batch, bank, gen, True)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    secs = (time.perf_counter() - t0) / 3
+    counts = step_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    one = train_2d_launches(cfg, B, True, bf16=True)
+    want = {k: ({w: 3 * n for w, n in v.items()} if k == "by_width" else 3 * v)
+            for k, v in one.items()}
+    wall_ms, busy_ms, n_kernels = trace_step(lambda: step(batches[4], bank, gen, True))
+    losses = [float(x["loss"]) for x in [m0, *metrics]]
+    finite = all(np.isfinite(v) for v in losses)
+    after = dict(recipe_2d.named_trainables(model))
+    grads = {n: t.grad for n, t in recipe_2d.named_trainables(model)}
+    # every tensor with a gradient moves (Adam steps each element by about
+    # lr); one without (the memory encoder behind the bank, the prompt
+    # encoder behind its no-grad) keeps its value: the decay factor
+    # 1 - lr wd = 1 - 1e-8 rounds to 1 in fp32, in optax as here
+    with_grad = [n for n in before if grads[n].abs().max().item() > 0]
+    stuck = [n for n in with_grad if torch.equal(before[n], after[n].detach())]
+    updated = sum(not torch.equal(before[n], after[n].detach()) for n in before)
+    ok = finite and not stuck and counts == want and warm == want_warm
+    print(f"[16 2d full width] sam2_hiera_s @1024 bf16, batch {B}, bank {rcfg.memory_bank_size}, "
+          f"loss at {rcfg.out_size} px | losses (warm-up, 3 timed) "
+          f"{', '.join(f'{v:.4f}' for v in losses)} finite {finite} | {updated} of "
+          f"{len(before)} trainable tensors updated ({len(with_grad)} with a gradient in the "
+          f"last step, stuck {stuck[:3]}) | warm-up launches "
+          f"{warm} expected {want_warm} | launches over 3 steps {counts} expected {want} | "
+          f"{secs:.3f} s per step, {B / secs:.2f} images/s | peak memory {peak:.2f} GiB | "
+          f"traced step: host {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms, idle share "
+          f"{1 - busy_ms / wall_ms:.3f}, {n_kernels} kernels; untraced busy share (derived) "
+          f"{busy_ms / (secs * 1e3):.3f} | {power_line} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"2d full width: finite {finite}, stuck {stuck}, launches "
+                             f"{counts} vs {want}, warm-up {warm} vs {want_warm}")
+    paths = {"2d training": flat_counts(counts)}
+
+    # one step with B8 and B7 forward on (the backward re-runs their twins)
+    with encoder_switches("1", TRAIN_2D_SWITCHES):
+        A.reset_launch_counts()
+        t0 = time.perf_counter()
+        bank, m = step(batches[1], bank, gen, True)
+        torch.cuda.synchronize()
+        on_s = time.perf_counter() - t0
+        on = step_counts()
+    want_on = train_2d_launches(cfg, B, True, bf16=True, switches=True)
+    ok = on == want_on and np.isfinite(float(m["loss"]))
+    print(f"[16 2d full width] the same step with the encoder switches B8 + B7 on: loss "
+          f"{float(m['loss']):.4f}, {on_s:.3f} s | launches {on} expected {want_on} | "
+          f"{power_line} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"2d switches on: launches {on} vs {want_on}")
+    paths["2d training B8+B7"] = flat_counts(on)
+    del model, step, bank, before, after, grads
+    torch.cuda.empty_cache()
+
+    # hiera_l's global blocks reach B3 / B4 at (72, 72)
+    cfg_l = sam2_hiera_l(image_size=512)
+    model = SAM2Model(cfg_l, seed=0, device=DEV)
+    rcfg_l = recipe_2d.Recipe2DConfig(out_size=512)
+    step = recipe_2d.make_train_step_2d(model, rcfg_l, recipe_2d.make_optimizer_2d(model, rcfg_l))
+    bank = recipe_2d.init_bank(model, 16)
+    A.reset_launch_counts()
+    bank, m = step(refuge_batch(2, 512, seed=9), bank, gen, False)
+    bank, m2 = step(refuge_batch(2, 512, seed=10), bank, gen, True)
+    torch.cuda.synchronize()
+    got_l = step_counts()
+    w0, w1 = (train_2d_launches(cfg_l, 2, ne, bf16=True) for ne in (False, True))
+    want_l = {k: ({w: w0[k].get(w, 0) + w1[k].get(w, 0) for w in {*w0[k], *w1[k]}}
+                  if k == "by_width" else w0[k] + w1[k]) for k in w0}
+    ok = got_l == want_l and np.isfinite(float(m["loss"])) and np.isfinite(float(m2["loss"]))
+    print(f"[16 2d full width] sam2_hiera_l @512 bf16, batch 2, two steps (empty, then "
+          f"non-empty bank): losses {float(m['loss']):.4f}, {float(m2['loss']):.4f} | launches "
+          f"{got_l} expected {want_l} | {power_line} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"2d hiera_l: launches {got_l} vs {want_l}")
+    paths["2d training hiera_l @512"] = flat_counts(got_l)
+    del model, step, bank
+    torch.cuda.empty_cache()
+
+    # the port's CLI on the card: synthetic fundus data, 2 steps, 1 validation sample
+    logdir = str(Path(__file__).resolve().parent / "build" / "train_2d_logs")
+    shutil.rmtree(logdir, ignore_errors=True)
+    A.reset_launch_counts()
+    t0 = time.perf_counter()
+    cli_model = train_2d_cli.main(
+        ["-net", "sam2", "-dataset", "synthetic", "-sam_config", "sam2_hiera_s",
+         "-image_size", "1024", "-out_size", "1024", "-b", str(B), "-epochs", "1",
+         "-steps_per_epoch", "2", "-val_freq", "1", "-val_max_samples", "1",
+         "-logdir", logdir, "-print_freq", "1"])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    cli = step_counts()
+    rows = [json.loads(ln) for f in Path(logdir).rglob("scalars.jsonl") for ln in open(f)]
+    val = [r for r in rows if "val/dice" in json.dumps(r)]
+    on_card = cli_model.device.type == "cuda"
+    ok = on_card and bool(val) and cli["flash_attention_bwd_dkv"] > 0
+    print(f"[16 2d cli] python -m medsam2_tpu_torch.cli.train_2d -dataset synthetic -sam_config "
+          f"sam2_hiera_s -image_size 1024 -b {B}, 2 steps + 1 validation sample on "
+          f"{cli_model.device}: {cli_s:.1f} s | validation scalars {val[-1] if val else None} | "
+          f"launches {cli} | {power_line} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"train_2d CLI: on card {on_card}, validation {val}")
+    del cli_model
+    torch.cuda.empty_cache()
+    return paths
+
+
+def flat_counts(counts: dict) -> dict:
+    """A step's counts with B3 / B4 by width spread into their own names."""
+    out = {k: v for k, v in counts.items() if k != "by_width"}
+    for (d, dv), n in counts.get("by_width", {}).items():
+        if d == dv and d in (96, 72):
+            for p in ("dkv", "dq"):
+                out[f"flash_attention_bwd_{p} ({d}, {d})"] = n
+    return out
+
+
 def main() -> None:
+    t_start = time.perf_counter()
     power_line = phase_device()
     phase_build()
     best = phase_kernels()
@@ -2478,12 +2865,18 @@ def main() -> None:
         paths[f"correction round {readout}"] = c
     phase_train_parity(use_kcache=True)
     paths["training kcache"] = phase_train_kcache_full_width(power_line)
+    print(f"[time] phases 1-14 in {time.perf_counter() - t_start:.0f} s")
+    phase_2d_parity()
+    paths.update(phase_2d_full_width(power_line))
+    print(f"[time] phases 1-16 in {time.perf_counter() - t_start:.0f} s")
     rows = []
     for name in KERNELS:
         by_path = {p: c[name] for p, c in paths.items() if c.get(name)}
         extra = {key: shapes[name] for key, shapes in (("session_shapes", session_shapes),
                                                        ("clear_shapes", clear_shapes))
                  if name in shapes}
+        if "(" in name and not by_path:
+            raise AssertionError(f"{name}: no launch on the 2D training path")
         rows.append(dict(name=name, route="cuda", **KERNELS[name],
                          launches=sum(by_path.values()), launches_by_path=by_path,
                          **best[name], **extra))

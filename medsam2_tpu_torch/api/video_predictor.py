@@ -205,6 +205,15 @@ class SAM2VideoPredictor:
             arr = arr.transpose(0, 2, 3, 1)
         return self.init_state(images=arr)
 
+    def train_init_state(self, imgs_tensor) -> Dict:
+        """:meth:`val_init_state` with ``is_eval`` off: the session runs
+        without the decoder's dynamic-multimask fallback, the binarised
+        memory masks and the non-overlap constraint, as the reference's
+        ``train_init_state`` (``sam2_video_predictor.py``)."""
+        state = self.val_init_state(imgs_tensor)
+        state["is_eval"] = False
+        return state
+
     def reset_state(self, state: Dict) -> None:
         """Forget every object, prompt and tracked output; keep the
         session's frames."""

@@ -1,8 +1,10 @@
-"""CLI argument surface of ``cli/train_3d.py`` (counterpart of
-``medsam2_tpu/cli/cfg.py``): the flags of the reference ``train_3d.py``
-command, which parses unchanged, plus the JAX package's additions that the
-3D recipe reads (synthetic data, static object slots, ...) and ``-device``,
-the port's choice of card or CPU. Every flag here is read by the CLI."""
+"""CLI argument surface of ``cli/train_3d.py`` and ``cli/train_2d.py``
+(counterpart of ``medsam2_tpu/cli/cfg.py``): the flags of the reference
+``train_3d.py`` and ``train_2d.py`` (REFUGE) commands, which parse
+unchanged, plus the JAX package's additions that the recipes read
+(synthetic data, static object slots, ...) and ``-device``, the port's
+choice of card or CPU. Every flag here is read by one of the CLIs; the
+nuclei and visualisation flags come with their slices (ROADMAP A.6, A.7)."""
 
 from __future__ import annotations
 
@@ -18,9 +20,12 @@ def parse_args(argv=None):
     parser.add_argument('--model-ema', action='store_true',
                         help='track an exponential moving average of params')
     parser.add_argument('--model-ema-decay', type=float, default=0.99)
+    parser.add_argument('--clip-grad', type=float, default=0.1,
+                        help='2D: clip the global gradient norm (default: 0.1)')
     parser.add_argument('--eval', action='store_true')
-    parser.add_argument('-net', type=str, default='sam2', choices=('sam2',),
-                        help='net type (the reference command passes sam2)')
+    parser.add_argument('-net', type=str, default='sam2', choices=('sam2', 'prompter'),
+                        help='net type: sam2 (the reference commands); prompter (the 2D '
+                             'nuclei recipe, not ported: ROADMAP A.6)')
     parser.add_argument('-exp_name', default='medsam2_tpu', type=str)
     parser.add_argument('-vis', type=lambda s: s not in ('0', 'False', 'false'),
                         default=False, help='visualisation during validation (not ported)')
@@ -31,14 +36,19 @@ def parse_args(argv=None):
     parser.add_argument('-pretrain', type=str, default=None,
                         help='path of pretrain weights (.pt)')
     parser.add_argument('-val_freq', type=int, default=3)
+    parser.add_argument('-val_max_samples', type=int, default=0,
+                        help='2D: cap validation to N samples for smoke runs; 0 = the full '
+                             'test set (the reference protocol, train_2d.py:155-164)')
     parser.add_argument('-device', type=str, default='cuda',
                         help="torch device: 'cuda' (the default; raises without a card) "
                              "or 'cpu'")
     parser.add_argument('-image_size', type=int, default=1024)
+    parser.add_argument('-out_size', type=int, default=1024,
+                        help='2D: output (loss) size')
     parser.add_argument('-distributed', default='none', type=str,
                         help="'none'; a mesh spec ('data' or e.g. '4x2') is not ported")
     parser.add_argument('-dataset', default='btcv', type=str,
-                        help='btcv | amos | synthetic')
+                        help='3D: btcv | amos | synthetic; 2D: refuge | synthetic')
     parser.add_argument('-sam_ckpt', type=str, default=None,
                         help='SAM2 checkpoint (.pt); None = random init')
     parser.add_argument('-sam_config', type=str, default='sam2_hiera_s')
@@ -47,6 +57,8 @@ def parse_args(argv=None):
     parser.add_argument('-lr', type=float, default=1e-4)
     parser.add_argument('-weights', type=str, default=None,
                         help='weights file for evaluation')
+    parser.add_argument('-memory_bank_size', type=int, default=16,
+                        help='2D: slots of the similarity memory bank')
     parser.add_argument('-data_path', type=str, default=None,
                         help='dataset root; None with -dataset synthetic uses generators')
     # additions of the JAX package

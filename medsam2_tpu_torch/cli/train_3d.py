@@ -125,6 +125,8 @@ def validation_sam(args, model: SAM2Model, val_loader, logger) -> Dict[str, floa
 
 def main(argv=None):
     args = parse_args(argv)
+    if args.net != "sam2":
+        raise ValueError(f"-net {args.net}: the 3D recipe trains sam2")
     if args.distributed != "none":
         raise NotImplementedError("-distributed is not ported; see ROADMAP queue A.7")
     if args.vis:

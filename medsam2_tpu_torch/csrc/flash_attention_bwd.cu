@@ -342,12 +342,16 @@ struct BwdLaunch {
   }
 };
 
-// Only the (D, Dv) pairs the training path reaches: memory self-attention
-// (256, 256) and the low-rank memory cross-attention (256, 64).
+// Only the (D, Dv) pairs the training paths reach: memory self-attention
+// (256, 256), the low-rank memory cross-attention (256, 64), and the Hiera
+// global blocks that 2D training differentiates (96, 96: hiera_t / s; 72,
+// 72: hiera_l).
 template <typename Fn>
 cudaError_t dispatch_bwd_dims(int d, int dv, Fn&& fn) {
   if (d == 256 && dv == 256) return fn.template operator()<256, 256>();
   if (d == 256 && dv == 64) return fn.template operator()<256, 64>();
+  if (d == 96 && dv == 96) return fn.template operator()<96, 96>();
+  if (d == 72 && dv == 72) return fn.template operator()<72, 72>();
   return cudaErrorInvalidValue;
 }
 

@@ -20,6 +20,12 @@
 //   64-row Q and dO tiles of the block's q range through an mbarrier ring,
 //   with each tile's lse (in log2 units; +1e30 for rows past Nq, so their P
 //   is 0) and dvec rows written beside them.
+// - Head dims: the forward's column layout (hopper_attention.cuh Cols): a
+//   tile is padded to a multiple of 16 columns and cut into 64-wide chunks
+//   in the 128-byte swizzle plus one 32- or 16-wide chunk in the 64- or
+//   32-byte swizzle (96 = 64 + 32, 72 -> 80 = 64 + 16), TMA zero-filling the
+//   columns past the head dim; every product walks the chunks at their own
+//   width.
 // - Warpgroups 1 and 2 are consumers over the same 64 keys. Each computes
 //   S^T and dP^T for its half of the 64 query columns by wgmma with both
 //   operands in shared memory (m64n32), and P^T and dS^T in fp32 registers.
@@ -27,12 +33,17 @@
 //   128-byte swizzle, the A operand's layout of the next products (a named
 //   barrier over the 256 consumer threads publishes them, a second one
 //   frees them for the next tile).
-// - Each consumer owns half of dK's and dV's 64-column chunks (chunk c to
-//   warpgroup c % 2; at Dv = 64 warpgroup 1 holds none of dV), and adds
+// - Each consumer owns half of dK's and dV's column chunks and adds
 //   dV += P^T dO and dK += dS^T Q by wgmma with A = P^T / dS^T and B = dO / Q
-//   (MN-major) from shared memory. At D = Dv = 256 the 64 x 512 fp32
+//   (MN-major) from shared memory. dK chunk c goes to warpgroup c % 2; dV's
+//   go the same way, or the other way round when the head dim ends in a
+//   narrow chunk, so that at 96 (64 + 32) and 72 (64 + 16) each warpgroup
+//   holds one wide and one narrow chunk (96 and 80 columns each); at
+//   Dv = 64 warpgroup 1 holds none of dV. At D = Dv = 256 the 64 x 512 fp32
 //   accumulators of one tile take 128 registers a consumer thread this way,
-//   where one warpgroup holding all of them would need 256.
+//   where one warpgroup holding all of them would need 256. The warpgroup is
+//   a template argument of the consumer, so every chunk's width and owner is
+//   known at compile time.
 // - Masks: the keys' mask values are read once; a tile whose keys are all
 //   masked loads and computes nothing and writes zeros; masked keys have
 //   P^T = 0, so zero dK and dV rows.
@@ -54,11 +65,13 @@ constexpr int kQTile = 64;   // query rows a ring stage
 
 template <int D, int DV>
 struct DkvLayout {
-  static_assert(D % 64 == 0 && DV % 64 == 0, "head dims in whole 64-column chunks");
-  static constexpr int kKBytes = kKvRows * D * 2;
-  static constexpr int kVBytes = kKvRows * DV * 2;
-  static constexpr int kQBytes = kQTile * D * 2;
-  static constexpr int kOBytes = kQTile * DV * 2;
+  // tiles of head dim W hold Cols<W>::kPad columns: whole 1024-byte units at
+  // 64 rows, so every chunk region stays aligned to its swizzle
+  static constexpr int kKBytes = kKvRows * Cols<D>::kPad * 2;
+  static constexpr int kVBytes = kKvRows * Cols<DV>::kPad * 2;
+  static constexpr int kQBytes = kQTile * Cols<D>::kPad * 2;
+  static constexpr int kOBytes = kQTile * Cols<DV>::kPad * 2;
+  static_assert(kKBytes % 1024 == 0 && kVBytes % 1024 == 0, "chunk regions 1024-aligned");
   static constexpr int kPBytes = kKvRows * kQTile * 2;  // one bf16 [64][64] tile
   static constexpr int kMisc = 3072;  // lse / dvec rows, mask, tile indices, barriers
   static constexpr int kFixed = kKBytes + kVBytes + 2 * kPBytes + kMisc + 1024;
@@ -83,7 +96,7 @@ struct DkvLayout {
 };
 
 struct DkvMaps {
-  CUtensorMap q64, o64, k64, v64;
+  CUtensorMap q64, q_rem, o64, o_rem, k64, k_rem, v64, v_rem;
 };
 
 struct DkvArgs {
@@ -133,8 +146,8 @@ __device__ __forceinline__ void dkv_produce(const DkvShared<L>& sh, const DkvMap
                                             int lane) {
   if (lane == 0) {
     mbar_arrive_expect_tx(sh.kvbar(), L::kKBytes + L::kVBytes);
-    tma_tile<D>(sh.k(), kKvRows, &maps.k64, nullptr, sh.kvbar(), k0, bh);
-    tma_tile<DV>(sh.v(), kKvRows, &maps.v64, nullptr, sh.kvbar(), k0, bh);
+    tma_tile<D>(sh.k(), kKvRows, &maps.k64, &maps.k_rem, sh.kvbar(), k0, bh);
+    tma_tile<DV>(sh.v(), kKvRows, &maps.v64, &maps.v_rem, sh.kvbar(), k0, bh);
   }
   const size_t row0 = (size_t)bh * a.Nq;
   Ring ring;
@@ -153,8 +166,8 @@ __device__ __forceinline__ void dkv_produce(const DkvShared<L>& sh, const DkvMap
     __syncwarp();
     if (lane == 0) {
       mbar_arrive_expect_tx(sh.full(s), L::kQBytes + L::kOBytes);
-      tma_tile<D>(sh.q(s), kQTile, &maps.q64, nullptr, sh.full(s), q0, bh);
-      tma_tile<DV>(sh.dout(s), kQTile, &maps.o64, nullptr, sh.full(s), q0, bh);
+      tma_tile<D>(sh.q(s), kQTile, &maps.q64, &maps.q_rem, sh.full(s), q0, bh);
+      tma_tile<DV>(sh.dout(s), kQTile, &maps.o64, &maps.o_rem, sh.full(s), q0, bh);
     }
     ring.advance<L::kStages>();
   }
@@ -166,13 +179,79 @@ __device__ __forceinline__ void dkv_produce(const DkvShared<L>& sh, const DkvMap
   }
 }
 
-template <int D, int DV, class L>
-__device__ __forceinline__ void dkv_consume(const DkvShared<L>& sh, int wg, const DkvArgs& a,
+// C (+)= A B over the 16-row k steps of a 64-row tile, with A = P^T / dS^T
+// (a [64][64] bf16 tile in the 128-byte swizzle) and B one W-wide chunk of
+// dO / Q (MN-major, in its own swizzle): acc holds the chunk's 64 x W sums.
+template <int W>
+__device__ __forceinline__ void add_chunk_product(float* acc, uint32_t a_addr, uint32_t b_addr) {
+  constexpr uint32_t pitch = 2 * W;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint64_t da = make_desc(a_addr + 32 * i, 64, 16, 1024);
+    const uint64_t db = make_desc(b_addr + i * 16 * pitch, W, 16, 8 * pitch);
+    if constexpr (W == 64)
+      wgmma_ss_n64_tb(acc, da, db);
+    else if constexpr (W == 32)
+      wgmma_ss_n32_tb(acc, da, db);
+    else
+      wgmma_ss_n16_tb(acc, da, db);
+  }
+}
+
+// S^T (or dP^T) [64 keys][32 query columns] = A B^T over the head dim's
+// chunks, A the block's K (or V) tile and B this warpgroup's 32 rows of the
+// stage's Q (or dO) tile, both K-major.
+template <int W>
+__device__ __forceinline__ void scores_t(float* acc, uint32_t a_addr, uint32_t b_addr, int wg) {
+  using C = Cols<W>;
+#pragma unroll
+  for (int c = 0; c < C::kChunks; ++c) {
+    const int w = C::width(c);
+    const uint32_t pitch = 2 * w;
+    const uint32_t a = a_addr + C::offset(c, kKvRows);
+    const uint32_t b = b_addr + C::offset(c, kQTile) + wg * 32 * pitch;
+#pragma unroll
+    for (int i = 0; i < w / 16; ++i)
+      wgmma_ss_n32(acc, make_desc(a + 32 * i, w, 16, 8 * pitch),
+                   make_desc(b + 32 * i, w, 16, 8 * pitch), (c | i) ? 1 : 0);
+  }
+}
+
+// Which chunks warpgroup WG owns: dK chunk c goes to warpgroup c % 2, dV
+// chunk c to (c + kFlipV) % 2. The u-th owned chunk is 2 u + first.
+template <int D, int DV, int WG>
+struct DkvOwner {
+  static constexpr int kCK = Cols<D>::kChunks;
+  static constexpr int kCV = Cols<DV>::kChunks;
+  // a head dim ending in a narrow chunk: give each warpgroup one of each
+  static constexpr int kFlipV = Cols<D>::kRem != 0 ? 1 : 0;
+  static constexpr int kFirstK = WG;
+  static constexpr int kFirstV = WG ^ kFlipV;
+  static constexpr int kMK = (kCK + 1) / 2;  // accumulator slots of 32 registers
+  static constexpr int kMV = (kCV + 1) / 2;
+};
+
+// One owned chunk's epilogue rows: columns [64 c, 64 c + W) of rows r and
+// r + 8 (h), cut at the head dim; scale f.
+template <int W>
+__device__ __forceinline__ void store_chunk(float* row_a, float* row_b, const float* acc,
+                                           int col0, int width, int quad, float f) {
+#pragma unroll
+  for (int j = 0; j < W / 8; ++j) {
+    if (col0 + 8 * j >= width) continue;
+    *reinterpret_cast<float2*>(row_a + col0 + 8 * j + 2 * quad) =
+        make_float2(acc[4 * j] * f, acc[4 * j + 1] * f);
+    *reinterpret_cast<float2*>(row_b + col0 + 8 * j + 2 * quad) =
+        make_float2(acc[4 * j + 2] * f, acc[4 * j + 3] * f);
+  }
+}
+
+template <int D, int DV, int WG, class L>
+__device__ __forceinline__ void dkv_consume(const DkvShared<L>& sh, const DkvArgs& a,
                                             bool live, int bh, int k0, int split) {
-  constexpr int kCK = D / 64;          // dK chunks
-  constexpr int kCV = DV / 64;         // dV chunks
-  constexpr int kMK = (kCK + 1) / 2;   // dK chunks a warpgroup: c = 2 u + wg
-  constexpr int kMV = (kCV + 1) / 2;
+  using CD = Cols<D>;
+  using CV = Cols<DV>;
+  using O = DkvOwner<D, DV, WG>;
   const int t = threadIdx.x % 128;
   const int warp = t / 32;
   const int lane = t % 32;
@@ -181,11 +260,11 @@ __device__ __forceinline__ void dkv_consume(const DkvShared<L>& sh, int wg, cons
   const float m_a = sh.mask()[r_a];
   const float m_b = sh.mask()[r_a + 8];
 
-  float acc_k[kMK * 32], acc_v[kMV * 32];
+  float acc_k[O::kMK * 32], acc_v[O::kMV * 32];
 #pragma unroll
-  for (int i = 0; i < kMK * 32; ++i) acc_k[i] = 0.f;
+  for (int i = 0; i < O::kMK * 32; ++i) acc_k[i] = 0.f;
 #pragma unroll
-  for (int i = 0; i < kMV * 32; ++i) acc_v[i] = 0.f;
+  for (int i = 0; i < O::kMV * 32; ++i) acc_v[i] = 0.f;
 
   const uint32_t k_addr = smem_u32(sh.k());
   const uint32_t v_addr = smem_u32(sh.v());
@@ -203,36 +282,24 @@ __device__ __forceinline__ void dkv_consume(const DkvShared<L>& sh, int wg, cons
       const uint32_t q_addr = smem_u32(sh.q(s));
       const uint32_t o_addr = smem_u32(sh.dout(s));
 
-      // ---- S^T = K Q^T and dP^T = V dO^T for query columns [32 wg, 32 wg + 32) ----
+      // ---- S^T = K Q^T and dP^T = V dO^T for query columns [32 WG, 32 WG + 32) ----
       float sc[16], dp[16];
       wg_fence();
-#pragma unroll
-      for (int c = 0; c < kCK; ++c)
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          wgmma_ss_n32(sc, make_desc(k_addr + c * kKvRows * 128 + 32 * i, 64, 16, 1024),
-                       make_desc(q_addr + c * kQTile * 128 + wg * 32 * 128 + 32 * i, 64, 16, 1024),
-                       (c | i) ? 1 : 0);
-#pragma unroll
-      for (int c = 0; c < kCV; ++c)
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          wgmma_ss_n32(dp, make_desc(v_addr + c * kKvRows * 128 + 32 * i, 64, 16, 1024),
-                       make_desc(o_addr + c * kQTile * 128 + wg * 32 * 128 + 32 * i, 64, 16, 1024),
-                       (c | i) ? 1 : 0);
+      scores_t<D>(sc, k_addr, q_addr, WG);
+      scores_t<DV>(dp, v_addr, o_addr, WG);
       wg_commit();
       wg_wait_all();
       fence_regs<16>(sc);
       fence_regs<16>(dp);
 
       // ---- P^T and dS^T: keys r_a (e < 2) / r_a + 8, query columns
-      // 32 wg + 8 j + 2 quad + (e & 1) ----
+      // 32 WG + 8 j + 2 quad + (e & 1) ----
       const float* l2 = sh.lse2(s);
       const float* dvv = sh.dvec(s);
       uint32_t pw[4][2], dw[4][2];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const int col = 32 * wg + 8 * j + 2 * quad;
+        const int col = 32 * WG + 8 * j + 2 * quad;
         const float2 lq = *reinterpret_cast<const float2*>(l2 + col);
         const float2 dq = *reinterpret_cast<const float2*>(dvv + col);
         const float p0 = exp2f(fminf(sc[4 * j] * a.scale_log2 - lq.x, 0.f)) * m_a;
@@ -248,7 +315,7 @@ __device__ __forceinline__ void dkv_consume(const DkvShared<L>& sh, int wg, cons
       named_sync(1, 256);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const int col = 32 * wg + 8 * j + 2 * quad;
+        const int col = 32 * WG + 8 * j + 2 * quad;
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int r = r_a + 8 * h;
@@ -260,33 +327,39 @@ __device__ __forceinline__ void dkv_consume(const DkvShared<L>& sh, int wg, cons
       named_sync(2, 256);
 
       // ---- dV += P^T dO and dK += dS^T Q over this warpgroup's chunks ----
-      fence_regs<kMV * 32>(acc_v);
-      fence_regs<kMK * 32>(acc_k);
+      fence_regs<O::kMV * 32>(acc_v);
+      fence_regs<O::kMK * 32>(acc_k);
       wg_fence();
 #pragma unroll
-      for (int u = 0; u < kMV; ++u) {
-        const int c = 2 * u + wg;
-        if (c < kCV) {
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            wgmma_ss_n64_tb(acc_v + 32 * u, make_desc(pt_addr + 32 * i, 64, 16, 1024),
-                            make_desc(o_addr + c * kQTile * 128 + i * 16 * 128, 64, 16, 1024));
+      for (int u = 0; u < O::kMV; ++u) {
+        const int c = 2 * u + O::kFirstV;
+        if (c < O::kCV) {
+          const uint32_t b = o_addr + CV::offset(c, kQTile);
+          if (CV::width(c) == 64)
+            add_chunk_product<64>(acc_v + 32 * u, pt_addr, b);
+          else if (CV::width(c) == 32)
+            add_chunk_product<32>(acc_v + 32 * u, pt_addr, b);
+          else
+            add_chunk_product<16>(acc_v + 32 * u, pt_addr, b);
         }
       }
 #pragma unroll
-      for (int u = 0; u < kMK; ++u) {
-        const int c = 2 * u + wg;
-        if (c < kCK) {
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            wgmma_ss_n64_tb(acc_k + 32 * u, make_desc(ds_addr + 32 * i, 64, 16, 1024),
-                            make_desc(q_addr + c * kQTile * 128 + i * 16 * 128, 64, 16, 1024));
+      for (int u = 0; u < O::kMK; ++u) {
+        const int c = 2 * u + O::kFirstK;
+        if (c < O::kCK) {
+          const uint32_t b = q_addr + CD::offset(c, kQTile);
+          if (CD::width(c) == 64)
+            add_chunk_product<64>(acc_k + 32 * u, ds_addr, b);
+          else if (CD::width(c) == 32)
+            add_chunk_product<32>(acc_k + 32 * u, ds_addr, b);
+          else
+            add_chunk_product<16>(acc_k + 32 * u, ds_addr, b);
         }
       }
       wg_commit();
       wg_wait_all();
-      fence_regs<kMV * 32>(acc_v);
-      fence_regs<kMK * 32>(acc_k);
+      fence_regs<O::kMV * 32>(acc_v);
+      fence_regs<O::kMK * 32>(acc_k);
       mbar_arrive(sh.empty(s));
       ring.advance<L::kStages>();
     }
@@ -296,30 +369,31 @@ __device__ __forceinline__ void dkv_consume(const DkvShared<L>& sh, int wg, cons
   const bool one = a.dk != nullptr;
   const size_t row_base = (size_t)bh * a.rows_out + k0;
   const size_t part_base = (size_t)split * a.BH * a.rows_out + row_base;
+  const size_t row = (one ? row_base : part_base) + r_a;
+  float* base_k = (one ? a.dk : a.part_k) + row * D;
+  float* base_v = (one ? a.dv : a.part_v) + row * DV;
+  const float fk = one ? a.scale : 1.f;
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const size_t row = (one ? row_base : part_base) + r_a + 8 * h;
+  for (int u = 0; u < O::kMK; ++u) {
+    const int c = 2 * u + O::kFirstK;
+    if (c >= O::kCK) continue;
+    if (CD::width(c) == 64)
+      store_chunk<64>(base_k, base_k + 8 * D, acc_k + 32 * u, 64 * c, D, quad, fk);
+    else if (CD::width(c) == 32)
+      store_chunk<32>(base_k, base_k + 8 * D, acc_k + 32 * u, 64 * c, D, quad, fk);
+    else
+      store_chunk<16>(base_k, base_k + 8 * D, acc_k + 32 * u, 64 * c, D, quad, fk);
+  }
 #pragma unroll
-    for (int u = 0; u < kMK; ++u) {
-      const int c = 2 * u + wg;
-      if (c >= kCK) continue;
-      float* dst_k = (one ? a.dk : a.part_k) + row * D + 64 * c;
-      const float f = one ? a.scale : 1.f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        *reinterpret_cast<float2*>(dst_k + 8 * j + 2 * quad) = make_float2(
-            acc_k[32 * u + 4 * j + 2 * h] * f, acc_k[32 * u + 4 * j + 2 * h + 1] * f);
-    }
-#pragma unroll
-    for (int u = 0; u < kMV; ++u) {
-      const int c = 2 * u + wg;
-      if (c >= kCV) continue;
-      float* dst_v = (one ? a.dv : a.part_v) + row * DV + 64 * c;
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        *reinterpret_cast<float2*>(dst_v + 8 * j + 2 * quad) =
-            make_float2(acc_v[32 * u + 4 * j + 2 * h], acc_v[32 * u + 4 * j + 2 * h + 1]);
-    }
+  for (int u = 0; u < O::kMV; ++u) {
+    const int c = 2 * u + O::kFirstV;
+    if (c >= O::kCV) continue;
+    if (CV::width(c) == 64)
+      store_chunk<64>(base_v, base_v + 8 * DV, acc_v + 32 * u, 64 * c, DV, quad, 1.f);
+    else if (CV::width(c) == 32)
+      store_chunk<32>(base_v, base_v + 8 * DV, acc_v + 32 * u, 64 * c, DV, quad, 1.f);
+    else
+      store_chunk<16>(base_v, base_v + 8 * DV, acc_v + 32 * u, 64 * c, DV, quad, 1.f);
   }
 }
 
@@ -361,7 +435,10 @@ __global__ void __launch_bounds__(384, 1)
     dkv_produce<D, DV>(sh, maps, args, bh, k0, t0, t1, threadIdx.x);
   } else {
     regs_inc<232>();
-    dkv_consume<D, DV>(sh, threadIdx.x / 128 - 1, args, live, bh, k0, split);
+    if (threadIdx.x < 256)
+      dkv_consume<D, DV, 0>(sh, args, live, bh, k0, split);
+    else
+      dkv_consume<D, DV, 1>(sh, args, live, bh, k0, split);
   }
 }
 
@@ -371,11 +448,10 @@ template <int D, int DV>
 cudaError_t flash_bwd_dkv_sm90(const DkvCall& a) {
   using L = DkvLayout<D, DV>;
   DkvMaps maps;
-  CUtensorMap unused;
-  if (!make_maps<D>(&maps.q64, &unused, a.q, a.Nq, a.BH, kQTile) ||
-      !make_maps<DV>(&maps.o64, &unused, a.dout, a.Nq, a.BH, kQTile) ||
-      !make_maps<D>(&maps.k64, &unused, a.k, a.Nk, a.BH, kKvRows) ||
-      !make_maps<DV>(&maps.v64, &unused, a.v, a.Nk, a.BH, kKvRows))
+  if (!make_maps<D>(&maps.q64, &maps.q_rem, a.q, a.Nq, a.BH, kQTile) ||
+      !make_maps<DV>(&maps.o64, &maps.o_rem, a.dout, a.Nq, a.BH, kQTile) ||
+      !make_maps<D>(&maps.k64, &maps.k_rem, a.k, a.Nk, a.BH, kKvRows) ||
+      !make_maps<DV>(&maps.v64, &maps.v_rem, a.v, a.Nk, a.BH, kKvRows))
     return cudaErrorInvalidValue;
   auto kern = flash_bwd_dkv_sm90_kernel<D, DV>;
   static unsigned long long smem_set = 0;
@@ -404,6 +480,8 @@ cudaError_t flash_bwd_dkv_sm90(const DkvCall& a) {
 
 template cudaError_t flash_bwd_dkv_sm90<256, 256>(const DkvCall&);
 template cudaError_t flash_bwd_dkv_sm90<256, 64>(const DkvCall&);
+template cudaError_t flash_bwd_dkv_sm90<96, 96>(const DkvCall&);
+template cudaError_t flash_bwd_dkv_sm90<72, 72>(const DkvCall&);
 
 }  // namespace hopper
 }  // namespace medsam2

@@ -26,9 +26,13 @@
 //   dQ += dS K by wgmma with K MN-major. The 64 x D fp32 dQ accumulator stays
 //   in registers over the whole kv range (128 registers at D = 256; 232 a
 //   consumer thread through setmaxnreg).
-// - Rows a block: 128 (two consumer warpgroups) at Dv = 64; 64 (one) at
-//   Dv = 256, where Q and dO of 128 rows alone would take 128 KB and leave
-//   no room for a two-stage ring.
+// - Rows a block: 128 (two consumer warpgroups) at Dv = 64, 96 and 72; 64
+//   (one) at Dv = 256, where Q and dO of 128 rows alone would take 128 KB
+//   and leave no room for a two-stage ring.
+// - Head dims 96 and 72 (the Hiera global blocks of hiera_t / s and
+//   hiera_l) take the forward's column chunks (64 + 32, and 64 + 16 with
+//   the columns past 72 zero-filled by TMA); the epilogue writes the D real
+//   columns.
 // - Split-kv: the wrapper splits the kv tiles over blocks when one block per
 //   query tile leaves SMs idle (the forward's one-wave rule). With one split
 //   a block writes scale * dQ; with more it writes its unscaled fp32 partial,
@@ -293,6 +297,8 @@ cudaError_t flash_bwd_dq_sm90(const DqCall& a) {
 
 template cudaError_t flash_bwd_dq_sm90<256, 256>(const DqCall&);
 template cudaError_t flash_bwd_dq_sm90<256, 64>(const DqCall&);
+template cudaError_t flash_bwd_dq_sm90<96, 96>(const DqCall&);
+template cudaError_t flash_bwd_dq_sm90<72, 72>(const DqCall&);
 
 }  // namespace hopper
 }  // namespace medsam2

@@ -23,7 +23,7 @@ struct DqCall {
   cudaStream_t stream;
 };
 
-// (D, DV) in {(256, 256), (256, 64)}.
+// (D, DV) in {(256, 256), (256, 64), (96, 96), (72, 72)}.
 template <int D, int DV>
 cudaError_t flash_bwd_dq_sm90(const DqCall& call);
 
@@ -45,7 +45,7 @@ struct DkvCall {
   cudaStream_t stream;
 };
 
-// (D, DV) in {(256, 256), (256, 64)}.
+// (D, DV) in {(256, 256), (256, 64), (96, 96), (72, 72)}.
 template <int D, int DV>
 cudaError_t flash_bwd_dkv_sm90(const DkvCall& call);
 

@@ -1,6 +1,8 @@
-"""Synthetic BTCV-format volumes (counterpart of ``synthetic_volume`` in
+"""Synthetic BTCV-format volumes and REFUGE-format fundus samples
+(counterparts of ``synthetic_volume`` and ``synthetic_fundus`` in
 ``medsam2_tpu/data/synthetic.py``) for tests, smoke training and the chip
-smoke without the (license-gated) medical datasets. numpy only."""
+smoke without the (license-gated) medical datasets. numpy only: one
+``np.random.Generator`` state gives the JAX package's arrays."""
 
 from __future__ import annotations
 
@@ -49,3 +51,27 @@ def synthetic_volume(rng: np.random.Generator, T: int = 8, size: int = 128,
     else:
         out["bbox"] = bbox_dict
     return out
+
+
+def synthetic_fundus(rng: np.random.Generator, size: int = 256) -> Dict:
+    """REFUGE-format sample: a bright disc with a darker cup."""
+    yy, xx = np.mgrid[0:size, 0:size]
+    cy, cx = rng.uniform(size * 0.4, size * 0.6, 2)
+    r_cup = rng.uniform(size * 0.08, size * 0.15)
+    cup = ((yy - cy) ** 2 + (xx - cx) ** 2) <= r_cup ** 2
+    img = np.full((size, size, 3), 0.4, np.float32)
+    disc = ((yy - cy) ** 2 + (xx - cx) ** 2) <= (r_cup * 2) ** 2
+    img[disc] = 0.8
+    img[cup] = 0.95
+    img += rng.normal(0, 0.03, img.shape)
+    lbl, pt = random_click(cup, 1, rng)
+    mask = cup.astype(np.float32)
+    return {
+        "image": np.clip(img, 0, 1).transpose(2, 0, 1),
+        "multi_rater": np.repeat(mask[None, None], 7, axis=0),
+        "p_label": lbl,
+        "pt": pt,
+        "mask": mask[None],
+        "mask_ori": mask[None],
+        "image_meta_dict": {"filename_or_obj": "synthetic"},
+    }

@@ -56,10 +56,12 @@ KERNEL_HEAD_DIMS = (64, 72, 96, 128, 256)
 # (csrc/hopper_attention.cuh kBQ, kBK).
 _SM90_ROWS = 128
 _SM90_TILE = 64
-# (D, Dv) the backward kernels are instantiated for: memory self-attention and
-# the low-rank memory cross-attention, the only flash calls training
-# differentiates (csrc/flash_attention_bwd.cu).
-BWD_HEAD_DIMS = ((256, 256), (256, 64))
+# (D, Dv) the backward kernels are instantiated for: memory self-attention,
+# the low-rank memory cross-attention, and the Hiera global blocks that 2D
+# training differentiates (96: hiera_t / s, 72: hiera_l; hiera_b+'s 56 stays
+# under the flash gate), the only flash calls training differentiates
+# (csrc/flash_attention_bwd.cu).
+BWD_HEAD_DIMS = ((256, 256), (256, 64), (96, 96), (72, 72))
 # (C, Dv) the kv-cached kernel is instantiated for: d_model and mem_dim of
 # every SAM2 variant (csrc/kv_cached_attention.cu).
 KV_CACHED_WIDTHS = (256, 64)
@@ -349,9 +351,9 @@ DKV_Q_TILE = 64
 
 def dq_block_rows(Dv: int) -> int:
     """Query rows of one block of the bf16 dQ pass
-    (``csrc/flash_bwd_dq_sm90.cu``): two consumer warpgroups of 64 rows, one
-    at Dv = 256, where Q and dO of 128 rows would leave no room for a
-    two-stage kv ring."""
+    (``csrc/flash_bwd_dq_sm90.cu``): two consumer warpgroups of 64 rows (Dv
+    64, 96, 72), one at Dv = 256, where Q and dO of 128 rows would leave no
+    room for a two-stage kv ring."""
     return 64 if Dv == 256 else 128
 
 
@@ -479,10 +481,9 @@ def _flash_bwd_launch(which: str, q, k, v, kv_mask, do, lse, dvec, scale, _split
             *args, _ptr(outs[0] if outs else None), _ptr(parts[0] if parts else None), B * H, H,
             Nq, Nk, rows, D, Dv, ctypes.c_float(scale), splits, code, _stream(q))
     _raise_on_error(rc, name)
-    if which == "dkv":
-        flash_attention_bwd_dkv.launches += 1
-    else:
-        flash_attention_bwd_dq.launches += 1
+    counted = flash_attention_bwd_dkv if which == "dkv" else flash_attention_bwd_dq
+    counted.launches += 1
+    counted.launches_by_width[(D, Dv)] = counted.launches_by_width.get((D, Dv), 0) + 1
     if parts and which == "dq":
         dq = flash_attention_bwd_dq_sum(parts[0], scale)
         return (dq.reshape(B, H, Nq, D).to(q.dtype),)
@@ -654,6 +655,9 @@ _COUNTED = (flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dq,
             attention_merge)
 for _fn in _COUNTED:
     _fn.launches = 0
+# the backward pair's launches by (D, Dv) as well
+flash_attention_bwd_dkv.launches_by_width = {}
+flash_attention_bwd_dq.launches_by_width = {}
 
 
 def _counted() -> dict:

@@ -22,8 +22,11 @@ fp32, and the residuals rounded as ``(x + y) + b``. Its MLP half is
 :mod:`medsam2_tpu_torch.ops.fused_mlp`'s.
 
 Off by default, as in the JAX package: ``MEDSAM2_FUSED_BLOCK=1``
-(:func:`fused_block_enabled`). Forward only: it raises when a gradient
-would be taken. No fallback: a CUDA tensor reaches the kernel or the wrapper
+(:func:`fused_block_enabled`). Under autograd the call is
+:class:`_FusedWindowBlock`, the JAX ``custom_vjp`` (``fused_block.py:184-199``):
+the forward is the kernel sequence (the twin on the CPU), the backward
+re-runs the twin on the saved inputs and returns its vector-Jacobian
+product. No fallback: a CUDA tensor reaches the kernel or the wrapper
 raises.
 """
 
@@ -38,10 +41,9 @@ import torch
 
 from medsam2_tpu_torch.core import layers
 from medsam2_tpu_torch.ops.attention import (_aligned, _check_device, _dtype_code,
-                                             _forward_only, _raise_on_error, _stream,
-                                             sdpa_plain)
+                                             _raise_on_error, _stream, sdpa_plain)
 from medsam2_tpu_torch.ops.fused_mlp import (_matmul_cast, kernel_launches,
-                                             ln_mlp_residual_plain)
+                                             ln_mlp_residual_plain, twin_vjp)
 from medsam2_tpu_torch.ops.window_attention import WINDOW_BUILT
 
 
@@ -135,16 +137,36 @@ def _launch(x2d, p: BlockParams, num_heads: int, n: int, eps: float):
     return out
 
 
+class _FusedWindowBlock(torch.autograd.Function):
+    """B8 under autograd: forward the kernel sequence (the twin on the CPU),
+    backward the twin's vector-Jacobian product on the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, x2d, num_heads, n, eps, *weights):
+        ctx.save_for_backward(x2d, *weights)
+        ctx.static = (num_heads, n, eps)
+        p = BlockParams(*weights)
+        if _check_device(x2d, "fused_block"):
+            return _launch(x2d, p, num_heads, n, eps)
+        return fused_window_block_plain(x2d, p, num_heads, n, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        num_heads, n, eps = ctx.static
+        needs = (ctx.needs_input_grad[0], *ctx.needs_input_grad[4:])
+        gx, *gw = twin_vjp(
+            lambda x, *w: fused_window_block_plain(x, BlockParams(*w), num_heads, n, eps),
+            ctx.saved_tensors, needs, g)
+        return (gx, None, None, None, *gw)
+
+
 def fused_window_block(wins, p: BlockParams, num_heads: int, eps: float = 1e-6):
     """One plain windowed block on partitioned windows [Bn, ws, ws, C]
-    (the caller checks :func:`fused_window_block_supported`)."""
-    _forward_only("fused_block", wins, *p)
+    (the caller checks :func:`fused_window_block_supported`). The call is
+    :class:`_FusedWindowBlock`, which keeps a graph only when a gradient
+    will be taken."""
     Bn, ws, _, C = wins.shape
-    x2d = wins.reshape(-1, C)
-    if _check_device(wins, "fused_block"):
-        y = _launch(x2d, p, num_heads, ws * ws, eps)
-    else:
-        y = fused_window_block_plain(x2d, p, num_heads, ws * ws, eps)
+    y = _FusedWindowBlock.apply(wins.reshape(-1, C), num_heads, ws * ws, eps, *p)
     return y.reshape(wins.shape)
 
 

@@ -17,10 +17,11 @@ GELU tanh in bf16 / erf in fp32, and the output rounded as ``(x + y) + b2``
 
 Off by default, as in the JAX package: ``MEDSAM2_FUSED_MLP=1`` turns the
 Hiera blocks' MLP tails over to it where the JAX package's wrapper takes its
-kernel (:func:`fused_mlp_applies`). Forward
-only: it raises when a gradient would be taken (the JAX ``custom_vjp``
-recompute backward comes with 2D training). No fallback: a CUDA tensor
-reaches the kernel or the wrapper raises.
+kernel (:func:`fused_mlp_applies`). Under autograd the call is
+:class:`_LnMlpResidual`, the JAX ``custom_vjp`` (``fused_mlp.py:127-133``):
+the forward is the kernel (the twin on the CPU), the backward re-runs the
+twin on the saved inputs and returns its vector-Jacobian product. No
+fallback: a CUDA tensor reaches the kernel or the wrapper raises.
 """
 
 from __future__ import annotations
@@ -32,8 +33,8 @@ import os
 import torch
 
 from medsam2_tpu_torch.core import layers
-from medsam2_tpu_torch.ops.attention import (_aligned, _check_device, _dtype_code,
-                                             _forward_only, _ptr, _raise_on_error, _stream)
+from medsam2_tpu_torch.ops.attention import (_aligned, _check_device, _dtype_code, _ptr,
+                                             _raise_on_error, _stream)
 
 
 def fused_mlp_enabled() -> bool:
@@ -116,17 +117,47 @@ def _launch(x2d, gamma, beta, w1, b1, w2, b2, eps: float):
     return out
 
 
+def twin_vjp(plain, inputs, needs, grad_out):
+    """The vector-Jacobian product of ``plain(*inputs)`` with ``grad_out``,
+    recomputed under autograd on detached copies of the saved inputs: a
+    gradient for each input whose ``needs`` flag is set, else None (the
+    backward of the JAX ``custom_vjp``s, ``jax.vjp`` of the unfused
+    lowering)."""
+    leaves = [t.detach().requires_grad_(n) for t, n in zip(inputs, needs)]
+    with torch.enable_grad():
+        y = plain(*leaves)
+    wanted = [t for t, n in zip(leaves, needs) if n]
+    got = iter(torch.autograd.grad(y, wanted, grad_out, allow_unused=True) if wanted else ())
+    return [next(got) if n else None for n in needs]
+
+
+class _LnMlpResidual(torch.autograd.Function):
+    """B7 under autograd: forward the kernel (the twin on the CPU), backward
+    the twin's vector-Jacobian product on the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, x2d, gamma, beta, w1, b1, w2, b2, eps):
+        ctx.save_for_backward(x2d, gamma, beta, w1, b1, w2, b2)
+        ctx.eps = eps
+        if _check_device(x2d, "fused_mlp"):
+            return _launch(x2d, gamma, beta, w1, b1, w2, b2, eps)
+        return ln_mlp_residual_plain(x2d, gamma, beta, w1, b1, w2, b2, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = twin_vjp(lambda *a: ln_mlp_residual_plain(*a, ctx.eps), ctx.saved_tensors,
+                         ctx.needs_input_grad[:7], g)
+        return (*grads, None)
+
+
 def ln_mlp_residual(x, gamma, beta, w1, b1, w2, b2, eps: float = 1e-6):
     """``(x + fc2(gelu(fc1(layer_norm(x))))) + b2`` for any leading shape
     [..., C]: the LayerNorm's scale and bias, then the two torch Linears'
-    weights and biases (w1 [4C, C], w2 [C, 4C])."""
-    _forward_only("fused_mlp", x, gamma, beta, w1, b1, w2, b2)
+    weights and biases (w1 [4C, C], w2 [C, 4C]). The call is
+    :class:`_LnMlpResidual`, which keeps a graph only when a gradient will
+    be taken."""
     C = x.shape[-1]
-    x2d = x.reshape(-1, C)
-    if _check_device(x, "fused_mlp"):
-        y = _launch(x2d, gamma, beta, w1, b1, w2, b2, eps)
-    else:
-        y = ln_mlp_residual_plain(x2d, gamma, beta, w1, b1, w2, b2, eps)
+    y = _LnMlpResidual.apply(x.reshape(-1, C), gamma, beta, w1, b1, w2, b2, eps)
     return y.reshape(x.shape)
 
 

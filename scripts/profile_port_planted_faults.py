@@ -83,6 +83,17 @@ FAULTS = {
     "dkv_split_drop": ("medsam2_tpu_torch/csrc/flash_bwd_dkv_sm90.cu",
                        "const int per_split = (n_qt + a.splits - 1) / a.splits;",
                        "const int per_split = n_qt / a.splits;", DKV),
+    # B3 at the Hiera head dims: the 32-wide chunk's dK / dV products (columns
+    # 64-95 at D 96) are not issued
+    "dkv_narrow_chunk": ("medsam2_tpu_torch/csrc/flash_bwd_dkv_sm90.cu",
+                         "    else if constexpr (W == 32)\n      wgmma_ss_n32_tb(acc, da, db);",
+                         "    else if constexpr (W == 32)\n      ;", DKV),
+    # B4 at D 72: the epilogue writes dQ's first 64 columns only (64-71 of
+    # the fresh output stay as allocated)
+    "dq_d72_cols": ("medsam2_tpu_torch/csrc/flash_bwd_dq_sm90.cu",
+                    "    for (int j = 0; j < D / 8; ++j)\n      *reinterpret_cast<float2*>(dst",
+                    "    for (int j = 0; j < (D == 72 ? 8 : D / 8); ++j)\n"
+                    "      *reinterpret_cast<float2*>(dst", BACKWARD),
     # B7 at C <= 256: the last hidden chunk's fc2 product reads the previous
     # chunk's fc2 weight columns
     "mlp_fused_last_chunk": ("medsam2_tpu_torch/csrc/encoder_gemm.cu",

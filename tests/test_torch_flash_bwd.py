@@ -7,7 +7,9 @@ through its ``custom_vjp`` with ``MEDSAM2_FLASH_BWD=pallas`` and
 runs them. The port side is ``flash_attention`` on CPU tensors that require
 grad: its autograd function runs :func:`flash_attention_lse_plain` forward and
 :func:`flash_attention_bwd_plain` backward. Inputs are made with numpy from a
-seed; a kv mask, a ragged Nk and Dv != D are covered. Gradients are held
+seed; a kv mask, a ragged Nk, Dv != D and the Hiera global blocks' head
+dims 96 and 72 (the JAX wrapper pads them to 128 for its kernels) are
+covered. Gradients are held
 relative to their largest |value|: fp32 to 5e-5, bf16 to 4e-2 (the JAX
 package's own tolerances). The LSE of the training forward is compared with
 the Pallas forward's ``with_lse`` output."""
@@ -34,8 +36,11 @@ CASES = [
     (1, 2, 128, 256, 64, 64, "random", 64, 128),      # kv mask
     (2, 1, 64, 200, 64, 32, "dead_row", 64, 128),     # ragged Nk, Dv != D, batch 0 masked
     (1, 1, 96, 300, 32, 16, None, 32, 128),           # ragged both, Dv != D
+    # the Hiera global-attention head dims 2D training differentiates
+    (1, 2, 128, 200, 96, 96, "random", 64, 128),      # hiera_t / s (C 384, 4 heads)
+    (2, 1, 64, 150, 72, 72, "dead_row", 64, 128),     # hiera_l (C 576, 8 heads), batch 0 masked
 ]
-IDS = ["mask", "ragged_dead_row", "ragged_dv"]
+IDS = ["mask", "ragged_dead_row", "ragged_dv", "hiera_d96", "hiera_l_d72"]
 TOL = {np.float32: 5e-5, jnp.bfloat16: 4e-2}
 
 

@@ -93,11 +93,15 @@ def test_flash_kernel_matches_twin(dev, dtype, case):
 
 
 BWD_CASES = [
-    # (B, H, Nq, Nk, D, Dv, mask); (D, Dv) in the two built pairs
+    # (B, H, Nq, Nk, D, Dv, mask); (D, Dv) in the four built pairs
     (1, 1, 128, 300, 256, 64, "random"),      # ragged Nk, low-rank values
     (2, 1, 100, 77, 256, 256, "row0_dead"),   # ragged both, batch 0 fully masked
     (1, 1, 1024, 1024, 256, 256, None),       # memory self-attention @512
     (2, 1, 1024, 10316, 256, 64, "stale"),    # memory cross-attention @512, training
+    (2, 4, 1024, 1024, 96, 96, None),         # hiera_t / s global blocks @512, 2D training
+    (2, 1, 100, 77, 96, 96, "row0_dead"),     # 64 + 32 column chunks, ragged, batch 0 masked
+    (1, 8, 1024, 1024, 72, 72, None),         # hiera_l global blocks @512
+    (1, 2, 300, 520, 72, 72, "random"),       # 72 -> 80 columns, ragged both
 ]
 # gradients are held relative to their largest |value|: fp32 as tight as the
 # JAX package's grad test (5e-5), bf16 against the twin run on the same bf16
@@ -185,7 +189,9 @@ def test_flash_autograd_launches_backward_pair(dev):
     (2, 1, 1024, 1024, 256, 256, None),        # memory self-attention @512 (16 kv tiles)
     (2, 1, 1024, 10316, 256, 64, "stale"),     # memory cross-attention @512 (162 tiles)
     (2, 1, 100, 420, 256, 64, "row0_dead"),    # 7 tiles, ragged, batch 0 fully masked
-], ids=["self512", "cross512", "ragged_dead"])
+    (1, 2, 1024, 1024, 96, 96, None),          # hiera global blocks (D 96)
+    (2, 1, 100, 420, 72, 72, "row0_dead"),     # hiera_l's D 72, ragged, batch 0 masked
+], ids=["self512", "cross512", "ragged_dead", "hiera96", "hiera72_ragged_dead"])
 def test_dq_kernel_split_counts_match_twin(dev, case, splits):
     """The bf16 dQ pass at forced kv split counts: the partials and their
     sum (one sum launch whenever it splits) against the twin."""
@@ -216,7 +222,9 @@ def test_dq_kernel_split_counts_match_twin(dev, case, splits):
     (2, 1, 1024, 1024, 256, 256, None),        # memory self-attention @512 (16 q tiles)
     (2, 1, 1024, 10316, 256, 64, "stale"),     # memory cross-attention @512
     (2, 1, 420, 100, 256, 64, "row0_dead"),    # 7 q tiles, ragged, batch 0 fully masked
-], ids=["self512", "cross512", "ragged_dead"])
+    (1, 2, 1024, 1024, 96, 96, None),          # hiera global blocks (D 96)
+    (2, 1, 420, 100, 72, 72, "row0_dead"),     # hiera_l's D 72, ragged, batch 0 masked
+], ids=["self512", "cross512", "ragged_dead", "hiera96", "hiera72_ragged_dead"])
 def test_dkv_kernel_split_counts_match_twin(dev, case, splits):
     """The bf16 dK/dV pass at forced q split counts: the partials and their
     sum (one sum launch whenever it splits) against the twin."""
@@ -273,9 +281,13 @@ def test_dq_sum_kernel_matches_twin(dev):
 def test_backward_kernels_reject_unbuilt_widths(dev):
     z = lambda *shape: torch.zeros(shape, device=dev)  # noqa: E731
     before = A.launch_counts()
-    with pytest.raises(ValueError, match="kernel built for"):
-        A.flash_attention_bwd_dkv(z(1, 1, 64, 96), z(1, 1, 64, 96), z(1, 1, 64, 96), None,
-                                  z(1, 1, 64, 96), z(1, 1, 64), z(1, 1, 64))
+    # 64 and hiera_b+'s 56 are built for the forward only; (96, 64) pairs
+    # two built head dims the backward does not take together
+    for d, dv in ((64, 64), (56, 56), (96, 64)):
+        for fn in (A.flash_attention_bwd_dkv, A.flash_attention_bwd_dq):
+            with pytest.raises(ValueError, match="kernel built for"):
+                fn(z(1, 1, 64, d), z(1, 1, 64, d), z(1, 1, 64, dv), None, z(1, 1, 64, dv),
+                   z(1, 1, 64), z(1, 1, 64))
     assert A.launch_counts() == before
 
 
@@ -861,6 +873,39 @@ def test_fused_block_kernel_matches_twin(dev, dtype, Bn, ws, C, heads):
     want = FB.fused_window_block_plain(wins.reshape(-1, C), p, heads, ws * ws).reshape(wins.shape)
     assert got.shape == wins.shape and got.dtype == dtype
     assert (got.float() - want.float()).abs().max().item() <= _tol(want.float(), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_fused_kernels_backward_is_the_twins_autograd(dev, dtype):
+    """B7 and B8 under autograd on the card: the forward launches the
+    kernel, the backward re-runs the twin (no launch), and the gradients
+    equal autograd through the twin on the same inputs; fp32 to 1e-4 of
+    max|grad|, bf16 to 1e-2 (the forward outputs differ by the kernel's
+    rounding, the backward is the same code)."""
+    rng = np.random.default_rng(21)
+    C, heads, ws = 96, 1, 8
+    x = _t(rng, (16, ws, ws, C), dev, dtype)
+    p = _block_params(rng, C, dev)
+    g = _t(rng, (16, ws, ws, C), dev, dtype)
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    for name, fn, twin in (
+            ("fused_block", lambda a, w: FB.fused_window_block(a, FB.BlockParams(*w), heads),
+             lambda a, w: FB.fused_window_block_plain(a.reshape(-1, C), FB.BlockParams(*w),
+                                                      heads, ws * ws).reshape(a.shape)),
+            ("fused_mlp", lambda a, w: FM.ln_mlp_residual(a, *w[6:]),
+             lambda a, w: FM.ln_mlp_residual_plain(a.reshape(-1, C), *w[6:]).reshape(a.shape))):
+        grads, launched = [], []
+        for f in (fn, twin):
+            a = x.clone().requires_grad_()
+            w = [t.clone().requires_grad_() for t in p]
+            before = A.launch_counts()[name]
+            (f(a, w).float() * g.float()).sum().backward()
+            torch.cuda.synchronize()
+            launched.append(A.launch_counts()[name] - before)
+            grads.append([a.grad] + [t.grad for t in w if t.grad is not None])
+        assert launched == [1, 0]                  # forward only: the backward is the twin's
+        for got, want in zip(*grads):
+            assert _rel_err(got, want) <= tol, (name, _rel_err(got, want))
 
 
 def test_encoder_kernels_reject_unbuilt_widths(dev):

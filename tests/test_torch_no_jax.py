@@ -72,6 +72,12 @@ def test_session_modules_load_neither_jax_nor_pil(module):
     JAX package or PIL: frames are decoded with PIL only inside
     ``video_predictor._decode_frame``, so a host without PIL runs every
     session that does not read a frame directory."""
+    _loads_nothing(module)
+
+
+def _loads_nothing(module):
+    """Import ``module`` alone in a fresh interpreter; fail if JAX, the JAX
+    package or PIL came with it."""
     assert module in _modules()
     code = (f"import sys\nimport {module}\n"
             "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
@@ -80,3 +86,18 @@ def test_session_modules_load_neither_jax_nor_pil(module):
                          text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "", f"{module} loads {res.stdout.strip()}"
+
+
+# the modules of the REFUGE 2D training slice
+TWO_D_MODULES = ["medsam2_tpu_torch.state.similarity_bank", "medsam2_tpu_torch.train.recipe_2d",
+                 "medsam2_tpu_torch.data.refuge", "medsam2_tpu_torch.data.synthetic",
+                 "medsam2_tpu_torch.cli.train_2d", "medsam2_tpu_torch.ops.fused_mlp",
+                 "medsam2_tpu_torch.ops.fused_block"]
+
+
+@pytest.mark.parametrize("module", TWO_D_MODULES)
+def test_2d_modules_load_neither_jax_nor_pil(module):
+    """Each module of the 2D slice imports on its own without JAX, the JAX
+    package or PIL: the REFUGE reader imports PIL only when it reads a
+    sample, so the synthetic data and the chip run need no PIL."""
+    _loads_nothing(module)

@@ -168,12 +168,12 @@ def _dq_split(q, k, v, mask, do, lse, dvec, splits: int, scale: float):
 B, H, NQ, NK, D, DV = 2, 1, 64, 300, 64, 32
 
 
-@functools.lru_cache(maxsize=1)
-def _bwd_case():
+@functools.lru_cache(maxsize=4)
+def _bwd_case(d=D, dv=DV):
     rng = np.random.default_rng(30)
-    q, k = (rng.standard_normal((B, H, n, D)).astype(np.float32) for n in (NQ, NK))
-    v = rng.standard_normal((B, H, NK, DV)).astype(np.float32)
-    w = rng.standard_normal((B, H, NQ, DV)).astype(np.float32)
+    q, k = (rng.standard_normal((B, H, n, d)).astype(np.float32) for n in (NQ, NK))
+    v = rng.standard_normal((B, H, NK, dv)).astype(np.float32)
+    w = rng.standard_normal((B, H, NQ, dv)).astype(np.float32)
     mask = rng.random((B, NK)) > 0.3
     mask[0] = False
     mask[1, TILE:2 * TILE] = False
@@ -215,6 +215,25 @@ def test_split_dq_matches_twin_and_pallas(splits):
     assert (got - twin).abs().max().item() <= 1e-6 * top
     assert np.abs(got.numpy() - want).max() <= 5e-5 * np.abs(want).max()
     assert got[0].abs().max().item() == 0.0       # the batch with every key masked
+
+
+@pytest.mark.parametrize("splits", [1, 3, 5])
+@pytest.mark.parametrize("d", [96, 72], ids=["d96", "d72"])
+def test_split_dq_at_hiera_head_dims(d, splits):
+    """The split dQ pass at the Hiera global blocks' (D, Dv) = (96, 96) and
+    (72, 72) (the kernel pads 72 to 80 columns, zero-filled): the same
+    model, held to the twin and the Pallas backward."""
+    q, k, v, w, mask, want = _bwd_case(d, d)
+    tq, tk, tv, tw = (torch.from_numpy(a) for a in (q, k, v, w))
+    tm = torch.from_numpy(mask)
+    scale = d ** -0.5
+    o, lse = A.flash_attention_lse_plain(tq, tk, tv, tm)
+    dvec = (tw * o).sum(-1)
+    got = _dq_split(tq, tk, tv, tm, tw, lse, dvec, splits, scale)
+    twin = A.flash_attention_bwd_plain(tq, tk, tv, tm, o, lse, tw, scale)[0]
+    assert (got - twin).abs().max().item() <= 1e-6 * twin.abs().max().item()
+    assert np.abs(got.numpy() - want).max() <= 5e-5 * np.abs(want).max()
+    assert got[0].abs().max().item() == 0.0
 
 
 def test_dq_sum_twin_adds_in_split_order():
@@ -264,16 +283,16 @@ def _dkv_split(q, k, v, mask, do, lse, dvec, splits: int, scale: float):
     return A.flash_attention_bwd_dkv_sum(torch.stack(pk), torch.stack(pv), scale)
 
 
-@functools.lru_cache(maxsize=1)
-def _dkv_case():
+@functools.lru_cache(maxsize=4)
+def _dkv_case(d=D, dv=DV):
     """B 2, Nq 300 (five q tiles, the last of 44 rows), Nk 100, D 64, Dv
-    32; batch 0 has every key masked, batch 1 a third of them. The Pallas
-    backward's dK and dV through the JAX custom_vjp."""
+    32 by default; batch 0 has every key masked, batch 1 a third of them.
+    The Pallas backward's dK and dV through the JAX custom_vjp."""
     rng = np.random.default_rng(32)
-    q = rng.standard_normal((B, H, 300, D)).astype(np.float32)
-    k = rng.standard_normal((B, H, 100, D)).astype(np.float32)
-    v = rng.standard_normal((B, H, 100, DV)).astype(np.float32)
-    w = rng.standard_normal((B, H, 300, DV)).astype(np.float32)
+    q = rng.standard_normal((B, H, 300, d)).astype(np.float32)
+    k = rng.standard_normal((B, H, 100, d)).astype(np.float32)
+    v = rng.standard_normal((B, H, 100, dv)).astype(np.float32)
+    w = rng.standard_normal((B, H, 300, dv)).astype(np.float32)
     mask = rng.random((B, 100)) > 0.3
     mask[0] = False
     saved = os.environ.get("MEDSAM2_FLASH_BWD")
@@ -314,6 +333,40 @@ def test_split_dkv_matches_twin_and_pallas(splits):
         assert (got - twin).abs().max().item() <= 1e-6 * twin.abs().max().item()
         assert np.abs(got.numpy() - want).max() <= 5e-5 * np.abs(want).max()
         assert got[0].abs().max().item() == 0.0   # the batch with every key masked
+
+
+@pytest.mark.parametrize("splits", [1, 3, 5])
+@pytest.mark.parametrize("d", [96, 72], ids=["d96", "d72"])
+def test_split_dkv_at_hiera_head_dims(d, splits):
+    """The split dK/dV pass at (96, 96) and (72, 72): the same model, held
+    to the twin and the Pallas backward (each consumer warpgroup of the
+    kernel owns one 64-wide and one narrow column chunk of dK and dV
+    there)."""
+    q, k, v, w, mask, (want_k, want_v) = _dkv_case(d, d)
+    tq, tk, tv, tw = (torch.from_numpy(a) for a in (q, k, v, w))
+    tm = torch.from_numpy(mask)
+    scale = d ** -0.5
+    o, lse = A.flash_attention_lse_plain(tq, tk, tv, tm)
+    dvec = (tw * o).sum(-1)
+    got_k, got_v = _dkv_split(tq, tk, tv, tm, tw, lse, dvec, splits, scale)
+    _, twin_k, twin_v = A.flash_attention_bwd_plain(tq, tk, tv, tm, o, lse, tw, scale)
+    for got, twin, want in ((got_k, twin_k, want_k), (got_v, twin_v, want_v)):
+        assert (got - twin).abs().max().item() <= 1e-6 * twin.abs().max().item()
+        assert np.abs(got.numpy() - want).max() <= 5e-5 * np.abs(want).max()
+        assert got[0].abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("bh,nq,nk,want", [
+    (16, 4096, 4096, (1024, 1)),    # hiera_s @1024 B 4, 4 heads: one block a 64-key tile
+    (32, 4096, 4096, (2048, 1)),    # hiera_l @1024 B 4, 8 heads
+    (4, 1024, 1024, (64, 2)),       # hiera_t @512 B 1: 16 key tiles x 4 heads, split in 2
+])
+def test_hiera_backward_grids(bh, nq, nk, want):
+    """The dK/dV grid at the Hiera global blocks' shapes; the dQ pass takes
+    128 query rows a block at Dv 96 and 72."""
+    blocks = bh * -(-nk // A.DKV_BLOCK_KEYS)
+    assert (blocks, A.split_count(blocks, -(-nq // A.DKV_Q_TILE), 132)) == want
+    assert A.dq_block_rows(96) == A.dq_block_rows(72) == 128
 
 
 def test_dkv_sum_twin_adds_in_split_order():

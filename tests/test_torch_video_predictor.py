@@ -131,3 +131,30 @@ def test_mask_prompts_match_jax(models):
     tp.reset_state(ts)
     assert ts["obj_ids"] == [] and not ts["cond_frame_idx"] and not ts["tracked"]
     assert ts["images"].shape[0] == 8
+
+
+def test_train_init_state_mixed_prompts_match_jax(models):
+    """``train_init_state`` (the session with ``is_eval`` off: no dynamic
+    multimask fallback, no binarised memory masks) from a [T, 3, S, S]
+    video, the mixed prompts of ``tests/test_predictors.py``: a box and a
+    mask on frame 0, a click on frame 2 for object 1 only (object 2 takes
+    the empty-mask path there); low-res logits of every frame to 1e-3."""
+    params, model = models
+    video, gt = moving_square_video(T=4)
+    jp = JaxPredictor(params, TINY, max_cond_frames=2)
+    tp = SAM2VideoPredictor(model, max_cond_frames=2)
+    js = jp.train_init_state(video.transpose(0, 3, 1, 2))
+    ts = tp.train_init_state(video.transpose(0, 3, 1, 2))
+    assert ts["is_eval"] is False and js["is_eval"] is False
+    assert tp.val_init_state(video)["is_eval"] is True
+    for p, s in ((jp, js), (tp, ts)):
+        p.add_new_bbox(s, 0, obj_id=1, bbox=np.array([[8, 20], [24, 36]]))
+        p.add_new_mask(s, 0, obj_id=2, mask=gt[0])
+        p.add_new_points(s, 2, obj_id=1, points=np.array([[24.0, 28.0]]), labels=np.array([1]))
+    jframes, jmasks = jp.propagate_in_video_batch(js)
+    tframes, tmasks = tp.propagate_in_video_batch(ts)
+    assert tframes == jframes == [0, 1, 2, 3]
+    assert tuple(tmasks.shape) == jmasks.shape == (4, 2, 1, 16, 16)
+    for i in range(4):
+        np.testing.assert_allclose(tmasks[i].numpy(), np.asarray(jmasks[i]), **TOL,
+                                   err_msg=f"frame {i}")
