@@ -1,8 +1,8 @@
 """Drive the PyTorch port's 3D propagation (the whole session: reverse and
 resumed propagation, corrections on tracked frames, clearing around new
 prompts, the three memory readouts, batched volumes), 3D training (over raw
-memory and over the roped-key cache), 2D image serving and REFUGE 2D
-training on one NVIDIA GPU.
+memory and over the roped-key cache), 2D image serving, REFUGE 2D training
+and nuclei instance serving on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -111,11 +111,25 @@ Phases, each printing its own line:
      of B1 / B3 / B4 (B3 / B4 by head dims), seconds per step, images/s,
      peak memory, one traced step (device busy time, idle share); the step
      with B8 + B7 on; two hiera_l @512 steps (B3 / B4 at head dim 72); and
-     ``cli.train_2d -dataset synthetic`` for 2 steps and 1 validation sample.
+     ``cli.train_2d -dataset synthetic`` for 2 steps and 1 validation sample;
+  17. nuclei serving: 17k, B5 / B7 / B8 at the nuclei_256 shapes against
+     their twins (times as phase 8); 17a, TINY SAM2 @64 fp32 (TF32 off) with
+     resnet18 and pvt_v2_b0 prompters, card against the CPU: the prompter's
+     outputs, a 70-point decode, ``predict_instances`` on a 64-px and a
+     9-crop 128-px image (instance maps equal, or, where a mask logit within
+     ``NEAR_ZERO`` of 0 took the other sign, AJI >= 0.99; the bank), and one
+     nuclei_256 crop's image embedding bf16 with B5 / B7 / B8 on against fp32
+     off (phase 11's rule) with exact counts; 17b, nuclei_256 bf16 with the
+     pvt_v2_b2 prompter (``bench.py``'s nuclei mode): images/s over 8
+     256-px images and seconds per 1000 x 1000 image (25 crops), switches
+     off and on, the stage split (prompter, encode, decode, bank write,
+     merge, the rest), exact launch counts per decoded crop, peak memory, a
+     traced image's busy share, and the resnet50 prompter once.
 Then one JSON line of per-kernel results (B8 also once per phase-8 width,
-``fused_block C<width>``, with its launches in phases 10 and 11; B3 and B4
-also once per Hiera head dim, ``flash_attention_bwd_dkv (96, 96)`` ..., with
-their phase 3b numbers and phase 16 launches), the card's
+``fused_block C<width>``, with its launches in phases 10, 11 and 17; B3
+and B4 also once per Hiera head dim, ``flash_attention_bwd_dkv (96, 96)``
+..., with their phase 3b numbers and phase 16 launches; B5 / B7 / B8 with
+their phase-17k shapes under ``nuclei_shapes``), the card's
 name and power limit,
 and, last, the device line. Any failure raises and exits non-zero; without a
 CUDA device nothing runs.
@@ -141,11 +155,13 @@ if not torch.cuda.is_available():
 import torch.nn.functional as F  # noqa: E402
 
 from medsam2_tpu_torch.api import automatic_mask_generator as amg_api  # noqa: E402
+from medsam2_tpu_torch.api import nuclei_inference as NI  # noqa: E402
 from medsam2_tpu_torch.api.image_predictor import SAM2ImagePredictor  # noqa: E402
 from medsam2_tpu_torch.api.video_predictor import (SAM2VideoPredictor,  # noqa: E402
                                                    propagate_volumes_batched)
 from medsam2_tpu_torch.cli import train_2d as train_2d_cli  # noqa: E402
-from medsam2_tpu_torch.configs import (sam2_hiera_b_plus, sam2_hiera_l,  # noqa: E402
+from medsam2_tpu_torch.configs import (FpnNeckConfig, HieraConfig, SAM2Config,  # noqa: E402
+                                       nuclei_256, sam2_hiera_b_plus, sam2_hiera_l,
                                        sam2_hiera_s, sam2_hiera_t)
 from medsam2_tpu_torch.core.sam2_model import TRAINABLE_GROUPS, SAM2Model  # noqa: E402
 from medsam2_tpu_torch.ops import _build  # noqa: E402
@@ -155,7 +171,10 @@ from medsam2_tpu_torch.ops import fused_block as FB  # noqa: E402
 from medsam2_tpu_torch.ops import fused_mlp as FM  # noqa: E402
 from medsam2_tpu_torch.ops import window_attention as WA  # noqa: E402
 from medsam2_tpu_torch.data.refuge import pack_refuge_batch  # noqa: E402
-from medsam2_tpu_torch.data.synthetic import synthetic_fundus  # noqa: E402
+from medsam2_tpu_torch.data.synthetic import synthetic_fundus, synthetic_nuclei  # noqa: E402
+from medsam2_tpu_torch.metrics.instance import get_fast_aji, remap_label  # noqa: E402
+from medsam2_tpu_torch.prompter.dpa_p2pnet import Prompter, PrompterConfig  # noqa: E402
+from medsam2_tpu_torch.state import similarity_bank as SB  # noqa: E402
 from medsam2_tpu_torch.train import recipe_2d, recipe_3d  # noqa: E402
 
 DEV = torch.device("cuda")
@@ -2828,6 +2847,422 @@ def phase_2d_full_width(power_line: str):
     return paths
 
 
+# ---------------------------------------------------------------------------
+# Nuclei serving: the DPA-P2PNet prompter and the sliding-window engine
+# ---------------------------------------------------------------------------
+
+# the CPU tests' TINY SAM2 (tests/test_predictors.py), restated without them
+NUCLEI_TINY = SAM2Config(
+    trunk=HieraConfig(embed_dim=8, stages=(1, 1, 1, 1), window_spec=(2, 2, 2, 2),
+                      global_att_blocks=(2,), window_pos_embed_bkg_spatial_size=(3, 3)),
+    neck=FpnNeckConfig(backbone_channel_list=(64, 32, 16, 8)), image_size=64,
+    compute_dtype="float32")
+# a mask logit this close to 0 may take the other sign on the card than on
+# the CPU (the two agree to ~1e-6); the instance maps are then held in AJI
+NEAR_ZERO = 1e-4
+# the B5 / B7 / B8 shapes of nuclei_256 (hiera_s @256): B5 on the padded
+# stage-3 / stage-4 blocks ((Hp, heads, ws, d)); B7 on stage 3's 256 rows
+# (the three-launch form at C 384); B8 on stages 1 and 2 ((Bn, ws, C, heads))
+NUCLEI_WINDOW = ((28, 4, 14, 96), (14, 8, 7, 96))
+NUCLEI_MLP = ((256, 384),)
+NUCLEI_BLOCK = ((64, 8, 96, 1), (64, 4, 192, 2))
+
+
+@contextlib.contextmanager
+def last_slot_draws():
+    """Every similarity-bank read draws the last valid slot, on either
+    device (the CPU tests' injection), so card and CPU condition on the
+    same memories."""
+    orig = SB.read_similarity_bank
+
+    def read(bank, cur, generator, n, indices=None):
+        idx = (bank["valid"].sum() - 1).clamp_min(0).reshape(1, 1).expand(cur.shape[0], n)
+        return orig(bank, cur, generator, n, indices=idx)
+
+    SB.read_similarity_bank = read
+    try:
+        yield
+    finally:
+        SB.read_similarity_bank = orig
+
+
+@contextlib.contextmanager
+def recorded_decodes(store: list):
+    """``decode_cells`` also keeps each call's mask logits in ``store``."""
+    orig = NI.decode_cells
+
+    def wrapped(*a, **k):
+        store.append(orig(*a, **{**k, "binary": False, "return_memory": False})[0])
+        return orig(*a, **k)
+
+    NI.decode_cells = wrapped
+    try:
+        yield
+    finally:
+        NI.decode_cells = orig
+
+
+def nuclei_models(cfg, backbone: str, dev, lean: bool = False):
+    """A seeded SAM2 model and prompter on ``dev``; ``lean`` sets the class
+    head's output bias to (1, -1), so that random weights propose enough
+    points at the small parity sizes."""
+    model = SAM2Model(cfg, seed=0, device=dev)
+    prompter = Prompter(PrompterConfig(backbone=backbone), seed=1, device=dev)
+    if lean:
+        with torch.no_grad():
+            prompter.cls_head.out.bias.copy_(torch.tensor([1.0, -1.0]))
+    return model, prompter
+
+
+def calibrate_prompter(prompter, image: np.ndarray, points: int) -> float:
+    """Shift the class head's foreground bias so that ``points`` of the
+    anchors of ``image`` score as foreground. Random weights score nearly
+    every anchor alike (all foreground or none); a trained prompter proposes
+    about one point per cell. Returns the shift."""
+    with torch.no_grad():
+        logits = prompter(torch.from_numpy(image[None]).to(prompter.device))[0]["pred_logits"][0]
+        margin = (logits[:, 0] - logits[:, 1]).float().cpu().numpy()
+        shift = -float(np.sort(margin)[-points - 1] + np.sort(margin)[-points]) / 2
+        prompter.cls_head.out.bias[0] += shift
+    return shift
+
+
+def nuclei_image(rng, size: int, tile: int = 250, cells: int = 30) -> dict:
+    """A ``size``-px nuclei image (a multiple of ``tile``) as ``tile``-px
+    ``synthetic_nuclei`` tiles of ``cells`` cells each (MoNuSeg's 1000 x
+    1000 images hold several hundred nuclei), ids offset per tile."""
+    n = size // tile
+    img = np.zeros((size, size, 3), np.float32)
+    inst = np.zeros((size, size), np.int32)
+    for i in range(n):
+        for j in range(n):
+            s = synthetic_nuclei(rng, tile, cells)
+            img[i * tile:(i + 1) * tile, j * tile:(j + 1) * tile] = s["image"]
+            inst[i * tile:(i + 1) * tile, j * tile:(j + 1) * tile] = np.where(
+                s["inst_map"] > 0, s["inst_map"] + inst.max(), 0)
+    return {"image": img, "inst_map": inst}
+
+
+def nuclei_kernels(power_line: str):
+    """Phase 17k: B5, B7 and B8 at the nuclei_256 shapes against their twins,
+    bf16, with kernel, twin, library and bound times (as phase 8). Returns
+    {kernel: [results]}."""
+    rng = np.random.default_rng(17)
+    dtype = torch.bfloat16
+    set_tf32(False)
+    out = {"window_attention": [], "fused_mlp": [], "fused_block": []}
+
+    def keep(name, label, got, want, ms, plain_ms, lib_ms, bnd):
+        err = (got.float() - want.float()).abs().max().item()
+        tol = tolerance(want.float(), dtype)
+        ok = err <= tol and bool(torch.isfinite(got).all())
+        lib = f"{lib_ms:.4f} ms (graph), {ms / lib_ms:.2f}x" if lib_ms is not None else "none"
+        print(f"[17k nuclei kernel] {name} {label} {dtype} max_abs_err {err:.3e} (tol {tol:.3e}) "
+              f"kernel {ms:.4f} ms (graph) plain {plain_ms:.3f} ms library {lib} bound "
+              f"{bnd[0]:.4f} ms ({bnd[1]}), {bnd[0] / ms:.1%} of bound | {power_line} "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name} {label}: err {err} (tol {tol})")
+        out[name].append(dict(shape=label, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                              bound_ms=bnd[0], bound_by=bnd[1], library_ms=lib_ms))
+
+    for Hp, heads, ws, d in NUCLEI_WINDOW:
+        C = d * heads
+        qkv = rand(rng, (1, Hp, Hp, 3 * C), dtype)
+        nw, n = (Hp // ws) ** 2, ws * ws
+        q, k, v = qkv.reshape(1, Hp // ws, ws, Hp // ws, ws, 3, heads, d).permute(
+            5, 0, 1, 3, 6, 2, 4, 7).reshape(3, nw, heads, n, d).unbind(0)
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        keep("window_attention", f"[1,{Hp},{Hp},{3 * C}] ws {ws} heads {heads} d {d}",
+             WA.window_attention(qkv, heads, ws), WA.window_attention_plain(qkv.float(), heads, ws),
+             graph_ms(lambda: WA.window_attention(qkv, heads, ws)),
+             cuda_ms(lambda: WA.window_attention_plain(qkv, heads, ws), reps=5),
+             graph_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
+             bound(4.0 * nw * heads * n * n * d, 2 * Hp * Hp * 4 * C, dtype))
+    for N, C in NUCLEI_MLP:
+        x = rand(rng, (N, C), dtype)
+        g, b = 1 + 0.1 * rand(rng, (C,), dtype), 0.1 * rand(rng, (C,), dtype)
+        w1, b1 = linear_params(rng, 4 * C, C, dtype)
+        w2, b2 = linear_params(rng, C, 4 * C, dtype)
+        args = (x, g, b, w1, b1, w2, b2)
+        keep("fused_mlp", f"{N}x{C}x{4 * C}", FM.ln_mlp_residual(*args),
+             FM.ln_mlp_residual_plain(*args), graph_ms(lambda: FM.ln_mlp_residual(*args)),
+             cuda_ms(lambda: FM.ln_mlp_residual_plain(*args), reps=5), None,
+             bound(16.0 * N * C * C, 2 * (2 * N * C + 8 * C * C + 7 * C), dtype))
+    for Bn, ws, C, heads in NUCLEI_BLOCK:
+        wins = rand(rng, (Bn, ws, ws, C), dtype)
+        p = block_params(rng, C, dtype)
+        N, n = Bn * ws * ws, ws * ws
+        keep("fused_block", f"N {N} C {C} ws {ws} heads {heads}",
+             FB.fused_window_block(wins, p, heads),
+             FB.fused_window_block_plain(wins.reshape(-1, C), p, heads, n).reshape(wins.shape),
+             graph_ms(lambda: FB.fused_window_block(wins, p, heads)),
+             cuda_ms(lambda: FB.fused_window_block_plain(wins.reshape(-1, C), p, heads, n),
+                     reps=5), None,
+             bound(2.0 * N * C * 12 * C + 4.0 * N * n * C, 2 * (2 * N * C + 12 * C * C + 13 * C),
+                   dtype))
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_nuclei_parity():
+    """Phase 17a: TINY SAM2 (64 px, fp32, TF32 off) with resnet18 and
+    pvt_v2_b0 prompters, card (kernels where the path has them) against the
+    same seeded models on the CPU: the prompter's outputs, one decode of 70
+    points, and ``predict_instances`` on a 64-px image and a 128-px one
+    (crop 64, overlap 32: 9 crops, so that the drop of points in processed
+    crops, the progressive NMS, the bank writes and the merge all run), the
+    bank reads drawing its last valid slot on both. Then nuclei_256 at full
+    width: one 256-px crop's image embedding in bf16 with B5, B7 and B8 on
+    against fp32 with the switches off, on the card, with exact launch
+    counts."""
+    set_tf32(False)
+    rng = np.random.default_rng(17)
+    small, large = synthetic_nuclei(rng, 64, 6), synthetic_nuclei(rng, 128, 16)
+    pts = rng.uniform(2, 62, (70, 2)).astype(np.float32)
+    for backbone in ("resnet18", "pvt_v2_b0"):
+        runs = []                                        # the card's run, then the CPU's
+        for dev in (DEV, torch.device("cpu")):
+            model, prompter = nuclei_models(NUCLEI_TINY, backbone, dev, lean=True)
+            img = torch.from_numpy(small["image"][None]).to(dev)
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                outs = {k: v.float().cpu() for k, v in prompter(img)[0].items()}
+            bank = recipe_2d.init_bank(model, 8)
+            decoded = NI.decode_cells(model, pts, bank, None, img, False)
+            logits = []
+            with last_slot_draws(), recorded_decodes(logits):
+                maps = [NI.predict_instances(model, prompter, s, bank, None, overlap=32)
+                        for s in (small, large)]
+            runs.append((outs, decoded, maps, logits,
+                         {k: v.float().cpu() for k, v in bank.items()}, time.perf_counter() - t0))
+            del model, prompter
+        (oc, dc, mc, lc, bc, tc), (op, dp, mp, lp, bp, tp) = runs
+        p_err = {k: (oc[k] - op[k]).abs().max().item() for k in op}
+        d_err = (np.abs(dc[0] - dp[0]).max(), np.abs(dc[1] - dp[1]).max())
+        flips = [((a > 0) != (b > 0)) for a, b in zip(lc, lp)] if len(lc) == len(lp) else None
+        n_flip = sum(int(f.sum()) for f in flips) if flips is not None else -1
+        near = max((float(np.abs(b[f]).max(initial=0.0)) for f, b in zip(flips, lp)),
+                   default=0.0) if flips else 0.0
+        equal = [bool(np.array_equal(a, b)) for a, b in zip(mc, mp)]
+        ajis = [get_fast_aji(remap_label(b), remap_label(a)) for a, b in zip(mc, mp)]
+        maps_ok = all(equal) or (n_flip > 0 and near <= NEAR_ZERO and min(ajis) >= 0.99)
+        reason = ("equal" if all(equal) else
+                  f"{n_flip} mask pixels differ in sign, all with |logit| <= {near:.1e}: AJI "
+                  f"{[f'{a:.4f}' for a in ajis]} (>= 0.99)")
+        # the bank as phase 15 holds it: a flipped pixel moves its crop's
+        # memory features, little in norm
+        bank_err = max(rel_err(bc[k], bp[k]) for k in ("embeds", "iou"))
+        feats_l2 = ((bc["feats"] - bp["feats"]).norm() / bp["feats"].norm()).item()
+        ok = (max(p_err.values()) <= 1e-3 and max(d_err) <= 1e-3 and maps_ok
+              and max(m.max() for m in mp) >= 4 and bank_err <= (1e-2 if n_flip else 1e-3)
+              and feats_l2 <= (TOL_BANK_FEATS_L2 if n_flip else 1e-4)
+              and torch.equal(bc["valid"], bp["valid"]))
+        print(f"[17a nuclei parity] TINY @64 fp32 TF32 off, {backbone} prompter: cuda vs cpu | "
+              f"prompter max_abs_err {p_err} (tol 1e-3) | decode of 70 points: logits "
+              f"{d_err[0]:.2e}, IoUs {d_err[1]:.2e} (tol 1e-3) | predict_instances 64 px and 128 "
+              f"px (9 crops, {len(lp)} decoded): {[int(m.max()) for m in mp]} instances, maps "
+              f"{reason} | bank embeds / iou rel err {bank_err:.2e} (tol 1e-3, 1e-2 after a "
+              f"flip), feats rel L2 {feats_l2:.2e}, {int(bp['valid'].sum())} slots | cuda "
+              f"{tc:.1f} s cpu {tp:.1f} s {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"nuclei parity {backbone}: see the line above")
+
+    # nuclei_256 at full width: B5 / B7 / B8 in bf16 against fp32 plain
+    crop = torch.from_numpy(synthetic_nuclei(rng, 256, 24)["image"][None]).to(DEV)
+    embeds, counts = {}, None
+    for label, cfg, switches in (("bf16 on", nuclei_256(), "1"),
+                                 ("fp32 off", nuclei_256(compute_dtype="float32"), "0")):
+        model = SAM2Model(cfg, seed=0, device=DEV)
+        bank = recipe_2d.init_bank(model, 16)
+        with encoder_switches(switches), torch.no_grad():
+            A.reset_launch_counts()
+            embeds[label] = recipe_2d.encode_and_condition(model, crop, bank, None, False, 1)[0]
+            torch.cuda.synchronize()
+            if switches == "1":
+                counts = A.launch_counts()
+        del model
+    cfg = nuclei_256()
+    want = {**{k: 0 for k in counts}, **encoder_launches(cfg)}
+    err = rel_err(embeds["bf16 on"], embeds["fp32 off"])
+    finite = bool(torch.isfinite(embeds["bf16 on"]).all())
+    ok = counts == want and finite and err <= TOL_BL_EMBED
+    print(f"[17a nuclei parity] nuclei_256 (sam2_hiera_s @256, {len(cfg.trunk.block_schedule())} "
+          f"blocks) one crop's image embedding, bf16 with B5/B7/B8 on vs fp32 switches off: err "
+          f"rel max|embed| {err:.3e} (tol {TOL_BL_EMBED:.0e}) finite {finite} | launches {counts} "
+          f"expected {want} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"nuclei_256 switches: err {err}, launches {counts} vs {want}")
+    torch.cuda.empty_cache()
+
+
+NUCLEI_STAGES = {"prompter": "predict_points", "encode": "encode_and_condition",
+                 "decode": "decode_chunk", "bank_write": "write_memory",
+                 "merge": "merge_instances"}
+
+
+@contextlib.contextmanager
+def nuclei_stage_timers(spent: dict):
+    """Each stage of the engine (``NUCLEI_STAGES``) timed by the host clock,
+    synchronised, into ``spent`` (seconds and calls)."""
+    origs = {k: getattr(NI, name) for k, name in NUCLEI_STAGES.items()}
+
+    def wrap(k, fn):
+        def timed(*a, **kw):
+            dt, out = _sync_s(lambda: fn(*a, **kw))
+            spent[k] = spent.get(k, 0.0) + dt
+            spent[k + "_calls"] = spent.get(k + "_calls", 0) + 1
+            return out
+        return timed
+
+    for k, name in NUCLEI_STAGES.items():
+        setattr(NI, name, wrap(k, origs[k]))
+    try:
+        yield
+    finally:
+        for k, name in NUCLEI_STAGES.items():
+            setattr(NI, name, origs[k])
+
+
+def nuclei_run(model, prompter, samples, bank, gen):
+    """``predict_instances`` over ``samples``: (seconds, instances, launch
+    counts with B8's by width, decoded crops, stage split, seconds under the
+    timers). Synchronised host clock; the stage split comes from a second
+    pass under the timers (a run under them is slower)."""
+    encodes = []
+    orig = NI.encode_and_condition
+
+    def counted(*a, **k):
+        encodes.append(1)
+        return orig(*a, **k)
+
+    A.reset_launch_counts()
+    NI.encode_and_condition = counted
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n_inst = sum(int(NI.predict_instances(model, prompter, s, bank, gen).max())
+                     for s in samples)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        NI.encode_and_condition = orig
+    counts = {**A.launch_counts(),
+              "fused_block_by_width": dict(FB.fused_window_block.launches_by_width)}
+    spent = {}
+    with nuclei_stage_timers(spent):
+        t1 = time.perf_counter()
+        for s in samples:
+            NI.predict_instances(model, prompter, s, bank, gen)
+        total = time.perf_counter() - t1
+    spent["host_rest"] = total - sum(v for k, v in spent.items() if not k.endswith("_calls"))
+    return secs, n_inst, counts, len(encodes), spent, total
+
+
+def split_text(spent: dict, total: float, n: int) -> str:
+    keys = ("prompter", "encode", "decode", "bank_write", "merge", "host_rest")
+    return ", ".join(f"{k} {spent.get(k, 0.0) / n:.4f}" for k in keys) + (
+        f" s per image (of {total / n:.4f} under the timers; {spent.get('encode_calls', 0)} "
+        f"decoded crops, {spent.get('decode_calls', 0)} decode chunks)")
+
+
+def phase_nuclei_full_width(power_line: str):
+    """Phase 17b: nuclei_256 (sam2_hiera_s @256, bf16, bank 16) with the
+    pvt_v2_b2 prompter, seeded random weights (the JAX init's distributions),
+    the class head's foreground bias shifted so that the prompter proposes
+    24 points on the first image (``calibrate_prompter``), as ``bench.py``'s
+    nuclei mode runs it: 8 ``synthetic_nuclei`` 256-px images of 24
+    cells after two warm-up passes (the second reaches the non-empty bank's
+    encode), then two 1000 x 1000 images (25 crops each at stride 192), with
+    the encoder switches off and on: images/s, seconds per image, the stage
+    split, exact launch counts per decoded crop, peak memory; one traced
+    256-px image (device busy share); then the 256-px run once with the
+    resnet50 prompter (the CLI's default). PyTorch's TF32 defaults (on for
+    convolutions only). Returns the launch counts of the switches-on 256-px
+    run."""
+    cfg = nuclei_256()
+    # PyTorch's defaults, as a user runs it: the fp32 prompter's convolutions
+    # on TF32 tensor cores, fp32 matmuls without
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    rng = np.random.default_rng(0)
+    samples = [synthetic_nuclei(rng, cfg.image_size, 24) for _ in range(8)]
+    big = [nuclei_image(rng, 1000) for _ in range(2)]
+    model, prompter = nuclei_models(cfg, "pvt_v2_b2", DEV)
+    shift = calibrate_prompter(prompter, samples[0]["image"], 24)
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    per_crop = encoder_launches(cfg)
+    result = None
+    for switches in ("0", "1"):
+        with encoder_switches(switches):
+            bank = recipe_2d.init_bank(model, 16)
+            for _ in range(2):
+                NI.predict_instances(model, prompter, samples[0], bank, gen)
+            torch.cuda.reset_peak_memory_stats()
+            secs, n_inst, counts, encodes, spent, total = nuclei_run(
+                model, prompter, samples, bank, gen)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            by_width = counts.pop("fused_block_by_width")
+            want = {**{k: 0 for k in counts},
+                    **({k: encodes * v for k, v in per_crop.items()} if switches == "1" else {})}
+            ok = counts == want and n_inst > 0
+            name = "nuclei_e2e_images_per_sec_nuclei_256_pvt_v2_b2"
+            print(f"[17b nuclei full width] nuclei_256 bf16 + pvt_v2_b2 prompter (foreground "
+                  f"bias shifted {shift:+.3f}: 24 of 256 anchors on the first image), switches "
+                  f"{'on' if switches == '1' else 'off'}: {name} {len(samples) / secs:.3f} "
+                  f"({secs / len(samples):.4f} s per image, {n_inst} instances over 8 images) | "
+                  f"split {split_text(spent, total, len(samples))} | launches {counts} expected "
+                  f"{want} ({encodes} encodes x {per_crop if switches == '1' else 'none'}) | peak "
+                  f"memory {peak:.2f} GiB | {power_line} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"nuclei 256: launches {counts} vs {want}, {n_inst} instances")
+            if switches == "1":
+                result = {**counts, "fused_block_by_width": by_width}
+            torch.cuda.reset_peak_memory_stats()
+            secs_b, n_b, counts_b, enc_b, spent_b, total_b = nuclei_run(
+                model, prompter, big, bank, gen)
+            counts_b.pop("fused_block_by_width")
+            peak_b = torch.cuda.max_memory_allocated() / 2 ** 30
+            want_b = {**{k: 0 for k in counts_b},
+                      **({k: enc_b * v for k, v in per_crop.items()} if switches == "1" else {})}
+            ok = counts_b == want_b and n_b > 0 and enc_b > 0
+            print(f"[17b nuclei full width] 1000 x 1000 images (MoNuSeg's size, 25 crops each), "
+                  f"switches {'on' if switches == '1' else 'off'}: {secs_b / len(big):.3f} s per "
+                  f"image, {n_b} instances over 2 | split {split_text(spent_b, total_b, len(big))} "
+                  f"| launches {counts_b} expected {want_b} | peak memory {peak_b:.2f} GiB | "
+                  f"{power_line} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"nuclei 1000: launches {counts_b} vs {want_b}, {n_b} "
+                                     f"instances, {enc_b} encodes")
+    wall_ms, busy_ms, n_kernels = trace_step(
+        lambda: NI.predict_instances(model, prompter, samples[1], bank, gen))
+    print(f"[17b nuclei full width] one traced 256-px image (switches off): host {wall_ms:.1f} ms, "
+          f"device busy {busy_ms:.1f} ms, busy share {busy_ms / wall_ms:.3f}, {n_kernels} kernels "
+          f"| {power_line}")
+    del prompter
+    prompter = Prompter(PrompterConfig(backbone="resnet50"), seed=1, device=DEV)
+    shift = calibrate_prompter(prompter, samples[0]["image"], 24)
+    bank = recipe_2d.init_bank(model, 16)
+    for _ in range(2):
+        NI.predict_instances(model, prompter, samples[0], bank, gen)
+    A.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n_inst = sum(int(NI.predict_instances(model, prompter, s, bank, gen).max()) for s in samples)
+    secs = time.perf_counter() - t0
+    ok = n_inst > 0
+    print(f"[17b nuclei full width] nuclei_256 bf16 + resnet50 prompter (the CLI's default; "
+          f"foreground bias shifted {shift:+.3f}), switches off: {len(samples) / secs:.3f} "
+          f"images/s ({secs / len(samples):.4f} s per image, {n_inst} instances) | {power_line} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("nuclei resnet50: no instance")
+    del model, prompter, bank
+    set_tf32(False)
+    torch.cuda.empty_cache()
+    return result
+
+
 def flat_counts(counts: dict) -> dict:
     """A step's counts with B3 / B4 by width spread into their own names."""
     out = {k: v for k, v in counts.items() if k != "by_width"}
@@ -2869,11 +3304,16 @@ def main() -> None:
     phase_2d_parity()
     paths.update(phase_2d_full_width(power_line))
     print(f"[time] phases 1-16 in {time.perf_counter() - t_start:.0f} s")
+    nuclei_shapes = nuclei_kernels(power_line)
+    phase_nuclei_parity()
+    paths["nuclei serving"] = phase_nuclei_full_width(power_line)
+    print(f"[time] phases 1-17 in {time.perf_counter() - t_start:.0f} s")
     rows = []
     for name in KERNELS:
         by_path = {p: c[name] for p, c in paths.items() if c.get(name)}
         extra = {key: shapes[name] for key, shapes in (("session_shapes", session_shapes),
-                                                       ("clear_shapes", clear_shapes))
+                                                       ("clear_shapes", clear_shapes),
+                                                       ("nuclei_shapes", nuclei_shapes))
                  if name in shapes}
         if "(" in name and not by_path:
             raise AssertionError(f"{name}: no launch on the 2D training path")

@@ -7,8 +7,11 @@ layouts, so a reference state dict loads with ``strict=True``:
   leaves, e.g. ``jax.tree_util.tree_map(np.asarray, sam2_init(...))``) into
   that state dict. It re-implements, in numpy, the mapping of
   ``medsam2_tpu.checkpoint.convert.export_state_dict``.
+- :func:`prompter_state_dict_from_jax` does the same for the JAX package's
+  DPA-P2PNet prompter tree, onto the port's
+  :class:`~medsam2_tpu_torch.prompter.dpa_p2pnet.Prompter`.
 - :func:`load_reference_state_dict` loads such a dict, or a released ``.pt``
-  checkpoint's ``model`` dict, into a :class:`SAM2Model`.
+  checkpoint's ``model`` dict, into a :class:`SAM2Model` (or a prompter).
 """
 
 from __future__ import annotations
@@ -158,6 +161,47 @@ def state_dict_from_jax(params, cfg: SAM2Config) -> Dict[str, np.ndarray]:
         linear("obj_ptr_tpos_proj", params["obj_ptr_tpos_proj"])
     if cfg.pred_obj_scores and cfg.use_obj_ptrs_in_encoder:
         sd["no_obj_ptr"] = np.asarray(params["no_obj_ptr"])
+    return sd
+
+
+# JAX leaf names -> state-dict names (LayerNorm / GroupNorm ``scale`` beside a
+# ``bias``; SR_PFO's lone ``scale`` keeps its name)
+_PROMPTER_LEAF = {"w": "weight", "b": "bias", "bias": "bias", "mean": "running_mean",
+                  "var": "running_var"}
+
+
+def prompter_state_dict_from_jax(params, pcfg) -> Dict[str, np.ndarray]:
+    """The port prompter's state dict (numpy values) from the JAX package's
+    prompter tree with numpy leaves (``prompter_init``, or the ``prompter``
+    half of the nuclei recipe's joint params). The port's modules carry the
+    tree's names, so the mapping walks the tree: dict keys and list indices
+    join with dots; ``w`` / ``b`` / ``scale`` become ``weight`` / ``bias``,
+    the mask head's BN ``mean`` / ``var`` its ``running_mean`` /
+    ``running_var`` buffers; conv HWIO -> OIHW, linear [in, out] -> [out, in].
+    ``pcfg`` (a ``PrompterConfig`` of either package) must describe the
+    tree."""
+    mh = params["mask_head"]
+    if ("bn" in mh) != (pcfg.mask_norm == "bn") or ("sr_pfo" in params) != pcfg.use_sr_pfo:
+        raise ValueError(f"the prompter tree does not match {pcfg}")
+    sd: Dict[str, np.ndarray] = {}
+
+    def walk(prefix: str, node) -> None:
+        items = node.items() if isinstance(node, dict) else enumerate(node)
+        for key, value in items:
+            if isinstance(value, (dict, list, tuple)):
+                walk(f"{prefix}{key}.", value)
+                continue
+            a = np.asarray(value)
+            name = _PROMPTER_LEAF.get(key, key)
+            if key == "scale":
+                name = "weight" if "bias" in node else "scale"
+            if key == "w" and a.ndim == 4:
+                a = a.transpose(3, 2, 0, 1)
+            elif key == "w" and a.ndim == 2:
+                a = a.T
+            sd[prefix + name] = a
+
+    walk("", params)
     return sd
 
 

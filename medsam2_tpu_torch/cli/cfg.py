@@ -3,8 +3,9 @@
 ``train_3d.py`` and ``train_2d.py`` (REFUGE) commands, which parse
 unchanged, plus the JAX package's additions that the recipes read
 (synthetic data, static object slots, ...) and ``-device``, the port's
-choice of card or CPU. Every flag here is read by one of the CLIs; the
-nuclei and visualisation flags come with their slices (ROADMAP A.6, A.7)."""
+choice of card or CPU. Every flag here is read by one of the CLIs or by
+``train_2d.validate_nuclei``; the nuclei training and visualisation flags
+come with their slices (ROADMAP A.6, A.7)."""
 
 from __future__ import annotations
 
@@ -39,6 +40,10 @@ def parse_args(argv=None):
     parser.add_argument('-val_max_samples', type=int, default=0,
                         help='2D: cap validation to N samples for smoke runs; 0 = the full '
                              'test set (the reference protocol, train_2d.py:155-164)')
+    parser.add_argument('-point_filtering', action='store_true',
+                        help='nuclei eval: keep only prompter points whose pixel is positive '
+                             "in the semantic mask (the reference's cfgs.test.filtering, "
+                             'modeling/utils.py:423-427)')
     parser.add_argument('-device', type=str, default='cuda',
                         help="torch device: 'cuda' (the default; raises without a card) "
                              "or 'cpu'")

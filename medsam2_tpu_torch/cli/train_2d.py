@@ -11,18 +11,24 @@ default; it raises without one), then threshold-averaged IoU / Dice
 validation over the test set (``-val_max_samples`` caps it), and a
 checkpoint (weights, optimizer state, epoch) whenever the validation Dice
 improves. ``-dataset synthetic``, or no ``-data_path``, trains on
-``synthetic_fundus`` samples, as the JAX CLI does. Not ported, and raising
-with a pointer to ROADMAP: the nuclei workload (``-dataset monuseg|cpm``,
-``-net prompter``: queue A.6), ``-distributed`` and ``-vis`` (A.7).
+``synthetic_fundus`` samples, as the JAX CLI does.
+
+The nuclei workload's validation is here (:func:`validate_nuclei`: the
+sliding-window instance engine over the test set, scored by Dice1 / Dice2
+/ AJI / AJI+ / DQ / SQ / PQ); its training loop is not ported, so
+``-dataset monuseg|cpm`` and ``-net prompter`` raise with a pointer to
+ROADMAP queue A.6, as do ``-distributed`` and ``-vis`` (A.7).
 """
 
 from __future__ import annotations
 
 import time
+from typing import Dict
 
 import numpy as np
 import torch
 
+from medsam2_tpu_torch.api.nuclei_inference import predict_instances
 from medsam2_tpu_torch.checkpoint.store import load_params, save_checkpoint
 from medsam2_tpu_torch.cli.cfg import parse_args
 from medsam2_tpu_torch.configs import get_config
@@ -30,12 +36,17 @@ from medsam2_tpu_torch.core.sam2_model import SAM2Model
 from medsam2_tpu_torch.data.loader import DataLoader, device_prefetch
 from medsam2_tpu_torch.data.refuge import REFUGE, pack_refuge_batch
 from medsam2_tpu_torch.data.synthetic import synthetic_fundus
+from medsam2_tpu_torch.metrics.instance import (get_dice_1, get_fast_aji, get_fast_aji_plus,
+                                                get_fast_dice_2, get_fast_pq, remap_label)
 from medsam2_tpu_torch.metrics.segmentation import eval_seg
+from medsam2_tpu_torch.prompter.dpa_p2pnet import Prompter
 from medsam2_tpu_torch.train import recipe_2d
 from medsam2_tpu_torch.utils.logging_utils import (MetricLogger, ScalarWriter, create_logger,
                                                    set_log_dir)
 
-NUCLEI = "the 2D nuclei workload (DPA-P2PNet prompter) is not ported; see ROADMAP queue A.6"
+NUCLEI = ("nuclei training (the DPA-P2PNet prompter's recipe and loop) is not ported; "
+          "see ROADMAP queue A.6")
+VIS = "-vis (validation figures) is not ported; see ROADMAP queue A.7"
 
 
 class SyntheticDataset:
@@ -76,6 +87,47 @@ def validate_refuge(args, model: SAM2Model, rcfg, val_ds, bank):
         tot_iou += iou
         tot_dice += dice
     return tot_iou / max(n_val, 1), tot_dice / max(n_val, 1)
+
+
+@torch.no_grad()
+def validate_nuclei(args, model: SAM2Model, prompter: Prompter, val_ds, bank,
+                    generator) -> Dict[str, float]:
+    """Full-image nuclei evaluation over the test set (the reference iterates
+    the whole loader, ``func_2d/function.py:268-678``;
+    ``-val_max_samples N`` caps it): :func:`predict_instances` per image
+    (its crop size the model's image size and its overlap 64, whatever
+    ``--crop_size`` / ``--overlap`` say, as in the JAX CLI; ``filtering``
+    from ``-point_filtering``), scored against the GT instance map by the
+    reference's metric set Dice1 / Dice2 / AJI / AJI+ / DQ / SQ / PQ, each
+    averaged over the images. Writes into ``bank`` as it goes."""
+    if getattr(args, "vis", False):
+        raise NotImplementedError(VIS)
+    tot = {"dice1": 0.0, "dice2": 0.0, "aji": 0.0, "aji_plus": 0.0,
+           "dq": 0.0, "sq": 0.0, "pq": 0.0}
+    n = 0
+    cap = int(getattr(args, "val_max_samples", 0) or 0)
+    n_val = len(val_ds) if cap <= 0 else min(len(val_ds), cap)
+    for i in range(n_val):
+        s = val_ds[i]
+        inst_map = s.get("inst_map")
+        if inst_map is None:
+            continue
+        pred_inst = predict_instances(model, prompter, s, bank, generator,
+                                      filtering=bool(getattr(args, "point_filtering", False)))
+        gt = remap_label(inst_map)
+        pr = remap_label(pred_inst)
+        both = bool(gt.max() and pr.max())
+        tot["dice1"] += get_dice_1(gt, pr)
+        tot["dice2"] += get_fast_dice_2(gt, pr) if both else 0.0
+        if both:
+            tot["aji"] += get_fast_aji(gt, pr)
+            tot["aji_plus"] += get_fast_aji_plus(gt, pr)
+        (dq, sq, pq), _ = get_fast_pq(gt, pr)
+        tot["dq"] += dq
+        tot["sq"] += sq
+        tot["pq"] += pq
+        n += 1
+    return {k: v / max(n, 1) for k, v in tot.items()}
 
 
 def train_refuge(args, cfg, logger, paths) -> SAM2Model:
@@ -139,8 +191,7 @@ def main(argv=None):
     if args.distributed != "none":
         raise NotImplementedError("-distributed is not ported; see ROADMAP queue A.7")
     if args.vis:
-        raise NotImplementedError("-vis (validation figures) is not ported; "
-                                  "see ROADMAP queue A.7")
+        raise NotImplementedError(VIS)
     cfg = get_config(args.sam_config, image_size=args.image_size)
     paths = set_log_dir(args.logdir, args.exp_name)
     logger = create_logger(paths["log_path"])

@@ -128,6 +128,16 @@ def interpolate(x, size: Tuple[int, int], method: str = "bilinear",
     return y.permute(0, 2, 3, 1)
 
 
+def bilinear_resize_ac(x, size: Tuple[int, int]):
+    """Resize NHWC ``x`` as ``F.interpolate(mode="bilinear",
+    align_corners=True)`` (``layers.bilinear_resize_ac``)."""
+    if tuple(x.shape[1:3]) == tuple(size):
+        return x
+    y = F.interpolate(x.permute(0, 3, 1, 2), size=tuple(size), mode="bilinear",
+                      align_corners=True)
+    return y.permute(0, 2, 3, 1)
+
+
 def bicubic_resize(x, out_h: int, out_w: int):
     """[B, H, W, C] bicubic resize, a = -0.75, ``align_corners=False`` (torch's
     kernel; ``layers.bicubic_resize``)."""

@@ -1,5 +1,6 @@
-"""Synthetic BTCV-format volumes and REFUGE-format fundus samples
-(counterparts of ``synthetic_volume`` and ``synthetic_fundus`` in
+"""Synthetic BTCV-format volumes, REFUGE-format fundus samples and
+MoNuSeg-format nuclei images (counterparts of ``synthetic_volume``,
+``synthetic_fundus`` and ``synthetic_nuclei`` in
 ``medsam2_tpu/data/synthetic.py``) for tests, smoke training and the chip
 smoke without the (license-gated) medical datasets. numpy only: one
 ``np.random.Generator`` state gives the JAX package's arrays."""
@@ -74,4 +75,46 @@ def synthetic_fundus(rng: np.random.Generator, size: int = 256) -> Dict:
         "mask": mask[None],
         "mask_ori": mask[None],
         "image_meta_dict": {"filename_or_obj": "synthetic"},
+    }
+
+
+def synthetic_nuclei(rng: np.random.Generator, size: int = 256,
+                     num_cells: int = 12) -> Dict:
+    """MoNuSeg-train-format sample: random non-overlapping elliptical nuclei."""
+    inst_map = np.zeros((size, size), np.int32)
+    yy, xx = np.mgrid[0:size, 0:size]
+    pid = 0
+    for _ in range(num_cells * 3):
+        if pid >= num_cells:
+            break
+        cy, cx = rng.uniform(10, size - 10, 2)
+        ry, rx = rng.uniform(4, 10, 2)
+        m = (((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2) <= 1
+        if (inst_map[m] != 0).any() or m.sum() < 8:
+            continue
+        pid += 1
+        inst_map[m] = pid
+    img = np.full((size, size, 3), 0.85, np.float32)
+    img[inst_map > 0] = 0.35
+    img += rng.normal(0, 0.04, img.shape)
+
+    pids = np.unique(inst_map)
+    pids = pids[pids > 0]
+    pts, insts = [], []
+    for p in pids:
+        coords = np.argwhere(inst_map == p)
+        r = coords[rng.integers(len(coords))]
+        pts.append([r[1], r[0]])
+        insts.append(inst_map == p)
+    return {
+        "image": np.clip(img, 0, 1).astype(np.float32),
+        "inst_masks": np.stack(insts) if insts else np.zeros((0, size, size), bool),
+        "points_choose": np.asarray(pts, np.float32),
+        "labels_choose": np.ones(len(pts), np.int64),
+        "points_all": np.asarray(pts, np.float32),
+        "labels_all": np.zeros(len(pts), np.int64),
+        "cell_num": len(pts),
+        "binary_mask": (inst_map > 0).astype(np.uint8),
+        "inst_map": inst_map,
+        "ori_shape": np.asarray([size, size]),
     }

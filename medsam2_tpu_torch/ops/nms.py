@@ -1,7 +1,8 @@
 """Greedy non-maximum suppression on the host (counterpart of the numpy path
 of ``medsam2_tpu/ops/nms.py``, which replaces torchvision's
-``batched_nms`` in the reference AMG). The JAX package's native C++ NMS is
-host code and computes the same indices."""
+``batched_nms`` in the reference AMG, and the nuclei engine's point NMS).
+The JAX package's native C++ NMS is host code and computes the same
+indices."""
 
 from __future__ import annotations
 
@@ -48,3 +49,27 @@ def batched_nms_np(boxes: np.ndarray, scores: np.ndarray, idxs: np.ndarray,
         return np.zeros((0,), np.int64)
     offsets = np.asarray(idxs, np.float32) * (boxes.max() + 1)
     return nms_np(boxes + offsets[:, None], scores, iou_threshold)
+
+
+def point_nms_np(points: np.ndarray, scores: np.ndarray, dist_threshold: float) -> np.ndarray:
+    """Greedy distance NMS of points (``modeling/utils.py:342-355``): by
+    descending score (stable), keep a point and suppress every other
+    strictly closer than ``dist_threshold``, comparing squared distances in
+    fp32 as the JAX package's native path does. Returns the kept indices in
+    that order."""
+    points = np.asarray(points, np.float32)
+    if len(points) == 0:
+        return np.zeros((0,), np.int64)
+    order = np.argsort(-np.asarray(scores, np.float32), kind="stable")
+    diff = points[:, None] - points[None, :]
+    d2 = diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1]
+    thr2 = np.float32(dist_threshold) * np.float32(dist_threshold)
+    keep = []
+    suppressed = np.zeros(len(points), bool)
+    for i in order:
+        if suppressed[i]:
+            continue
+        keep.append(i)
+        suppressed |= d2[i] < thr2
+        suppressed[i] = True
+    return np.asarray(keep, np.int64)

@@ -765,6 +765,10 @@ WINDOW_CASES = [
     (1, 70, 70, 4, 14),
     (1, 35, 35, 8, 7),
     (2, 14, 21, 1, 7),
+    # nuclei_256 (hiera_s @256): stage 3 (16 -> 28, ws 14, 4 heads) and
+    # stage 4 (8 -> 14, ws 7, 8 heads)
+    (1, 28, 28, 4, 14),
+    (1, 14, 14, 8, 7),
 ]
 
 
@@ -828,7 +832,9 @@ def test_window_attention_kernel_matches_twin(dev, dtype, case):
                                  # hiera_b+ and hiera_l widths @1024
                                  (16384, 112), (4096, 224), (1024, 448), (1024, 896),
                                  (16384, 144), (4096, 288), (4096, 576), (1024, 1152),
-                                 (300, 1152)], ids=lambda v: str(v))
+                                 (300, 1152),
+                                 # nuclei_256: stage 2's pooling block, stage 3's blocks
+                                 (1024, 192), (256, 384)], ids=lambda v: str(v))
 def test_fused_mlp_kernel_matches_twin(dev, dtype, N, C):
     rng = np.random.default_rng(7)
     x = _t(rng, (N, C), dev, dtype)
@@ -859,10 +865,13 @@ def _block_params(rng, C, dev):
     (1024, 8, 96, 1), (1024, 4, 192, 2), (5, 4, 192, 2), (3, 8, 96, 1),
     # hiera_b+ (d 56) and hiera_l (d 72) blocks @1024: the launch sequence
     (1024, 8, 112, 2), (1024, 4, 224, 4), (1024, 8, 144, 2), (1024, 4, 288, 4),
-    (16, 16, 576, 8), (16, 8, 1152, 16), (3, 16, 576, 8)], ids=lambda v: str(v))
+    (16, 16, 576, 8), (16, 8, 1152, 16), (3, 16, 576, 8),
+    # nuclei_256 (hiera_s @256): stage 1 (4096 rows) and stage 2 (1024 rows)
+    (64, 8, 96, 1), (64, 4, 192, 2)], ids=lambda v: str(v))
 def test_fused_block_kernel_matches_twin(dev, dtype, Bn, ws, C, heads):
     """hiera_t @1024 blocks 0 and 2, ragged 64-row groups (5 ws-4 windows =
-    80 rows; 3 ws-8 windows), and every hiera_b+ / hiera_l width."""
+    80 rows; 3 ws-8 windows), every hiera_b+ / hiera_l width, and the two
+    fused blocks of nuclei_256."""
     rng = np.random.default_rng(8)
     wins = _t(rng, (Bn, ws, ws, C), dev, dtype)
     p = _block_params(rng, C, dev)
@@ -925,12 +934,12 @@ def test_encoder_kernels_reject_unbuilt_widths(dev):
 
 
 @pytest.mark.parametrize("preset", ["sam2_hiera_t", "sam2_hiera_s", "sam2_hiera_b_plus",
-                                    "sam2_hiera_l"])
+                                    "sam2_hiera_l", "nuclei_256"])
 def test_encoder_wrappers_take_every_block_the_dispatch_sends(dev, preset):
-    """For every block of the preset @1024 that the switches send to a
-    kernel (the fused block, the window attention, the fused MLP by the JAX
-    rule), the wrapper launches at that block's exact shape in bf16 and
-    agrees with its twin."""
+    """For every block of the preset at its image size (1024; nuclei_256's
+    256) that the switches send to a kernel (the fused block, the window
+    attention, the fused MLP by the JAX rule), the wrapper launches at that
+    block's exact shape in bf16 and agrees with its twin."""
     from medsam2_tpu_torch import configs
 
     cfg = getattr(configs, preset)()

@@ -101,3 +101,19 @@ def test_2d_modules_load_neither_jax_nor_pil(module):
     package or PIL: the REFUGE reader imports PIL only when it reads a
     sample, so the synthetic data and the chip run need no PIL."""
     _loads_nothing(module)
+
+
+# the modules of the nuclei serving slice
+NUCLEI_MODULES = ["medsam2_tpu_torch.prompter.backbone", "medsam2_tpu_torch.prompter.fpn",
+                  "medsam2_tpu_torch.prompter.dpa_p2pnet",
+                  "medsam2_tpu_torch.api.nuclei_inference", "medsam2_tpu_torch.data.monuseg",
+                  "medsam2_tpu_torch.metrics.instance", "medsam2_tpu_torch.metrics.detection",
+                  "medsam2_tpu_torch.checkpoint.convert"]
+
+
+@pytest.mark.parametrize("module", NUCLEI_MODULES)
+def test_nuclei_modules_load_neither_jax_nor_pil(module):
+    """Each module of the nuclei serving slice imports on its own without
+    JAX, the JAX package or PIL: the MoNuSeg reader imports PIL and scipy's
+    ``.mat`` reader only when it reads a sample."""
+    _loads_nothing(module)
