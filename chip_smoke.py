@@ -1,8 +1,8 @@
 """Drive the PyTorch port's 3D propagation (the whole session: reverse and
 resumed propagation, corrections on tracked frames, clearing around new
 prompts, the three memory readouts, batched volumes), 3D training (over raw
-memory and over the roped-key cache), 2D image serving, REFUGE 2D training
-and nuclei instance serving on one NVIDIA GPU.
+memory and over the roped-key cache), 2D image serving, REFUGE 2D training,
+nuclei instance serving and nuclei training on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -112,7 +112,8 @@ Phases, each printing its own line:
      peak memory, one traced step (device busy time, idle share); the step
      with B8 + B7 on; two hiera_l @512 steps (B3 / B4 at head dim 72); and
      ``cli.train_2d -dataset synthetic`` for 2 steps and 1 validation sample;
-  17. nuclei serving: 17k, B5 / B7 / B8 at the nuclei_256 shapes against
+  17. nuclei serving: 17k, B5 / B7 / B8 at the nuclei_256 shapes (B7 / B8
+     also at nuclei training's batch-4 shapes) against
      their twins (times as phase 8); 17a, TINY SAM2 @64 fp32 (TF32 off) with
      resnet18 and pvt_v2_b0 prompters, card against the CPU: the prompter's
      outputs, a 70-point decode, ``predict_instances`` on a 64-px and a
@@ -124,9 +125,19 @@ Phases, each printing its own line:
      256-px images and seconds per 1000 x 1000 image (25 crops), switches
      off and on, the stage split (prompter, encode, decode, bank write,
      merge, the rest), exact launch counts per decoded crop, peak memory, a
-     traced image's busy share, and the resnet50 prompter once.
+     traced image's busy share, and the resnet50 prompter once;
+  18. nuclei training (``recipe_nuclei``): 18a, two steps card against the
+     CPU at fp32 (TF32 off) with the resnet18 prompter, at TINY @64 with
+     the encoder switches off and at sam2_hiera_t @256 with them off and
+     with B8 + B7 on: the six losses, the gradients, the parameters after
+     AdamW, the mask head's running statistics, the bank, exact counts;
+     18b, nuclei_256 bf16 with the resnet50 prompter, batch 4, 64 cell
+     slots, switches off and on: s/step and images/s over 3 steps after a
+     warm-up, exact B7 / B8 counts, peak memory, one step's stage split
+     and one traced step's busy share; and ``cli.train_2d -net prompter``
+     for 2 steps and 1 validation image.
 Then one JSON line of per-kernel results (B8 also once per phase-8 width,
-``fused_block C<width>``, with its launches in phases 10, 11 and 17; B3
+``fused_block C<width>``, with its launches in phases 10, 11, 17 and 18; B3
 and B4 also once per Hiera head dim, ``flash_attention_bwd_dkv (96, 96)``
 ..., with their phase 3b numbers and phase 16 launches; B5 / B7 / B8 with
 their phase-17k shapes under ``nuclei_shapes``), the card's
@@ -136,6 +147,7 @@ CUDA device nothing runs.
 """
 
 import contextlib
+import copy
 import dataclasses
 import json
 import os
@@ -170,12 +182,13 @@ from medsam2_tpu_torch.ops import encoder_linear as EL  # noqa: E402
 from medsam2_tpu_torch.ops import fused_block as FB  # noqa: E402
 from medsam2_tpu_torch.ops import fused_mlp as FM  # noqa: E402
 from medsam2_tpu_torch.ops import window_attention as WA  # noqa: E402
+from medsam2_tpu_torch.data.monuseg import pack_nuclei_batch  # noqa: E402
 from medsam2_tpu_torch.data.refuge import pack_refuge_batch  # noqa: E402
 from medsam2_tpu_torch.data.synthetic import synthetic_fundus, synthetic_nuclei  # noqa: E402
 from medsam2_tpu_torch.metrics.instance import get_fast_aji, remap_label  # noqa: E402
 from medsam2_tpu_torch.prompter.dpa_p2pnet import Prompter, PrompterConfig  # noqa: E402
 from medsam2_tpu_torch.state import similarity_bank as SB  # noqa: E402
-from medsam2_tpu_torch.train import recipe_2d, recipe_3d  # noqa: E402
+from medsam2_tpu_torch.train import recipe_2d, recipe_3d, recipe_nuclei  # noqa: E402
 
 DEV = torch.device("cuda")
 # fp32 (TF32 off): absolute. bf16: relative to the largest |output|, since
@@ -2598,14 +2611,16 @@ def trainable_grads(model) -> dict:
     return {n: t.grad.detach().float().cpu() for n, t in recipe_2d.named_trainables(model)}
 
 
-def grad_errors(got: dict, want: dict):
+def grad_errors(got: dict, want: dict, zero_in_exact=()):
     """(worst error relative to a leaf's max|grad| and its leaf, whether the
-    leaves zero in exact arithmetic or not reached hold at most round-off)."""
+    leaves zero in exact arithmetic (the decoder's key biases and
+    ``zero_in_exact``) or not reached hold at most round-off)."""
     largest = max(g.abs().max().item() for g in want.values())
     worst, worst_name, zero_ok = 0.0, "", True
     for name, w in want.items():
         g = got[name]
-        if name.startswith("sam_mask_decoder.") and name.endswith("k_proj.bias"):
+        if name in zero_in_exact or (name.startswith("sam_mask_decoder.")
+                                     and name.endswith("k_proj.bias")):
             # zero in exact arithmetic (softmax is shift-invariant and the
             # decoder's attention has no RoPE): round-off on both sides
             zero_ok &= max(g.abs().max().item(), w.abs().max().item()) <= 1e-6 * largest
@@ -2866,6 +2881,10 @@ NEAR_ZERO = 1e-4
 NUCLEI_WINDOW = ((28, 4, 14, 96), (14, 8, 7, 96))
 NUCLEI_MLP = ((256, 384),)
 NUCLEI_BLOCK = ((64, 8, 96, 1), (64, 4, 192, 2))
+# nuclei training at batch 4 (phase 18b): B7 on stage 2's pooling block and
+# stages 3 and 4, B8 on stages 1 and 2
+NUCLEI_TRAIN_MLP = ((4096, 192), (1024, 384), (256, 768))
+NUCLEI_TRAIN_BLOCK = ((256, 8, 96, 1), (256, 4, 192, 2))
 
 
 @contextlib.contextmanager
@@ -2944,9 +2963,10 @@ def nuclei_image(rng, size: int, tile: int = 250, cells: int = 30) -> dict:
 
 
 def nuclei_kernels(power_line: str):
-    """Phase 17k: B5, B7 and B8 at the nuclei_256 shapes against their twins,
-    bf16, with kernel, twin, library and bound times (as phase 8). Returns
-    {kernel: [results]}."""
+    """Phase 17k: B5, B7 and B8 at the nuclei_256 shapes (serving, and B7 /
+    B8 at nuclei training's batch of 4) against their twins, bf16, with
+    kernel, twin, library and bound times (as phase 8). Returns {kernel:
+    [results]}."""
     rng = np.random.default_rng(17)
     dtype = torch.bfloat16
     set_tf32(False)
@@ -2979,7 +2999,7 @@ def nuclei_kernels(power_line: str):
              cuda_ms(lambda: WA.window_attention_plain(qkv, heads, ws), reps=5),
              graph_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
              bound(4.0 * nw * heads * n * n * d, 2 * Hp * Hp * 4 * C, dtype))
-    for N, C in NUCLEI_MLP:
+    for N, C in NUCLEI_MLP + NUCLEI_TRAIN_MLP:
         x = rand(rng, (N, C), dtype)
         g, b = 1 + 0.1 * rand(rng, (C,), dtype), 0.1 * rand(rng, (C,), dtype)
         w1, b1 = linear_params(rng, 4 * C, C, dtype)
@@ -2989,7 +3009,7 @@ def nuclei_kernels(power_line: str):
              FM.ln_mlp_residual_plain(*args), graph_ms(lambda: FM.ln_mlp_residual(*args)),
              cuda_ms(lambda: FM.ln_mlp_residual_plain(*args), reps=5), None,
              bound(16.0 * N * C * C, 2 * (2 * N * C + 8 * C * C + 7 * C), dtype))
-    for Bn, ws, C, heads in NUCLEI_BLOCK:
+    for Bn, ws, C, heads in NUCLEI_BLOCK + NUCLEI_TRAIN_BLOCK:
         wins = rand(rng, (Bn, ws, ws, C), dtype)
         p = block_params(rng, C, dtype)
         N, n = Bn * ws * ws, ws * ws
@@ -3263,6 +3283,351 @@ def phase_nuclei_full_width(power_line: str):
     return result
 
 
+# ---------------------------------------------------------------------------
+# Nuclei training: the prompter and SAM2 trained jointly (recipe_nuclei)
+# ---------------------------------------------------------------------------
+
+# zero in exact arithmetic: the mask head's BatchNorm takes its conv's bias out
+NUCLEI_ZERO_LEAVES = ("prompter.mask_head.conv1.bias",)
+# the prompter's gradients card vs CPU at 256 px, relative L2 over all its
+# leaves. Its ReLU networks have ~10^6 inputs a step at 256 px, and those
+# within round-off of 0 take the other side on the card (at 64 px none did:
+# 3.0e-5 of max); each flip moves one leaf's gradient, by up to 2.6e-2 of
+# its max in the first step on an H100 (relative L2 2.8e-3), and 0.2 (L2
+# 6.1e-2) in the second after the first step's flipped
+# elements had parted the weights by 2 lr: the second step now starts from
+# one state. The SAM2 leaves, which carry B7 / B8, stay at 1e-3 of max; the
+# prompter's leaves at 1e-3 of max at 64 px.
+TOL_PROMPTER_GRAD_L2 = 5e-2
+# a SAM2 leaf card vs CPU at 256 px: the trunk's q-pooling is a max-pool,
+# and a window whose two largest inputs lie within round-off takes the
+# other one on the card, which moves the pooled block's projection
+# gradient (hiera_t's block 1 proj: 1.97e-3 of its max in the second step,
+# from one state on both devices, on an H100; 2.9e-6 in the first step).
+# Each leaf is held to 1e-3 of its max, or to this with the
+# whole SAM2 gradient within 1e-3 in relative L2.
+TOL_SAM_GRAD_FLIP = 1e-2
+NUCLEI_INDICES = np.array([[1, 0], [0, 0]])
+
+
+def nuclei_batch(B: int, S: int, M: int, seed: int, cells: int = 24, textured: bool = False):
+    """``B`` synthetic nuclei images of ``cells`` cells packed into ``M``
+    slots as the CLI packs them; ``textured`` swaps the images for
+    unit-normal noise under the same cells (card vs CPU: a ReLU input
+    within round-off of 0 takes the other side on a flat image, and the
+    flat background's cancelling contributions then move the prompter's
+    gradients by up to 5 % of their max, measured between the packages)."""
+    rng = np.random.default_rng(seed)
+    batch = pack_nuclei_batch([synthetic_nuclei(rng, S, cells) for _ in range(B)], S, S, M)
+    if textured:
+        batch["images"] = rng.standard_normal(batch["images"].shape).astype(np.float32)
+    return batch
+
+
+def nuclei_train_launches(cfg, B: int, steps: int, switches: bool) -> dict:
+    """Kernel launches of ``steps`` nuclei steps at batch B: no attention
+    reaches the flash gate at these sizes (the top level's queries are
+    (S / 16)^2 <= 256 tokens), so only B8 and B7 run, ``encoder_launches``
+    a forward with the switches on (their backward is the twin's)."""
+    enc = encoder_launches(cfg, batch=B) if switches else NO_ENCODER_LAUNCHES
+    return {**{k: 0 for k in A.launch_counts()},
+            **{k: steps * v for k, v in enc.items() if k != "window_attention"},
+            "window_attention": 0}
+
+
+def nuclei_models_train(cfg, rcfg, dev):
+    """A seeded SAM2 model and prompter on ``dev`` with the recipe's
+    optimizer and step."""
+    model = SAM2Model(cfg, seed=0, device=dev)
+    prompter = Prompter(rcfg.prompter, seed=1, device=dev)
+    opt = recipe_nuclei.make_optimizer_nuclei(model, prompter, rcfg)
+    return model, prompter, opt, recipe_nuclei.make_train_step_nuclei(model, prompter, rcfg, opt)
+
+
+def nuclei_trainables(model, prompter) -> dict:
+    """A copy of the trainable tensors on the host (on the CPU ``.cpu()``
+    would alias the live parameters)."""
+    return {n: t.detach().float().cpu().clone()
+            for n, t in recipe_nuclei.named_trainables(model, prompter)}
+
+
+def phase_nuclei_train_parity():
+    """Phase 18a: two nuclei steps (the empty bank, then the bank the first
+    wrote with injected draws), card against the same seeded models and
+    batches on the CPU, fp32 with TF32 off, the resnet18 prompter, memory
+    attention and head dropout 0, textured images under synthetic cells
+    (``nuclei_batch``): at TINY (64 px) with the encoder switches off (its
+    8-channel, head-dim-8 windows are outside B8's built widths), and at
+    sam2_hiera_t @256 (dense embedding 16, the nuclei_256 rule) with the
+    switches off and with B8 + B7 on (forward the kernels, backward their
+    twins); at 256 px the second step starts from the CPU's state on both
+    devices. Phase 15's tolerances: the six losses, every clipped gradient
+    (the prompter's at 256 px in relative L2, ``TOL_PROMPTER_GRAD_L2``),
+    then the parameters after AdamW (each element within two lr steps of
+    the CPU's, Adam moving an element whose gradient is round-off by its
+    sign), the mask head's running statistics, and the bank (memory
+    features in relative L2). Exact launch counts on the card."""
+    set_tf32(False)
+    pcfg = PrompterConfig(backbone="resnet18", dropout=0.0)
+    t_base = sam2_hiera_t(image_size=256, dense_embed_size=16, compute_dtype="float32")
+    cases = (("TINY @64", NUCLEI_TINY, 2, 6, False),
+             ("sam2_hiera_t @256", t_base, 2, 16, False),
+             ("sam2_hiera_t @256", t_base, 2, 16, True))
+    for label, base, B, M, switches in cases:
+        cfg = dataclasses.replace(base, memory_attention=dataclasses.replace(
+            base.memory_attention, dropout=0.0))
+        S = cfg.image_size
+        rcfg = recipe_nuclei.NucleiRecipeConfig(prompter=pcfg, memory_bank_size=8, max_cells=M,
+                                                out_size=S)
+        batches = [nuclei_batch(B, S, M, seed=s, cells=M // 2 + 2, textured=True)
+                   for s in (12, 13)]
+        runs = ([], [])                                  # the card's steps, the CPU's
+        secs = [0.0, 0.0]
+        with encoder_switches("1" if switches else "0", TRAIN_2D_SWITCHES):
+            sides = [nuclei_models_train(cfg, rcfg, dev) for dev in (DEV, torch.device("cpu"))]
+            banks = [recipe_2d.init_bank(side[0], 8) for side in sides]
+            for i, batch in enumerate(batches):
+                if i and S > 64:
+                    # 256 px: the second step starts from the CPU's state on
+                    # both (see TOL_PROMPTER_GRAD_L2: flipped ReLUs part the
+                    # prompters in the first step, and its points then steer
+                    # SAM2's prompts)
+                    for dst, src in zip(sides[0][:3], sides[1][:3]):
+                        dst.load_state_dict(copy.deepcopy(src.state_dict()))
+                    banks[0] = {k: v.to(DEV) for k, v in banks[1].items()}
+                for j, (model, prompter, opt, step) in enumerate(sides):
+                    A.reset_launch_counts()
+                    t0 = time.perf_counter()
+                    banks[j], m = step(batch, banks[j], bool(i),
+                                       indices=torch.from_numpy(NUCLEI_INDICES) if i else None)
+                    grads = {n: t.grad.detach().float().cpu().clone()
+                             for n, t in recipe_nuclei.named_trainables(model, prompter)}
+                    secs[j] += time.perf_counter() - t0
+                    bn = prompter.mask_head.bn
+                    runs[j].append(({k: float(v) for k, v in m.items()}, grads, A.launch_counts(),
+                                    {k: v.float().cpu().clone() for k, v in banks[j].items()},
+                                    nuclei_trainables(model, prompter),
+                                    torch.cat([bn.running_mean, bn.running_var]).float().cpu()))
+            del sides, banks
+        ok_all = True
+        for i in range(2):
+            (mc, gc, counts, bc, pc, sc), (mp, gp, _, bp, pp, sp) = runs[0][i], runs[1][i]
+            loss_err = max(abs(mc[k] - mp[k]) / abs(mp[k]) for k in mp)
+            sam = [n for n in gp if not n.startswith("prompter.")]
+            worst, worst_name, zero_ok = grad_errors({n: gc[n] for n in sam},
+                                                     {n: gp[n] for n in sam})
+            s_l2 = (torch.cat([(gc[n] - gp[n]).flatten() for n in sam]).norm()
+                    / torch.cat([gp[n].flatten() for n in sam]).norm()).item()
+            s_ok = worst <= 1e-3 or (worst <= TOL_SAM_GRAD_FLIP and s_l2 <= 1e-3)
+            p_worst, p_name, p_zero_ok = grad_errors({n: gc[n] for n in gp if n not in sam},
+                                                     {n: gp[n] for n in gp if n not in sam},
+                                                     NUCLEI_ZERO_LEAVES)
+            p_l2 = (torch.cat([(gc[n] - gp[n]).flatten() for n in gp if n not in sam]).norm()
+                    / torch.cat([gp[n].flatten() for n in gp if n not in sam]).norm()).item()
+            # the prompter at 256 px: see TOL_PROMPTER_GRAD_L2
+            p_ok = p_worst <= 1e-3 if S <= 64 else p_l2 <= TOL_PROMPTER_GRAD_L2
+            stats_tol = 1e-4 if S <= 64 else 1e-3
+            lr2 = 2 * rcfg.lr * (i + 1) + 1e-6
+            param_err = max((pc[n] - pp[n]).abs().max().item() for n in pp)
+            # Adam steps an element by about lr whatever its gradient's size,
+            # so a leaf whose gradient is round-off on the CPU (at most 1e-6
+            # of the largest: the zero-in-exact leaves), or, at 256 px, a
+            # prompter leaf after a flipped ReLU, steps by a sign that may
+            # differ: held to the two-lr-a-step bound alone
+            largest = max(g.abs().max().item() for g in gp.values())
+            param_med, med_name = max((((pc[n] - pp[n]).abs().median().item(), n) for n in pp
+                                       if (S <= 64 or n in sam)
+                                       and gp[n].abs().max().item() > 1e-6 * largest),
+                                      default=(0.0, ""))
+            stats_err = rel_err(sc, sp)
+            bank_err = max(rel_err(bc[k], bp[k]) for k in ("embeds", "iou"))
+            feats_l2 = ((bc["feats"] - bp["feats"]).norm() / bp["feats"].norm()).item()
+            valid_ok = torch.equal(bc["valid"], bp["valid"])
+            want = nuclei_train_launches(cfg, B, 1, switches)
+            ok = (loss_err <= 1e-4 and s_ok and zero_ok and p_ok and p_zero_ok
+                  and param_err <= lr2 and param_med <= 1e-7 and stats_err <= stats_tol
+                  and bank_err <= 1e-3
+                  and feats_l2 <= TOL_BANK_FEATS_L2 and valid_ok and counts == want)
+            ok_all &= ok
+            print(f"[18a nuclei train parity] {label} fp32 TF32 off + resnet18 prompter, "
+                  f"batch {B}, {M} cell slots, dropout 0, encoder switches "
+                  f"{'B8+B7 on' if switches else 'off'}, step {i} "
+                  f"({'bank non-empty, injected draws' if i else 'empty bank'}): cuda (launches "
+                  f"{ {k: v for k, v in counts.items() if v} }, expected "
+                  f"{ {k: v for k, v in want.items() if v} }) vs cpu: loss {mc['loss']:.6f} vs "
+                  f"{mp['loss']:.6f}, worst of the six rel err {loss_err:.2e} (tol 1e-4) | "
+                  f"{len(sam)} SAM2 leaves, worst grad err rel max|grad| {worst:.2e} at "
+                  f"{worst_name}, rel L2 {s_l2:.2e} (tol 1e-3 of max, or "
+                  f"{TOL_SAM_GRAD_FLIP:.0e} with L2 1e-3) | {len(gp) - len(sam)} prompter "
+                  f"leaves, worst clipped grad err rel max|grad| {p_worst:.2e} at {p_name}, "
+                  f"rel L2 {p_l2:.2e} (tol "
+                  f"{'1e-3 of max' if S <= 64 else f'{TOL_PROMPTER_GRAD_L2:.0e} L2'}) | zero "
+                  f"leaves at round-off {zero_ok and p_zero_ok} | params after "
+                  f"AdamW max diff {param_err:.2e} (tol {lr2:.1e}), worst leaf median "
+                  f"{param_med:.1e} at {med_name} (tol 1e-7) | BN running stats rel err "
+                  f"{stats_err:.2e} (tol {stats_tol:.0e}) | bank embeds / iou rel err {bank_err:.2e} "
+                  f"(tol 1e-3), feats rel L2 {feats_l2:.2e} (tol {TOL_BANK_FEATS_L2:.0e}), valid "
+                  f"equal {valid_ok} | cuda "
+                  f"{secs[0]:.1f} s cpu {secs[1]:.1f} s for both steps "
+                  f"{'ok' if ok else 'FAIL'}")
+        if not ok_all:
+            raise AssertionError(f"nuclei train parity {label}, switches {switches}: see above")
+
+
+NUCLEI_TRAIN_STAGES = ("prompter", "encode", "decode_and_memory_write", "match", "backward",
+                       "optimizer", "losses_and_rest")
+
+
+def nuclei_step_split(model, prompter, step, opt, batch, bank, gens):
+    """One step under synchronising timers: the prompter forward, the SAM2
+    encode + bank conditioning, the rest of the forward (prompts, decoder,
+    memory write), the host match, the backward, AdamW, and the rest (the
+    losses, the clip, the BN update). Returns ({stage: seconds}, total, the new bank)."""
+    spent = {k: 0.0 for k in (*NUCLEI_TRAIN_STAGES, "forward")}
+    RN = recipe_nuclei
+
+    def timed(key, fn):
+        def run(*a, **k):
+            dt, out = _sync_s(lambda: fn(*a, **k))
+            spent[key] += dt
+            return out
+        return run
+
+    origs = {"encode_and_condition": RN.encode_and_condition,
+             "hungarian_match_host": RN.hungarian_match_host, "_grads": RN._grads,
+             "forward_nuclei": RN.forward_nuclei}
+    RN.encode_and_condition = timed("encode", origs["encode_and_condition"])
+    RN.hungarian_match_host = timed("match", origs["hungarian_match_host"])
+    RN._grads = timed("backward", origs["_grads"])
+    RN.forward_nuclei = timed("forward", origs["forward_nuclei"])
+    prompter.forward = timed("prompter", prompter.forward)
+    opt_step = opt.step
+    opt.step = timed("optimizer", opt_step)
+    try:
+        total, (bank, _) = _sync_s(lambda: step(batch, bank, True, *gens))
+    finally:
+        for k, v in origs.items():
+            setattr(RN, k, v)
+        del prompter.forward
+        opt.step = opt_step
+    fwd = spent.pop("forward")
+    spent["decode_and_memory_write"] = fwd - spent["prompter"] - spent["encode"]
+    spent["losses_and_rest"] = (total - fwd - spent["match"] - spent["backward"]
+                                - spent["optimizer"])
+    return spent, total, bank
+
+
+def phase_nuclei_train_full_width(power_line: str):
+    """Phase 18b: the nuclei step at full width, nuclei_256 (sam2_hiera_s
+    @256, bf16, dense embedding 16) with the CLI's resnet50 prompter, batch
+    4, 64 cell slots, bank 16, memory-attention and head dropout on as the
+    CLI trains (0.1), synthetic 256-px images of 24 cells: with the encoder
+    switches off, then B8 + B7 on, each a warm-up step on the empty bank and
+    3 timed steps on the non-empty one (host clock, synchronised): finite
+    losses, every tensor with a gradient updated, exact launch counts,
+    seconds per step, images/s, peak memory, then one step's stage split
+    under synchronising timers and one traced step (device busy time and
+    idle share). Then ``cli.train_2d -net prompter -dataset synthetic`` for
+    2 steps and 1 validation image. Returns {path: launch counts}."""
+    B, M = 4, 64
+    cfg = nuclei_256()
+    rcfg = recipe_nuclei.NucleiRecipeConfig(prompter=PrompterConfig(backbone="resnet50"),
+                                            memory_bank_size=16, max_cells=M,
+                                            out_size=cfg.image_size)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True           # PyTorch's defaults, as a user runs it
+    batches = [nuclei_batch(B, cfg.image_size, M, seed=s) for s in range(6)]
+    paths = {}
+    for switches in (False, True):
+        with encoder_switches("1" if switches else "0", TRAIN_2D_SWITCHES):
+            model = SAM2Model(cfg, seed=0, device=DEV)
+            prompter = Prompter(rcfg.prompter, seed=1, device=DEV)
+            opt = recipe_nuclei.make_optimizer_nuclei(model, prompter, rcfg)
+            step = recipe_nuclei.make_train_step_nuclei(model, prompter, rcfg, opt)
+            bank = recipe_2d.init_bank(model, rcfg.memory_bank_size)
+            gens = [torch.Generator(device=DEV).manual_seed(s) for s in range(3)]
+            before = {n: t.detach().clone()
+                      for n, t in recipe_nuclei.named_trainables(model, prompter)}
+            A.reset_launch_counts()
+            bank, m0 = step(batches[0], bank, False, *gens)              # warm-up
+            torch.cuda.synchronize()
+            warm = A.launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            A.reset_launch_counts()
+            t0 = time.perf_counter()
+            metrics = []
+            for batch in batches[1:4]:
+                bank, m = step(batch, bank, True, *gens)
+                metrics.append(m)
+            torch.cuda.synchronize()
+            secs = (time.perf_counter() - t0) / 3
+            counts = A.launch_counts()
+            by_width = dict(FB.fused_window_block.launches_by_width)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            want = nuclei_train_launches(cfg, B, 3, switches)
+            want_warm = nuclei_train_launches(cfg, B, 1, switches)
+            spent, split_total, bank = nuclei_step_split(model, prompter, step, opt, batches[4],
+                                                         bank, gens)
+            wall_ms, busy_ms, n_kernels = trace_step(
+                lambda: step(batches[5], bank, True, *gens))
+            losses = [float(x["loss"]) for x in [m0, *metrics]]
+            finite = all(np.isfinite(v) for v in losses)
+            after = dict(recipe_nuclei.named_trainables(model, prompter))
+            with_grad = [n for n in before if after[n].grad.abs().max().item() > 0]
+            stuck = [n for n in with_grad if torch.equal(before[n], after[n].detach())]
+            ok = finite and not stuck and counts == want and warm == want_warm
+            tag = "B8+B7 on" if switches else "off"
+            split = ", ".join(f"{k} {v * 1e3:.1f}" for k, v in spent.items())
+            print(f"[18b nuclei train full width] nuclei_256 bf16 + resnet50 prompter, batch {B}, "
+                  f"{M} cell slots, bank {rcfg.memory_bank_size}, dropout 0.1, switches {tag} | "
+                  f"losses (warm-up, 3 timed) {', '.join(f'{v:.4f}' for v in losses)} finite "
+                  f"{finite} | {len(with_grad)} of {len(before)} trainable tensors with a "
+                  f"gradient, stuck {stuck[:3]} | warm-up launches "
+                  f"{ {k: v for k, v in warm.items() if v} } expected "
+                  f"{ {k: v for k, v in want_warm.items() if v} } | launches over 3 steps "
+                  f"{ {k: v for k, v in counts.items() if v} } expected "
+                  f"{ {k: v for k, v in want.items() if v} } (B8 by width {by_width}) | "
+                  f"nuclei_train_s_per_step {secs:.4f}, {B / secs:.3f} images/s | peak memory "
+                  f"{peak:.2f} GiB | one step's split (ms) {split} of {split_total * 1e3:.1f} "
+                  f"under the timers | traced step: host {wall_ms:.1f} ms, device busy "
+                  f"{busy_ms:.1f} ms, busy share {busy_ms / wall_ms:.3f}, idle share "
+                  f"{1 - busy_ms / wall_ms:.3f}, {n_kernels} kernels | {power_line} "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"nuclei train {tag}: finite {finite}, stuck {stuck}, "
+                                     f"launches {counts} vs {want}, warm-up {warm} vs "
+                                     f"{want_warm}")
+            if switches:
+                paths["nuclei training"] = {**counts, "fused_block_by_width": by_width}
+            del model, prompter, opt, step, bank, before, after
+            torch.cuda.empty_cache()
+
+    # the port's CLI on the card: synthetic nuclei, 2 steps, 1 validation image
+    logdir = str(Path(__file__).resolve().parent / "build" / "train_2d_nuclei_logs")
+    shutil.rmtree(logdir, ignore_errors=True)
+    t0 = time.perf_counter()
+    cli_model, cli_prompter = train_2d_cli.main(
+        ["-net", "prompter", "-dataset", "synthetic", "-image_size", "256", "-out_size", "256",
+         "-b", str(B), "-epochs", "1", "-steps_per_epoch", "2", "-val_freq", "1",
+         "-val_max_samples", "1", "-logdir", logdir, "-print_freq", "1"])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    rows = [json.loads(ln) for f in Path(logdir).rglob("scalars.jsonl") for ln in open(f)]
+    val = [r for r in rows if "val/aji" in json.dumps(r)]
+    on_card = cli_model.device.type == "cuda" and cli_prompter.device.type == "cuda"
+    ok = on_card and bool(val)
+    print(f"[18b nuclei train cli] python -m medsam2_tpu_torch.cli.train_2d -net prompter -dataset "
+          f"synthetic -image_size 256 -out_size 256 -b {B}, 2 steps + 1 validation image on "
+          f"{cli_model.device}: {cli_s:.1f} s | validation scalars {val[-1] if val else None} | "
+          f"{power_line} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"train_2d nuclei CLI: on card {on_card}, validation {val}")
+    del cli_model, cli_prompter
+    set_tf32(False)
+    torch.cuda.empty_cache()
+    return paths
+
+
 def flat_counts(counts: dict) -> dict:
     """A step's counts with B3 / B4 by width spread into their own names."""
     out = {k: v for k, v in counts.items() if k != "by_width"}
@@ -3308,6 +3673,9 @@ def main() -> None:
     phase_nuclei_parity()
     paths["nuclei serving"] = phase_nuclei_full_width(power_line)
     print(f"[time] phases 1-17 in {time.perf_counter() - t_start:.0f} s")
+    phase_nuclei_train_parity()
+    paths.update(phase_nuclei_train_full_width(power_line))
+    print(f"[time] phases 1-18 in {time.perf_counter() - t_start:.0f} s")
     rows = []
     for name in KERNELS:
         by_path = {p: c[name] for p, c in paths.items() if c.get(name)}

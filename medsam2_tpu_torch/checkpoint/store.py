@@ -1,9 +1,12 @@
 """Training checkpoints: save and resume (counterpart of
 ``medsam2_tpu/checkpoint/store.py``).
 
-A checkpoint is one ``torch.save`` file ``<directory>/step_<n>.pt`` holding
-``{"model": state dict under the reference keys, "optimizers": {group: Adam
-state}, "epoch": n}`` (plus optional extras such as EMA weights). Its
+A checkpoint is one ``torch.save`` file ``<directory>/step_<n>.pt`` (or
+``<directory>/<name>.pt``, the nuclei CLI's ``best_dice`` / ``best_aji``)
+holding ``{"model": state dict under the reference keys, "optimizers":
+{group: Adam state}, "epoch": n}``, the DPA-P2PNet prompter's state dict
+under ``"prompter"`` when one trains beside the model (plus optional extras
+such as EMA weights). Its
 ``model`` entry has the layout of a released SAM2 ``.pt``, so
 :func:`load_params` reads both through
 :func:`medsam2_tpu_torch.checkpoint.convert.load_reference_state_dict`.
@@ -22,17 +25,27 @@ from medsam2_tpu_torch.checkpoint.convert import load_reference_state_dict
 _STEP = re.compile(r"^step_(\d+)\.pt$")
 
 
+def _cpu_state(module: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    return {k: v.detach().cpu() for k, v in module.state_dict().items()}
+
+
 def save_checkpoint(directory: str, model: torch.nn.Module,
                     optimizers: Dict[str, torch.optim.Optimizer], epoch: int,
-                    step: Optional[int] = None, extra: Optional[Dict] = None) -> str:
-    """Write ``<directory>/step_<step or epoch>.pt`` atomically; returns its
-    path."""
+                    step: Optional[int] = None, extra: Optional[Dict] = None,
+                    prompter: Optional[torch.nn.Module] = None,
+                    name: Optional[str] = None) -> str:
+    """Write ``<directory>/step_<step or epoch>.pt``, or ``<name>.pt`` when
+    ``name`` is given, atomically; returns its path. ``prompter`` adds that
+    module's state dict."""
     os.makedirs(directory, exist_ok=True)
-    state = {"model": {k: v.detach().cpu() for k, v in model.state_dict().items()},
+    state = {"model": _cpu_state(model),
              "optimizers": {g: opt.state_dict() for g, opt in optimizers.items()},
              "epoch": int(epoch)}
+    if prompter is not None:
+        state["prompter"] = _cpu_state(prompter)
     state.update(extra or {})
-    path = os.path.abspath(os.path.join(directory, f"step_{epoch if step is None else step}.pt"))
+    base = name or f"step_{epoch if step is None else step}"
+    path = os.path.abspath(os.path.join(directory, f"{base}.pt"))
     tmp = f"{path}.tmp{os.getpid()}"
     torch.save(state, tmp)
     os.replace(tmp, path)

@@ -1,11 +1,13 @@
 """CLI argument surface of ``cli/train_3d.py`` and ``cli/train_2d.py``
 (counterpart of ``medsam2_tpu/cli/cfg.py``): the flags of the reference
-``train_3d.py`` and ``train_2d.py`` (REFUGE) commands, which parse
-unchanged, plus the JAX package's additions that the recipes read
-(synthetic data, static object slots, ...) and ``-device``, the port's
-choice of card or CPU. Every flag here is read by one of the CLIs or by
-``train_2d.validate_nuclei``; the nuclei training and visualisation flags
-come with their slices (ROADMAP A.6, A.7)."""
+``train_3d.py`` and ``train_2d.py`` (REFUGE, MoNuSeg / CPM-17) commands,
+which parse unchanged, plus the JAX package's additions that the recipes
+read (synthetic data, static object and cell slots, ...) and ``-device``,
+the port's choice of card or CPU. Every flag here is read by one of the
+CLIs or by ``train_2d.validate_nuclei``, apart from ``--overlap`` and
+``--crop_size``, which the JAX CLI parses and its validation does not read
+either (the crop is the model's image size, the overlap 64); the
+visualisation flag comes with its slice (ROADMAP A.7)."""
 
 from __future__ import annotations
 
@@ -23,13 +25,21 @@ def parse_args(argv=None):
     parser.add_argument('--model-ema-decay', type=float, default=0.99)
     parser.add_argument('--clip-grad', type=float, default=0.1,
                         help='2D: clip the global gradient norm (default: 0.1)')
+    parser.add_argument('--overlap', default=64, type=int,
+                        help='overlapping pixels (parsed; validation overlaps by 64)')
+    parser.add_argument('--crop_size', default=256, type=int,
+                        help='sliding-window crop size (parsed; validation crops at '
+                             '-image_size)')
     parser.add_argument('--eval', action='store_true')
     parser.add_argument('-net', type=str, default='sam2', choices=('sam2', 'prompter'),
-                        help='net type: sam2 (the reference commands); prompter (the 2D '
-                             'nuclei recipe, not ported: ROADMAP A.6)')
+                        help='net type: sam2 (SAM-only training); prompter (the joint '
+                             'DPA-P2PNet + SAM2 nuclei recipe, with -dataset synthetic)')
     parser.add_argument('-exp_name', default='medsam2_tpu', type=str)
     parser.add_argument('-vis', type=lambda s: s not in ('0', 'False', 'false'),
                         default=False, help='visualisation during validation (not ported)')
+    parser.add_argument('-augment', type=int, default=1,
+                        help='nuclei training augmentation (crop / flip / rot90 / colour '
+                             'jitter) on=1 / off=0')
     parser.add_argument('-prompt', type=str, default='click',
                         help='type of prompt, bbox or click')
     parser.add_argument('-prompt_freq', type=int, default=2,
@@ -53,7 +63,8 @@ def parse_args(argv=None):
     parser.add_argument('-distributed', default='none', type=str,
                         help="'none'; a mesh spec ('data' or e.g. '4x2') is not ported")
     parser.add_argument('-dataset', default='btcv', type=str,
-                        help='3D: btcv | amos | synthetic; 2D: refuge | synthetic')
+                        help='3D: btcv | amos | synthetic; 2D: refuge | monuseg | cpm | '
+                             'synthetic')
     parser.add_argument('-sam_ckpt', type=str, default=None,
                         help='SAM2 checkpoint (.pt); None = random init')
     parser.add_argument('-sam_config', type=str, default='sam2_hiera_s')
@@ -70,6 +81,8 @@ def parse_args(argv=None):
     parser.add_argument('-epochs', type=int, default=100)
     parser.add_argument('-max_objects', type=int, default=2,
                         help='static object slots for the 3D recipe')
+    parser.add_argument('-max_cells', type=int, default=64,
+                        help='static cell slots per image for the nuclei recipe')
     parser.add_argument('-steps_per_epoch', type=int, default=0,
                         help='cap steps per epoch (0 = full dataset)')
     parser.add_argument('-profile', action='store_true',

@@ -4,7 +4,9 @@ Tokens [obj_score, iou, 4 mask tokens, sparse prompts] run through the
 two-way transformer against the dense-prompt-conditioned image embedding;
 masks come from hypernetwork MLPs over a 4x-upscaled embedding fused with the
 high-res skip features, plus IoU and object-score heads and the dynamic
-single/multi-mask stability fallback."""
+single/multi-mask stability fallback. ``image_indices`` maps each prompt row
+to its image (the JAX package's gather, ``mask_decoder.py:89-92``), so that
+one call decodes the prompts of several images."""
 
 from __future__ import annotations
 
@@ -52,7 +54,8 @@ class MaskDecoder(nn.Module):
                 self.pred_obj_score_head = layers.Linear(dim, 1, gen)
 
     def predict_masks(self, image_embeddings, image_pe, sparse, dense,
-                      high_res_features: Optional[List[torch.Tensor]] = None):
+                      high_res_features: Optional[List[torch.Tensor]] = None,
+                      image_indices: Optional[torch.Tensor] = None):
         cfg = self.cfg
         n_tokens = cfg.num_multimask_outputs + 1
         s = 1 if cfg.pred_obj_scores else 0
@@ -65,6 +68,11 @@ class MaskDecoder(nn.Module):
         tokens = torch.cat([out_tokens[None].expand(N, *out_tokens.shape),
                             sparse.to(dtype)], dim=1)
 
+        if image_indices is not None:
+            image_embeddings = image_embeddings.index_select(0, image_indices)
+            if high_res_features:
+                high_res_features = [f.index_select(0, image_indices)
+                                     for f in high_res_features]
         src = image_embeddings + dense.to(dtype)
         pos_src = image_pe.to(dtype).expand(src.shape)
         b, h, w, c = src.shape
@@ -94,11 +102,14 @@ class MaskDecoder(nn.Module):
         return masks, iou_pred, mask_tokens_out, obj_logits
 
     def forward(self, image_embeddings, image_pe, sparse, dense, multimask_output: bool,
-                high_res_features=None, dynamic_multimask_via_stability: bool = False):
+                high_res_features=None, dynamic_multimask_via_stability: bool = False,
+                image_indices: Optional[torch.Tensor] = None):
         """Returns (masks [N, M, H, W], iou_pred [N, M], sam_tokens_out
-        [N, m, C], object_score_logits [N, 1]) (``mask_decoder.py:110-168``)."""
+        [N, m, C], object_score_logits [N, 1]) (``mask_decoder.py:110-168``).
+        ``image_indices`` [N] picks each prompt row's image from the batch of
+        ``image_embeddings`` and ``high_res_features``."""
         masks, iou_pred, mask_tokens_out, obj_logits = self.predict_masks(
-            image_embeddings, image_pe, sparse, dense, high_res_features)
+            image_embeddings, image_pe, sparse, dense, high_res_features, image_indices)
         if multimask_output:
             masks, iou_pred = masks[:, 1:], iou_pred[:, 1:]
         elif dynamic_multimask_via_stability:

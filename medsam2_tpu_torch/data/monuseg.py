@@ -6,9 +6,9 @@ and scipy are imported when a sample is read.
 Layout: ``<root>/{train,test}/images/*.png|tif`` + ``labels/*.mat`` with an
 ``inst_map`` array. Per-cell center-point prompts with nearest-foreground
 fallback (``monuseg.py:102-116``), a random <= ``num_mask_per_img`` cell
-subset for training (``:123-137``), binary union mask. The training
-augmentation stack (``data/augment.py`` of the JAX package) belongs to the
-nuclei training slice and is not ported (ROADMAP A.6).
+subset for training (``:123-137``), binary union mask; in train mode the
+augmentation of :mod:`medsam2_tpu_torch.data.augment` first, drawn from the
+reader's seeded generator.
 """
 
 from __future__ import annotations
@@ -18,10 +18,8 @@ from typing import Dict, Optional
 
 import numpy as np
 
+from medsam2_tpu_torch.data.augment import NucleiAugmentConfig, augment_nuclei
 from medsam2_tpu_torch.utils.transforms import IMAGENET_MEAN, IMAGENET_STD
-
-AUGMENT = ("the nuclei training augmentation (data/augment.py) is not ported; "
-           "see ROADMAP queue A.6")
 
 
 def cell_centers(inst_map: np.ndarray, pids: np.ndarray) -> np.ndarray:
@@ -44,16 +42,18 @@ class MONUSEG:
     def __init__(self, data_path: str, mode: str = "train", image_size: int = 256,
                  out_size: int = 256, num_mask_per_img: int = 150,
                  seed: Optional[int] = None, augment=None):
-        """``augment`` (train mode only) raises: the augmentation stack is
-        not ported."""
-        if augment and mode == "train":
-            raise NotImplementedError(AUGMENT)
+        """``augment``: a :class:`~medsam2_tpu_torch.data.augment.NucleiAugmentConfig`
+        turning on the training augmentation (``func_2d/monuseg.py:39-55``),
+        or ``True`` for the default one at ``image_size``; train mode only."""
         self.data_path = data_path
         self.mode = mode
         self.image_size = image_size
         self.out_size = out_size
         self.num_mask_per_img = num_mask_per_img
         self.rng = np.random.default_rng(seed)
+        if augment is True:
+            augment = NucleiAugmentConfig(crop_size=image_size)
+        self.augment = augment if mode == "train" else None
         self.image_root = os.path.join(data_path, mode, self.image_dirname)
         self.label_root = os.path.join(data_path, mode, self.label_dirname)
         self.paths = sorted(os.listdir(self.image_root))
@@ -75,6 +75,8 @@ class MONUSEG:
 
     def __getitem__(self, index) -> Dict:
         img, inst_map, path = self._load(index)
+        if self.augment:
+            img, inst_map = augment_nuclei(img, inst_map, self.augment, self.rng)
         ori_shape = inst_map.shape[:2]
         pids = np.unique(inst_map)
         pids = pids[pids > 0]

@@ -917,6 +917,61 @@ def test_fused_kernels_backward_is_the_twins_autograd(dev, dtype):
             assert _rel_err(got, want) <= tol, (name, _rel_err(got, want))
 
 
+# nuclei training at nuclei_256 (hiera_s @256) and batch 4: B8 on stage 1
+# (16384 rows, C 96, ws 8) and stage 2 (4096 rows, C 192, ws 4); B7 on the
+# rows the JAX dispatch sends (stage 2's pooling block, stages 3 and 4)
+NUCLEI_TRAIN_BLOCKS = [(256, 8, 96, 1), (256, 4, 192, 2)]
+NUCLEI_TRAIN_MLPS = [(4096, 192), (1024, 384), (256, 768)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", [("fused_block", c) for c in NUCLEI_TRAIN_BLOCKS]
+                         + [("fused_mlp", c) for c in NUCLEI_TRAIN_MLPS], ids=lambda c: str(c))
+def test_fused_kernels_under_autograd_at_nuclei_train_shapes(dev, dtype, case):
+    """B7 / B8 under autograd at the nuclei training path's batch-4 shapes:
+    the forward is the kernel's (one launch) and agrees with the twin as in
+    the forward tests; the input and weight gradients equal autograd
+    through the twin on the same inputs (fp32 to 1e-4 of max|grad|, bf16
+    to 1e-2: the backward is the same code, fed the kernel's saved
+    inputs)."""
+    name, shape = case
+    rng = np.random.default_rng(23)
+    if name == "fused_block":
+        Bn, ws, C, heads = shape
+        x = _t(rng, (Bn, ws, ws, C), dev, dtype)
+        p = _block_params(rng, C, dev)
+        fn = lambda a, w: FB.fused_window_block(a, FB.BlockParams(*w), heads)  # noqa: E731
+        twin = lambda a, w: FB.fused_window_block_plain(  # noqa: E731
+            a.reshape(-1, C), FB.BlockParams(*w), heads, ws * ws).reshape(a.shape)
+    else:
+        N, C = shape
+        x = _t(rng, (N, C), dev, dtype)
+        g0 = 1 + 0.1 * _t(rng, (C,), dev, torch.float32)
+        b0 = 0.1 * _t(rng, (C,), dev, torch.float32)
+        p = (g0, b0, *_linear_w(rng, 4 * C, C, dev), *_linear_w(rng, C, 4 * C, dev))
+        fn = lambda a, w: FM.ln_mlp_residual(a, *w)  # noqa: E731
+        twin = lambda a, w: FM.ln_mlp_residual_plain(a, *w)  # noqa: E731
+    g = _t(rng, x.shape, dev, dtype)
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    outs, grads, launched = [], [], []
+    for f in (fn, twin):
+        a = x.clone().requires_grad_()
+        w = [t.clone().requires_grad_() for t in p]
+        before = A.launch_counts()[name]
+        y = f(a, w)
+        (y.float() * g.float()).sum().backward()
+        torch.cuda.synchronize()
+        launched.append(A.launch_counts()[name] - before)
+        outs.append(y.detach())
+        grads.append([a.grad] + [t.grad for t in w])
+    assert launched == [1, 0]
+    assert outs[0].shape == x.shape and outs[0].dtype == dtype
+    assert (outs[0].float() - outs[1].float()).abs().max().item() <= _tol(outs[1].float(), dtype)
+    assert all(t is not None for t in grads[0])
+    for got, want in zip(*grads):
+        assert _rel_err(got, want) <= tol, (name, shape, _rel_err(got, want))
+
+
 def test_encoder_kernels_reject_unbuilt_widths(dev):
     z = lambda *shape: torch.zeros(shape, device=dev)  # noqa: E731
     before = A.launch_counts()

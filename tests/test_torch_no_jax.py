@@ -117,3 +117,17 @@ def test_nuclei_modules_load_neither_jax_nor_pil(module):
     JAX, the JAX package or PIL: the MoNuSeg reader imports PIL and scipy's
     ``.mat`` reader only when it reads a sample."""
     _loads_nothing(module)
+
+
+# the modules of the nuclei training slice
+NUCLEI_TRAIN_MODULES = ["medsam2_tpu_torch.data.augment", "medsam2_tpu_torch.prompter.matcher",
+                        "medsam2_tpu_torch.prompter.criterion",
+                        "medsam2_tpu_torch.train.recipe_nuclei"]
+
+
+@pytest.mark.parametrize("module", NUCLEI_TRAIN_MODULES)
+def test_nuclei_train_modules_load_neither_jax_nor_pil(module):
+    """Each module of the nuclei training slice imports on its own without
+    JAX, the JAX package or PIL (the matcher imports scipy's assignment
+    solver when it runs)."""
+    _loads_nothing(module)

@@ -104,8 +104,14 @@ def test_monuseg_reader_matches_jax(tmp_path, mode, kind):
     for i in range(2):
         _same(jds[i], tds[i])
     if mode == "train":
-        with pytest.raises(NotImplementedError, match="A.6"):
-            tcls(str(tmp_path), mode, 48, 48, augment=True)
+        # the training augmentation (crop 32 of the 48-px tiles), drawn
+        # from the reader's generator in the same order
+        jds = jcls(str(tmp_path), mode, 32, 32, num_mask_per_img=5, seed=4, augment=True)
+        tds = tcls(str(tmp_path), mode, 32, 32, num_mask_per_img=5, seed=4, augment=True)
+        for i in range(2):
+            got = tds[i]
+            assert got["image"].shape == (32, 32, 3)
+            _same(jds[i], got)
 
 
 class _PtpArray(np.ndarray):

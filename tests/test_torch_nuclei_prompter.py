@@ -11,7 +11,8 @@ JAX init and carried across by ``prompter_state_dict_from_jax``.
   with and without the SAM semantic feature (SR_PFO), resnet18 and
   pvt_v2_b0: coordinates, logits and mask logits to 1e-4 of max;
 - the state dict covers every parameter and buffer (strict load), and the
-  inference-only and device rules."""
+  eval-by-default and device rules (the training forward:
+  ``tests/test_torch_nuclei_train.py``)."""
 
 import jax
 import jax.numpy as jnp
@@ -198,9 +199,16 @@ def test_state_dict_names_follow_the_jax_tree(backbone):
 
 
 def test_inference_only_and_card_by_default():
+    """Frozen and in eval mode by default: a dropout generator is ignored
+    there (the training forward is ``prompter.train()``)."""
     _, _, prompter = _prompter_pair("resnet18")
-    with pytest.raises(NotImplementedError, match="A.6"):
-        prompter(torch.from_numpy(_image()), dropout_generator=torch.Generator())
+    with torch.no_grad():
+        plain, _ = prompter(torch.from_numpy(_image()))
+        drawn, _ = prompter(torch.from_numpy(_image()),
+                            dropout_generator=torch.Generator().manual_seed(0))
+    assert set(drawn) == set(plain) == {"pred_coords", "pred_logits", "pred_masks"}
+    for k in plain:
+        assert torch.equal(drawn[k], plain[k])
     assert not any(t.requires_grad for t in prompter.parameters())
     assert not prompter.training
     if not torch.cuda.is_available():

@@ -2,8 +2,8 @@
 mirroring ``tests/test_cli.py::test_train_2d_cli_synthetic``: synthetic
 fundus data at ``-image_size 64``, two steps, validation capped by
 ``-val_max_samples``; the REFUGE reader on a directory the test writes; the
-flags of the reference command; and the workloads that raise with a
-pointer to ROADMAP."""
+flags of the reference commands; and the options that raise with a
+pointer to ROADMAP (the nuclei workload: ``tests/test_torch_nuclei_train.py``)."""
 
 import glob
 import json
@@ -73,13 +73,13 @@ def test_train_2d_reference_flags_and_unported_workloads(tmp_path, monkeypatch):
                       "-val_max_samples 3".split())
     assert (args.device, args.clip_grad, args.memory_bank_size) == ("cuda", 0.05, 8)
     assert (args.out_size, args.val_max_samples) == (1024, 3)
+    nuclei = parse_args("-net prompter -dataset monuseg -max_cells 32 -augment 0 "
+                        "--overlap 32 --crop_size 128".split())
+    assert (nuclei.max_cells, nuclei.augment, nuclei.overlap, nuclei.crop_size) == (32, 0, 32,
+                                                                                    128)
+    sample = t2.SyntheticDataset(parse_args(["-image_size", "64"]), "nuclei")[0]
+    assert sample["inst_masks"].shape[1:] == (64, 64)
     monkeypatch.setattr(t2, "get_config", lambda name, **kw: TINY)
-    for argv in (["-dataset", "monuseg"], ["-dataset", "cpm"],
-                 ["-net", "prompter", "-dataset", "synthetic"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue A.6"):
-            t2.main(argv + ["-device", "cpu"])
-    with pytest.raises(NotImplementedError, match="A.6"):
-        t2.SyntheticDataset(args, "nuclei")
     for argv in (["-distributed", "data"], ["-vis", "1"]):
         with pytest.raises(NotImplementedError, match="A.7"):
             t2.main(argv + ["-dataset", "synthetic", "-device", "cpu"])

@@ -370,15 +370,15 @@ def test_train_kcache_env_switch(monkeypatch):
 
 def test_train_3d_cli_flags():
     """The reference ``train_3d.py`` command parses; a flag no ported CLI
-    reads (the nuclei recipe's ``-max_cells``) is refused, and the 3D CLI
-    refuses the 2D nuclei net."""
+    reads (the JAX CLI's ``-encoder``) is refused, and the 3D CLI refuses
+    the 2D nuclei net."""
     from medsam2_tpu_torch.cli.cfg import parse_args
 
     args = parse_args("-net sam2 -exp_name BTCV -sam_config sam2_hiera_s -image_size 1024 "
                       "-video_length 8 -prompt bbox -prompt_freq 2 -dataset btcv "
                       "-data_path ./data/btcv -sam_ckpt checkpoints/sam2_hiera_small.pt".split())
     assert (args.device, args.prompt, args.video_length) == ("cuda", "bbox", 8)
-    for bad in (["-max_cells", "64"], ["-net", "pvt"]):
+    for bad in (["-encoder", "vit_b"], ["-net", "pvt"]):
         with pytest.raises(SystemExit):
             parse_args(bad)
     import medsam2_tpu_torch.cli.train_3d as t3
