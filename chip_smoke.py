@@ -2,7 +2,8 @@
 resumed propagation, corrections on tracked frames, clearing around new
 prompts, the three memory readouts, batched volumes), 3D training (over raw
 memory and over the roped-key cache), 2D image serving, REFUGE 2D training,
-nuclei instance serving and nuclei training on one NVIDIA GPU.
+nuclei instance serving, nuclei training, and the host C++, golden tensors,
+checkpoint export and data x model parallel training on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -135,12 +136,28 @@ Phases, each printing its own line:
      slots, switches off and on: s/step and images/s over 3 steps after a
      warm-up, exact B7 / B8 counts, peak memory, one step's stage split
      and one traced step's busy share; and ``cli.train_2d -net prompter``
-     for 2 steps and 1 validation image.
+     for 2 steps and 1 validation image;
+  19. the last slice: 19a, the port's host C++ (``native``: greedy and
+     batched box NMS, point NMS, RLE encode and decode, the instance-overlap
+     histogram) against its numpy versions on seeded inputs, equal, with
+     both times; 19b, ``checkpoint.goldens.dump_goldens`` at sam2_hiera_t
+     @1024 fp32 (TF32 off) on the card with the encoder switches off and on
+     against the same seeded model on the CPU (``TOL_GOLDEN``), exact
+     launch counts (B1, and B5 / B7 / B8 with the switches on), and the
+     export -> ``.pt`` -> ``load_params`` round trip on the card
+     (``TOL_GOLDEN_EXPORT``); 19c, ``parallel.dryrun.dryrun_distributed``
+     on the one card, two ranks over gloo on CUDA tensors at meshes 2 x 1
+     and 1 x 2, sam2_hiera_t @512 fp32, 4 volumes x 8 frames, 2 objects:
+     the sharded stream and train step against the single-process ones
+     (loss, every update, the streamed logits), exact B1 / B3 / B4 / B2
+     launches per rank and for the reference, and the second step's seconds
+     sharded against single (two ranks on one card measure no scaling).
 Then one JSON line of per-kernel results (B8 also once per phase-8 width,
-``fused_block C<width>``, with its launches in phases 10, 11, 17 and 18; B3
+``fused_block C<width>``, with its launches in phases 10, 11, 17, 18 and 19; B3
 and B4 also once per Hiera head dim, ``flash_attention_bwd_dkv (96, 96)``
 ..., with their phase 3b numbers and phase 16 launches; B5 / B7 / B8 with
-their phase-17k shapes under ``nuclei_shapes``), the card's
+their phase-17k shapes under ``nuclei_shapes``; phase 19's launches under
+the ``goldens`` and ``dryrun`` keys of ``launches_by_path``), the card's
 name and power limit,
 and, last, the device line. Any failure raises and exits non-zero; without a
 CUDA device nothing runs.
@@ -3628,6 +3645,256 @@ def phase_nuclei_train_full_width(power_line: str):
     return paths
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the last slice (host C++, goldens and export, the dry run)
+# ---------------------------------------------------------------------------
+
+TOL_GOLDEN = 1e-3          # card against CPU, the SAM heads' logits tolerance
+TOL_GOLDEN_EXPORT = 1e-5   # the export round trip on the card, as the CPU test
+
+
+def instance_map(rng, size: int, n: int) -> np.ndarray:
+    """``n`` overlapping rectangles of 6-30 pixels a side, later ones on
+    top: a nuclei-like label map."""
+    m = np.zeros((size, size), np.int32)
+    for i in range(1, n + 1):
+        y, x = rng.integers(0, size - 30, 2)
+        h, w = rng.integers(6, 30, 2)
+        m[y:y + h, x:x + w] = i
+    return m
+
+
+def phase_native() -> None:
+    """19a: the port's host C++ against its numpy versions on random inputs
+    from a seed: kept indices, RLE counts and overlap histograms equal."""
+    from medsam2_tpu_torch import native
+    from medsam2_tpu_torch.metrics import instance as MI
+    from medsam2_tpu_torch.ops import nms as NMS
+    from medsam2_tpu_torch.postproc import amg_utils as AU
+
+    rng = np.random.default_rng(19)
+    t0 = time.perf_counter()
+    lib = native.build()
+    build_s = time.perf_counter() - t0
+    boxes = rng.uniform(0, 900, (1500, 4)).astype(np.float32)
+    boxes[:, 2:] = boxes[:, :2] + rng.uniform(10, 120, (1500, 2))
+    scores = rng.random(1500).astype(np.float32)
+    idxs = rng.integers(0, 4, 1500)
+    pts = rng.uniform(0, 1000, (3000, 2)).astype(np.float32)
+    pscores = rng.random(3000).astype(np.float32)
+    masks = rng.random((8, 256, 256)) > 0.7
+    inst_t, inst_p = (MI.remap_label(instance_map(rng, 1000, n)) for n in (300, 260))
+
+    def overlap_np():
+        # ids off 1..n take the numpy loop
+        inter, _, t_areas, p_areas = MI._pairwise_inter_union(inst_t * 2, inst_p * 2)
+        return inter, t_areas, p_areas
+
+    cases = {
+        "greedy nms": (lambda: NMS.nms(boxes, scores, 0.5),
+                       lambda: NMS.nms_np(boxes, scores, 0.5)),
+        "batched nms": (lambda: NMS.batched_nms(boxes, scores, idxs, 0.7),
+                        lambda: NMS.batched_nms_np(boxes, scores, idxs, 0.7)),
+        "point nms": (lambda: NMS.point_nms(pts, pscores, 12.0),
+                      lambda: NMS.point_nms_np(pts, pscores, 12.0)),
+        "rle encode": (lambda: [r["counts"] for r in AU.mask_to_rle(masks)],
+                       lambda: [r["counts"] for r in AU.mask_to_rle_np(masks)]),
+        "instance overlap": (lambda: native.instance_overlap(inst_t, inst_p, int(inst_t.max()),
+                                                             int(inst_p.max())),
+                             overlap_np),
+    }
+    parts, ok = [], True
+    for name, (cpp, plain) in cases.items():
+        t0 = time.perf_counter()
+        got = cpp()
+        cpp_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        want = plain()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        if isinstance(got, tuple):
+            same = all(np.array_equal(a, b) for a, b in zip(got, want))
+        elif isinstance(got, list):
+            same = got == want
+        else:
+            same = np.array_equal(got, want)
+        ok &= bool(same)
+        parts.append(f"{name} {'equal' if same else 'DIFFERENT'} (C++ {cpp_ms:.2f} ms, numpy "
+                     f"{plain_ms:.2f} ms)")
+    decoded = all(np.array_equal(native.rle_decode(r["counts"], 256, 256), m)
+                  for r, m in zip(AU.mask_to_rle(masks), masks))
+    ok &= decoded
+    print(f"[19a native] g++ build {build_s:.1f} s ({lib.parent.name}) | " + " | ".join(parts)
+          + f" | rle decode round trip {decoded} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("19a native: the C++ and numpy versions differ")
+
+
+def golden_launches(cfg, switches: bool) -> dict:
+    """Launches of one ``dump_goldens`` (one image encode, the SAM heads on a
+    click, the memory encoder), fp32: B1 at each global block under the
+    flash gate (the decoder's and memory encoder's attentions stay under
+    it), no split or merge in fp32; with the switches on, the encoder
+    kernels of one ``set_image`` (``encoder_launches``)."""
+    counts = {k: 0 for k in A.launch_counts()}
+    counts["flash_attention"] = global_flash(cfg)
+    if switches:
+        counts.update(encoder_launches(cfg))
+    return counts
+
+
+def fp32_launches(counts: dict) -> dict:
+    """A launch count of the bf16 formulas at fp32: nothing splits, so no
+    merge and no split sum runs."""
+    return {**counts, "attention_merge": 0, "flash_attention_bwd_dq_sum": 0,
+            "flash_attention_bwd_dkv_sum": 0}
+
+
+def add_counts(*counts) -> dict:
+    out = {}
+    for c in counts:
+        for k, v in c.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def phase_goldens(power_line: str) -> dict:
+    """19b: ``dump_goldens`` at sam2_hiera_t @1024 fp32 (TF32 off) on the
+    card with the encoder switches off and on, held to the same seeded model
+    on the CPU (plain path) at ``TOL_GOLDEN``, with exact launch counts; and
+    the export -> ``.pt`` -> ``load_params`` round trip on the card at
+    ``TOL_GOLDEN_EXPORT``. Returns the card runs' launches."""
+    from medsam2_tpu_torch.checkpoint.export import export_to_torch
+    from medsam2_tpu_torch.checkpoint.goldens import compare_goldens, dump_goldens
+    from medsam2_tpu_torch.checkpoint.store import load_params
+
+    cfg = sam2_hiera_t(image_size=1024, compute_dtype="float32")
+    set_tf32(False)
+    model = SAM2Model(cfg, seed=0, device=DEV)
+    runs, total = {}, {}
+    for switches in (False, True):
+        with encoder_switches("1" if switches else "0"):
+            A.reset_launch_counts()
+            t0 = time.perf_counter()
+            g = dump_goldens(model, seed=0)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = A.launch_counts()
+            if switches:
+                by_width = dict(FB.fused_window_block.launches_by_width)
+        runs[switches] = (g, counts, golden_launches(cfg, switches), secs)
+        total = add_counts(total, counts)
+    t0 = time.perf_counter()
+    with encoder_switches("0"):
+        g_cpu = dump_goldens(SAM2Model(cfg, seed=0, device="cpu"), seed=0)
+    cpu_s = time.perf_counter() - t0
+    out_dir = Path(__file__).resolve().parent / "build" / "smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    pt = out_dir / "goldens_export.pt"
+    export_to_torch(model, str(pt))
+    reloaded = SAM2Model(cfg, seed=7, device=DEV)
+    load_params(str(pt), reloaded)
+    with encoder_switches("0"):
+        A.reset_launch_counts()
+        g_rt = dump_goldens(reloaded, seed=0)
+        total = add_counts(total, A.launch_counts())
+    pt.unlink()
+    del reloaded
+    ok = True
+    parts = []
+    for switches, (g, counts, want, secs) in runs.items():
+        try:
+            diffs = compare_goldens(g, g_cpu, atol=TOL_GOLDEN)
+            worst = max(diffs, key=diffs.get)
+            fine = counts == want and all(np.isfinite(v).all() for k, v in g.items()
+                                          if k.startswith("out_"))
+            parts.append(f"switches {'on' if switches else 'off'}: {len(diffs)} outputs, worst "
+                         f"{diffs[worst]:.2e} at {worst} (tol {TOL_GOLDEN}), launches {counts} "
+                         f"expected {want}, {secs:.2f} s")
+        except AssertionError as e:
+            fine = False
+            parts.append(f"switches {'on' if switches else 'off'}: {e}")
+        ok &= fine
+    try:
+        rt = compare_goldens(runs[False][0], g_rt, atol=TOL_GOLDEN_EXPORT)
+        rt_txt = f"worst {max(rt.values()):.2e} (tol {TOL_GOLDEN_EXPORT})"
+    except AssertionError as e:
+        ok, rt_txt = False, str(e)
+    print(f"[19b goldens] sam2_hiera_t @1024 fp32 TF32 off, card vs cpu (plain, {cpu_s:.1f} s) | "
+          + " | ".join(parts) + f" | export -> .pt -> load_params on the card: {rt_txt} | "
+          f"{power_line} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("19b goldens: " + "; ".join(parts) + "; " + rt_txt)
+    del model
+    torch.cuda.empty_cache()
+    return {**total, "fused_block_by_width": by_width}
+
+
+def dryrun_launches(cfg, shape, volumes: int) -> dict:
+    """Launches of one rank's (or the single process's) dry run over
+    ``volumes`` volumes, fp32: the folded stream (``volume_launches``,
+    frame 0 prompted) and one train step (``train_launches`` per volume);
+    nothing splits in fp32."""
+    rcfg = recipe_3d.Recipe3DConfig(video_length=shape.frames, prompt_freq=shape.prompt_freq,
+                                    num_objects=shape.objects, max_cond_frames=2)
+    stream = fp32_launches(volume_launches(cfg, volumes, shape.frames, fold=True))
+    step = {k: volumes * v for k, v in fp32_launches(train_launches(cfg, rcfg, False)).items()}
+    return {"stream": stream, "step": step}
+
+
+def phase_dryrun(power_line: str) -> dict:
+    """19c: ``dryrun_distributed`` on the one card: two ranks over gloo on
+    CUDA tensors (NCCL refuses two ranks on one GPU), data x model 2 x 1 and
+    1 x 2, sam2_hiera_t @512 fp32, 4 volumes x 8 frames, 2 objects, each
+    against the single-process step and stream (the dry run's own checks),
+    with exact launch counts per rank and for the reference. Returns every
+    run's launches."""
+    from medsam2_tpu_torch.parallel import dryrun as DR
+
+    cfg = DR.default_config()
+    shape = DR.DryrunShape()
+    total, ok, parts = {}, True, []
+    for model_axis in (1, 2):
+        t0 = time.perf_counter()
+        out = DR.dryrun_distributed(2, model_axis=model_axis, device="cuda")
+        wall = time.perf_counter() - t0
+        data = 2 // model_axis
+        want_rank = dryrun_launches(cfg, shape, shape.volumes // data)
+        want_single = dryrun_launches(cfg, shape, shape.volumes)
+        runs = [(f"rank {r}", o, want_rank) for r, o in sorted(out["ranks"].items())]
+        runs.append(("single", out["single"], want_single))
+        for label, o, want in runs:
+            for stage in ("stream", "step"):
+                got = o[f"{stage}_counts"]
+                total = add_counts(total, got)
+                if got != want[stage]:
+                    ok = False
+                    parts.append(f"{label} {stage} launches {got} expected {want[stage]}")
+        sharded_s = max(o["step_seconds"] for o in out["ranks"].values())
+        single_s = out["single"]["step_seconds"]
+        parts.append(
+            f"mesh {out['mesh']}: loss {out['sharded']['loss']:.6f} vs {out['single']['loss']:.6f}, "
+            f"update err {out['errors']['update']:.2e} (max update {out['errors']['max_update']:.2e}), "
+            f"logits err {out['errors']['mask']:.2e}, {len(out['sharded']['sliced'])} tensors "
+            f"sliced; launches per rank {want_rank['step']['flash_attention']} B1 / "
+            f"{want_rank['step']['flash_attention_bwd_dq']} B3 / B4 per step, "
+            f"{want_rank['stream']['kv_cached_attention']} B2 per stream, exact; second step "
+            f"{sharded_s:.3f} s sharded (slowest rank) vs {single_s:.3f} s single process "
+            f"(two ranks share one card: no scaling is measured), {wall:.1f} s in all")
+    print(f"[19c dryrun] sam2_hiera_t @512 fp32 TF32 off, {shape.volumes} volumes x "
+          f"{shape.frames} frames, {shape.objects} objects, 2 ranks over gloo on CUDA tensors | "
+          + " | ".join(parts) + f" | {power_line} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("19c dryrun: " + "; ".join(parts))
+    set_tf32(False)
+    return total
+
+
+def phase_remaining(power_line: str) -> dict:
+    """Phase 19: 19a, 19b, 19c. Returns the launches by path."""
+    phase_native()
+    return {"goldens": phase_goldens(power_line), "dryrun": phase_dryrun(power_line)}
+
+
 def flat_counts(counts: dict) -> dict:
     """A step's counts with B3 / B4 by width spread into their own names."""
     out = {k: v for k, v in counts.items() if k != "by_width"}
@@ -3676,6 +3943,8 @@ def main() -> None:
     phase_nuclei_train_parity()
     paths.update(phase_nuclei_train_full_width(power_line))
     print(f"[time] phases 1-18 in {time.perf_counter() - t_start:.0f} s")
+    paths.update(phase_remaining(power_line))
+    print(f"[time] phases 1-19 in {time.perf_counter() - t_start:.0f} s")
     rows = []
     for name in KERNELS:
         by_path = {p: c[name] for p, c in paths.items() if c.get(name)}

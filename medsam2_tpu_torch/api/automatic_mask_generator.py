@@ -24,7 +24,7 @@ from medsam2_tpu_torch.api.image_predictor import SAM2ImagePredictor
 from medsam2_tpu_torch.core import layers
 from medsam2_tpu_torch.core.sam2_model import SAM2Model
 from medsam2_tpu_torch.ops.connected_components import remove_small_regions
-from medsam2_tpu_torch.ops.nms import batched_nms_np
+from medsam2_tpu_torch.ops.nms import batched_nms
 from medsam2_tpu_torch.postproc import amg_utils as amg
 
 
@@ -109,8 +109,8 @@ class SAM2AutomaticMaskGenerator:
         if len(crop_boxes) > 1 and len(data["boxes"]) > 0:
             # prefer masks from smaller crops (``:219-229``)
             scores = 1 / amg.box_xyxy_to_xywh(np.asarray(data["crop_boxes"]))[:, 2]
-            keep = batched_nms_np(np.asarray(data["boxes"], np.float32), scores,
-                                  np.zeros(len(scores)), self.crop_nms_thresh)
+            keep = batched_nms(np.asarray(data["boxes"], np.float32), scores,
+                               np.zeros(len(scores)), self.crop_nms_thresh)
             data.filter(keep)
         data.to_numpy()
         return data
@@ -152,8 +152,8 @@ class SAM2AutomaticMaskGenerator:
                             stability_score=stability[kept_idx], boxes=boxes[kept_idx])
         keep = np.zeros(0, np.int64)
         if len(kept_idx) > 0:
-            nms_keep = batched_nms_np(data["boxes"], data["iou_preds"],
-                                      np.zeros(len(kept_idx)), self.box_nms_thresh)
+            nms_keep = batched_nms(data["boxes"], data["iou_preds"],
+                                   np.zeros(len(kept_idx)), self.box_nms_thresh)
             data.filter(nms_keep)
             keep = kept_idx[nms_keep]      # survivors' rows in candidate order
 
@@ -211,7 +211,7 @@ class SAM2AutomaticMaskGenerator:
             scores.append(float(not (bool(holes_changed) or bool(islands_changed))))
         masks = np.stack(new_masks)
         boxes = amg.batched_mask_to_box(torch.from_numpy(masks)).numpy()
-        keep = batched_nms_np(boxes, np.asarray(scores), np.zeros(len(boxes)), nms_thresh)
+        keep = batched_nms(boxes, np.asarray(scores), np.zeros(len(boxes)), nms_thresh)
         for i in keep:
             if scores[i] == 0.0:     # changed masks are encoded again
                 mask_data["rles"][i] = amg.mask_to_rle(masks[i][None])[0]

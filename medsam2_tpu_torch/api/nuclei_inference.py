@@ -27,7 +27,7 @@ import torch
 from medsam2_tpu_torch.api.automatic_mask_generator import packbits
 from medsam2_tpu_torch.core import layers
 from medsam2_tpu_torch.core.sam2_model import SAM2Model
-from medsam2_tpu_torch.ops.nms import batched_nms_np, point_nms_np
+from medsam2_tpu_torch.ops.nms import batched_nms, point_nms
 from medsam2_tpu_torch.postproc.amg_utils import batched_mask_to_box
 from medsam2_tpu_torch.prompter.dpa_p2pnet import Prompter
 from medsam2_tpu_torch.state import similarity_bank as sb
@@ -196,8 +196,8 @@ def merge_instances(masks: List[np.ndarray], offsets: List[Tuple[int, int]], sco
     kept = np.where(keep_prior)[0]
     if len(kept) == 0:
         return np.zeros(hw, np.int32)
-    keep_by_nms = batched_nms_np(boxes[kept].astype(np.float32), scores[kept],
-                                 np.zeros(len(kept)), mask_nms_thresh)
+    keep_by_nms = batched_nms(boxes[kept].astype(np.float32), scores[kept],
+                              np.zeros(len(kept)), mask_nms_thresh)
     order = kept[keep_by_nms][::-1]
     inst_map = np.zeros(hw, np.int32)
     for iid, ind in enumerate(order):
@@ -253,7 +253,7 @@ def predict_instances(model: SAM2Model, prompter: Prompter, sample: Dict, bank, 
         if len(acc_points) == 0:
             continue
         # progressive NMS over everything accumulated so far (function.py:386)
-        keep = point_nms_np(acc_points, acc_scores, POINT_NMS_DIST)
+        keep = point_nms(acc_points, acc_scores, POINT_NMS_DIST)
         cur_points = acc_points[keep]
         cur_ids = np.array([point_id_map.setdefault(tuple(p), len(point_id_map))
                             for p in cur_points])

@@ -35,10 +35,8 @@ over the bank's roped-key cache (the default), read order over the same
 cache (``MEDSAM2_KV_STORAGE=0``), or read order over raw memory tokens
 (``use_kcache=False``); a correction decode reads as the tracked frames do.
 :func:`propagate_volumes_batched` streams several volumes, folded onto the
-batch axis of one bank (``MEDSAM2_FOLD``) or one after another.
-
-Not ported yet, and raising ``NotImplementedError`` with a pointer to
-``ROADMAP.md``: ``propagate_volumes_batched(mesh=...)``.
+batch axis of one bank (``MEDSAM2_FOLD``) or one after another, and over a
+``parallel.mesh`` of ranks (``mesh=``).
 
 :func:`_prompt_step` is also the 3D training recipe's prompt-frame step: with
 grad enabled it is differentiable and returns ``pred_masks_high_res``.
@@ -608,10 +606,20 @@ def propagate_volumes_batched(model: SAM2Model, spec: mb.BankSpec, videos, promp
     in read order over the cache with ``MEDSAM2_KV_STORAGE=0``).
     ``fold=False`` propagates the volumes one after another, each reading
     the cache in read order, as the JAX package's vmapped form does.
-    ``fold=None`` reads ``MEDSAM2_FOLD`` (default on)."""
+    ``fold=None`` reads ``MEDSAM2_FOLD`` (default on).
+
+    With ``mesh`` (a :class:`medsam2_tpu_torch.parallel.mesh.Mesh`), each
+    rank streams its data group's share of the volumes and the logits are
+    all-gathered over the data group, every rank returning all V (the JAX
+    function's volumes shard over the mesh's ``data`` axis, its docstring
+    says); a model axis > 1 runs the model-parallel linears of a sharded
+    model."""
     if mesh is not None:
-        raise NotImplementedError("propagate_volumes_batched(mesh=...): parallel/ is not "
-                                  "ported yet (ROADMAP.md, queue A)")
+        local = propagate_volumes_batched(model, spec, mesh.data_shard(videos),
+                                          mesh.data_shard(prompt_coords),
+                                          mesh.data_shard(prompt_labels), num_objects,
+                                          prompt_frames, fold)
+        return mesh.all_gather_data(local)
     if fold is None:
         fold = os.environ.get("MEDSAM2_FOLD", "1") == "1"
     cfg = model.cfg

@@ -25,21 +25,24 @@ from medsam2_tpu_torch.checkpoint.convert import load_reference_state_dict
 _STEP = re.compile(r"^step_(\d+)\.pt$")
 
 
-def _cpu_state(module: torch.nn.Module) -> Dict[str, torch.Tensor]:
-    return {k: v.detach().cpu() for k, v in module.state_dict().items()}
+def _cpu_state(module) -> Dict[str, torch.Tensor]:
+    sd = module.state_dict() if isinstance(module, torch.nn.Module) else module
+    return {k: v.detach().cpu() for k, v in sd.items()}
 
 
-def save_checkpoint(directory: str, model: torch.nn.Module,
-                    optimizers: Dict[str, torch.optim.Optimizer], epoch: int,
+def save_checkpoint(directory: str, model, optimizers: Dict, epoch: int,
                     step: Optional[int] = None, extra: Optional[Dict] = None,
                     prompter: Optional[torch.nn.Module] = None,
                     name: Optional[str] = None) -> str:
     """Write ``<directory>/step_<step or epoch>.pt``, or ``<name>.pt`` when
-    ``name`` is given, atomically; returns its path. ``prompter`` adds that
+    ``name`` is given, atomically; returns its path. ``model`` is a module
+    or its state dict, each optimizer an optimizer or its state dict (a
+    model-parallel run saves them gathered whole). ``prompter`` adds that
     module's state dict."""
     os.makedirs(directory, exist_ok=True)
     state = {"model": _cpu_state(model),
-             "optimizers": {g: opt.state_dict() for g, opt in optimizers.items()},
+             "optimizers": {g: opt if isinstance(opt, dict) else opt.state_dict()
+                            for g, opt in optimizers.items()},
              "epoch": int(epoch)}
     if prompter is not None:
         state["prompter"] = _cpu_state(prompter)

@@ -6,8 +6,7 @@ read (synthetic data, static object and cell slots, ...) and ``-device``,
 the port's choice of card or CPU. Every flag here is read by one of the
 CLIs or by ``train_2d.validate_nuclei``, apart from ``--overlap`` and
 ``--crop_size``, which the JAX CLI parses and its validation does not read
-either (the crop is the model's image size, the overlap 64); the
-visualisation flag comes with its slice (ROADMAP A.7)."""
+either (the crop is the model's image size, the overlap 64)."""
 
 from __future__ import annotations
 
@@ -36,7 +35,8 @@ def parse_args(argv=None):
                              'DPA-P2PNet + SAM2 nuclei recipe, with -dataset synthetic)')
     parser.add_argument('-exp_name', default='medsam2_tpu', type=str)
     parser.add_argument('-vis', type=lambda s: s not in ('0', 'False', 'false'),
-                        default=False, help='visualisation during validation (not ported)')
+                        default=False, help='figures during validation: 3D per (frame, object), '
+                        'nuclei per image (agreement map, instance overlay)')
     parser.add_argument('-augment', type=int, default=1,
                         help='nuclei training augmentation (crop / flip / rot90 / colour '
                              'jitter) on=1 / off=0')
@@ -61,10 +61,11 @@ def parse_args(argv=None):
     parser.add_argument('-out_size', type=int, default=1024,
                         help='2D: output (loss) size')
     parser.add_argument('-distributed', default='none', type=str,
-                        help="'none'; a mesh spec ('data' or e.g. '4x2') is not ported")
+                        help="3D: 'none', 'data' or 'NxM' (model axis M), a mesh over the "
+                             "ranks torchrun starts; ignored at one rank and by the 2D CLI")
     parser.add_argument('-dataset', default='btcv', type=str,
-                        help='3D: btcv | amos | synthetic; 2D: refuge | monuseg | cpm | '
-                             'synthetic')
+                        help='3D: btcv | amos | btcv_nifti | amos_nifti | synthetic; 2D: '
+                             'refuge | monuseg | cpm | synthetic')
     parser.add_argument('-sam_ckpt', type=str, default=None,
                         help='SAM2 checkpoint (.pt); None = random init')
     parser.add_argument('-sam_config', type=str, default='sam2_hiera_s')

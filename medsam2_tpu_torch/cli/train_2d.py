@@ -22,12 +22,15 @@
 Everything runs on ``-device`` (the card by default; it raises without one).
 ``-dataset synthetic``, or no ``-data_path``, trains on ``synthetic_fundus``
 (``-net sam2``) or ``synthetic_nuclei`` (``-net prompter``) samples, as the
-JAX CLI does; ``-val_max_samples`` caps validation. ``-distributed`` and
-``-vis`` raise with a pointer to ROADMAP queue A.7.
+JAX CLI does; ``-val_max_samples`` caps validation. ``-vis`` writes
+:func:`validate_nuclei`'s figures under the run's ``Samples`` directory (the
+REFUGE loop draws none, as in JAX); ``-distributed`` is logged and ignored,
+since the JAX 2D CLI never reads it.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Dict
 
@@ -50,8 +53,7 @@ from medsam2_tpu_torch.prompter.dpa_p2pnet import Prompter, PrompterConfig
 from medsam2_tpu_torch.train import recipe_2d, recipe_nuclei
 from medsam2_tpu_torch.utils.logging_utils import (MetricLogger, ScalarWriter, create_logger,
                                                    set_log_dir)
-
-VIS = "-vis (validation figures) is not ported; see ROADMAP queue A.7"
+from medsam2_tpu_torch.utils.visualization import vis_compare_point, vis_inst_image
 
 
 class SyntheticDataset:
@@ -104,9 +106,9 @@ def validate_nuclei(args, model: SAM2Model, prompter: Prompter, val_ds, bank,
     ``--crop_size`` / ``--overlap`` say, as in the JAX CLI; ``filtering``
     from ``-point_filtering``), scored against the GT instance map by the
     reference's metric set Dice1 / Dice2 / AJI / AJI+ / DQ / SQ / PQ, each
-    averaged over the images. Writes into ``bank`` as it goes."""
-    if getattr(args, "vis", False):
-        raise NotImplementedError(VIS)
+    averaged over the images. Writes into ``bank`` as it goes. With
+    ``-vis``, each image's agreement map with the GT points and its instance
+    overlay go under ``args._sample_dir`` (``func_2d/function.py:663-665``)."""
     tot = {"dice1": 0.0, "dice2": 0.0, "aji": 0.0, "aji_plus": 0.0,
            "dq": 0.0, "sq": 0.0, "pq": 0.0}
     n = 0
@@ -121,6 +123,11 @@ def validate_nuclei(args, model: SAM2Model, prompter: Prompter, val_ds, bank,
                                       filtering=bool(getattr(args, "point_filtering", False)))
         gt = remap_label(inst_map)
         pr = remap_label(pred_inst)
+        sample_dir = getattr(args, "_sample_dir", None)
+        if getattr(args, "vis", False) and sample_dir:
+            vis_compare_point(pr > 0, gt > 0, s.get("points_all"),
+                              os.path.join(sample_dir, f"val{i}_compare.png"))
+            vis_inst_image(s["image"], pr, os.path.join(sample_dir, f"val{i}_inst.png"))
         both = bool(gt.max() and pr.max())
         tot["dice1"] += get_dice_1(gt, pr)
         tot["dice2"] += get_fast_dice_2(gt, pr) if both else 0.0
@@ -215,6 +222,7 @@ def train_nuclei(args, cfg, logger, paths):
                         collate_fn=lambda s: pack_nuclei_batch(s, args.image_size,
                                                                args.out_size, args.max_cells))
     bank = recipe_2d.init_bank(model, rcfg.memory_bank_size)
+    args._sample_dir = paths.get("sample_path")  # -vis figures of validate_nuclei
     # the three random streams (bank draws, memory-attention dropout, head
     # dropout), seeded from -seed; validation draws from its own
     gens = [torch.Generator(device=model.device).manual_seed(args.seed + i) for i in range(4)]
@@ -252,10 +260,6 @@ def train_nuclei(args, cfg, logger, paths):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.distributed != "none":
-        raise NotImplementedError("-distributed is not ported; see ROADMAP queue A.7")
-    if args.vis:
-        raise NotImplementedError(VIS)
     if args.dataset == "refuge":
         workload = "refuge"
     elif args.dataset in ("monuseg", "cpm"):
@@ -267,6 +271,9 @@ def main(argv=None):
     paths = set_log_dir(args.logdir, args.exp_name)
     logger = create_logger(paths["log_path"])
     logger.info(vars(args))
+    if args.distributed != "none":
+        # the JAX 2D CLI never reads the flag: both recipes run on one device
+        logger.info(f"-distributed {args.distributed} is ignored by the 2D CLI")
     if workload == "refuge":
         return train_refuge(args, cfg, logger, paths)
     return train_nuclei(args, cfg, logger, paths)

@@ -1,9 +1,10 @@
 """Nuclei instance-segmentation metrics (counterpart of
 ``medsam2_tpu/metrics/instance.py``; rebuild of
 ``sam2_train/modeling/stats_utils.py``): AJI, AJI+, PQ/DQ/SQ, instance Dice,
-``remap_label``, ``pair_coordinates``. numpy and scipy on the host, the JAX
-package's numpy path (its native C++ overlap histogram computes the same
-matrices; it is queued in ROADMAP A.7).
+``remap_label``, ``pair_coordinates``. numpy and scipy on the host; the
+pairwise overlaps of ids contiguous from 1 come from the port's C++
+histogram (``native.instance_overlap``), as in the JAX package, and any
+other ids from the numpy loop.
 
 Algorithms follow the published CoNSeP/HoVer-Net metric definitions the
 reference file implements.
@@ -26,7 +27,13 @@ def _pairwise_inter_union(true: np.ndarray, pred: np.ndarray):
     pred_ids = np.unique(pred)
     pred_ids = pred_ids[pred_ids > 0]
     n_t, n_p = len(true_ids), len(pred_ids)
+    # one pass in C++ when the ids run 1..n (remap_label's output)
+    if n_t and n_p and true_ids[-1] == n_t and pred_ids[-1] == n_p:
+        from medsam2_tpu_torch import native
 
+        inter, t_areas, p_areas = native.instance_overlap(true, pred, n_t, n_p)
+        union = t_areas[:, None] + p_areas[None, :] - inter
+        return inter, union, t_areas, p_areas
     inter = np.zeros((n_t, n_p), np.float64)
     t_areas = np.zeros(n_t)
     # one pixel count per id (the JAX package's numpy branch sums one full

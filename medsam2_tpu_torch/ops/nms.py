@@ -1,7 +1,11 @@
-"""Greedy non-maximum suppression on the host (counterpart of the numpy path
-of ``medsam2_tpu/ops/nms.py``, which replaces torchvision's
-``batched_nms`` in the reference AMG, and the nuclei engine's point NMS).
-The JAX package's native C++ NMS is host code and computes the same
+"""Greedy non-maximum suppression on the host (counterpart of
+``medsam2_tpu/ops/nms.py``, which replaces torchvision's ``batched_nms`` in
+the reference AMG, and the nuclei engine's point NMS).
+
+:func:`nms`, :func:`batched_nms` and :func:`point_nms` run the port's C++
+(:mod:`medsam2_tpu_torch.native`), as the JAX package's ``nms_np`` and
+``point_nms_np`` do; the callers use them. The ``*_np`` functions are the
+same greedy loops in numpy, kept as the tests' oracles: they give the same
 indices."""
 
 from __future__ import annotations
@@ -51,11 +55,39 @@ def batched_nms_np(boxes: np.ndarray, scores: np.ndarray, idxs: np.ndarray,
     return nms_np(boxes + offsets[:, None], scores, iou_threshold)
 
 
+def nms(boxes: np.ndarray, scores: np.ndarray, iou_threshold: float) -> np.ndarray:
+    """:func:`nms_np` in the port's C++ (``native.greedy_nms``)."""
+    if len(boxes) == 0:
+        return np.zeros((0,), np.int64)
+    from medsam2_tpu_torch import native
+
+    return native.greedy_nms(boxes, scores, iou_threshold)
+
+
+def batched_nms(boxes: np.ndarray, scores: np.ndarray, idxs: np.ndarray,
+                iou_threshold: float) -> np.ndarray:
+    """:func:`batched_nms_np` in the port's C++."""
+    boxes = np.asarray(boxes, np.float32)
+    if len(boxes) == 0:
+        return np.zeros((0,), np.int64)
+    offsets = np.asarray(idxs, np.float32) * (boxes.max() + 1)
+    return nms(boxes + offsets[:, None], scores, iou_threshold)
+
+
+def point_nms(points: np.ndarray, scores: np.ndarray, dist_threshold: float) -> np.ndarray:
+    """:func:`point_nms_np` in the port's C++ (``native.point_nms``)."""
+    if len(points) == 0:
+        return np.zeros((0,), np.int64)
+    from medsam2_tpu_torch import native
+
+    return native.point_nms(points, scores, dist_threshold)
+
+
 def point_nms_np(points: np.ndarray, scores: np.ndarray, dist_threshold: float) -> np.ndarray:
     """Greedy distance NMS of points (``modeling/utils.py:342-355``): by
     descending score (stable), keep a point and suppress every other
     strictly closer than ``dist_threshold``, comparing squared distances in
-    fp32 as the JAX package's native path does. Returns the kept indices in
+    fp32 as the C++ does. Returns the kept indices in
     that order."""
     points = np.asarray(points, np.float32)
     if len(points) == 0:

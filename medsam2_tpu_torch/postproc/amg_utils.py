@@ -105,7 +105,17 @@ def batch_iterator(batch_size: int, *args) -> Generator[List[Any], None, None]:
 def mask_to_rle(masks: np.ndarray) -> List[Dict[str, Any]]:
     """Column-major (Fortran-order) uncompressed RLE of bool masks [B, h, w]
     (``mask_to_rle_pytorch``, ``amg.py:109-137``); counts start with the
-    background run."""
+    background run. Encoded by the port's C++ (``native.rle_encode``, which
+    walks the row-major mask in column order), as in the JAX package."""
+    masks = np.asarray(masks, bool)
+    h, w = masks.shape[1:]
+    from medsam2_tpu_torch import native
+
+    return [{"size": [h, w], "counts": native.rle_encode(m)} for m in masks]
+
+
+def mask_to_rle_np(masks: np.ndarray) -> List[Dict[str, Any]]:
+    """:func:`mask_to_rle` in numpy (the tests' oracle)."""
     masks = np.asarray(masks, bool)
     B, h, w = masks.shape
     flat = masks.transpose(0, 2, 1).reshape(B, -1)

@@ -177,11 +177,17 @@ def _grads(loss, params, retain_graph: bool):
 
 
 def make_train_step(model: SAM2Model, rcfg: Recipe3DConfig,
-                    optimizers: Dict[str, torch.optim.Optimizer]):
+                    optimizers: Dict[str, torch.optim.Optimizer], mesh=None):
     """The train step over a volume batch (arrays with a leading volume axis
     [Bv, ...]): per-volume losses averaged over the batch, two gradient pulls
     through one forward, the two Adam updates. After a step each trainable
-    parameter's ``.grad`` holds the gradient its optimizer applied."""
+    parameter's ``.grad`` holds the gradient its optimizer applied.
+
+    With a ``parallel.mesh.Mesh``, each rank takes its data group's share of
+    the batch's volumes, and the gradients and reported losses are averaged
+    over the data group before the updates: the step of the whole batch
+    (the loss is a mean over volumes). A model axis > 1 needs
+    ``parallel.mesh.shard_model`` before the optimizers' first step."""
     spec = mb.BankSpec.from_config(model.cfg, max_cond_frames=rcfg.max_cond_frames)
     params = {g: [p for group in opt.param_groups for p in group["params"]]
               for g, opt in optimizers.items()}
@@ -196,6 +202,9 @@ def make_train_step(model: SAM2Model, rcfg: Recipe3DConfig,
         use_mask = np.asarray(use_mask.cpu() if torch.is_tensor(use_mask) else use_mask, bool)
         batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()
                  if k != "prompt_use_mask"}
+        if mesh is not None:
+            use_mask = mesh.data_shard(use_mask)
+            batch = {k: mesh.data_shard(v) for k, v in batch.items()}
         n_vol = batch["images"].shape[0]
         per_vol = [volume_losses(model, spec, rcfg,
                                  {**{k: v[i] for k, v in batch.items()},
@@ -207,13 +216,16 @@ def make_train_step(model: SAM2Model, rcfg: Recipe3DConfig,
         # decoder steps on the accumulated d(prompt) + d(non_prompt)
         g_mem = _grads(non_prompt_loss, params["mem"], retain_graph=True)
         g_sam = _grads(prompt_loss + non_prompt_loss, params["sam"], retain_graph=False)
+        losses = [prompt_loss.detach().clone(), non_prompt_loss.detach().clone()]
+        if mesh is not None:
+            mesh.reduce_gradients(g_mem + g_sam + losses)
+        prompt_loss, non_prompt_loss = losses
         for group, grads in (("mem", g_mem), ("sam", g_sam)):
             for p, g in zip(params[group], grads):
                 p.grad = g
             optimizers[group].step()
-        return {"loss": (prompt_loss + non_prompt_loss).detach(),
-                "prompt_loss": prompt_loss.detach(),
-                "non_prompt_loss": non_prompt_loss.detach()}
+        return {"loss": prompt_loss + non_prompt_loss, "prompt_loss": prompt_loss,
+                "non_prompt_loss": non_prompt_loss}
 
     return train_step
 

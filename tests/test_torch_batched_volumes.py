@@ -15,7 +15,8 @@ from medsam2_tpu_torch.api import video_predictor as TV
 from medsam2_tpu_torch.state import memory_bank as TB
 from medsam2_tpu_torch.utils.transforms import IMAGENET_MEAN, IMAGENET_STD
 from tests.test_predictors import TINY, moving_square_video
-from tests.test_torch_video_session import TOL, model, params  # noqa: F401
+from tests.test_torch_video_session import (TOL, model, no_persistent_cache_writes,  # noqa: F401
+                                            params)
 
 
 def _volumes(V: int, T: int, O: int, F: int, seed: int):

@@ -1168,3 +1168,73 @@ def test_fused_block_chain_in_one_graph(dev, Bn, ws, C, heads):
             assert err <= _tol(want.float(), dt), (trial, i, err)
             prev = got
     del graph
+
+
+# ---------------------------------------------------------------------------
+# the last slice on the card: the host C++ on the card's host, goldens card
+# against CPU, and the dry run's two ranks over gloo on CUDA tensors
+# ---------------------------------------------------------------------------
+
+TOL_GOLDEN = 1e-3
+
+
+def test_native_builds_and_matches_numpy_on_the_card_host(dev):
+    from medsam2_tpu_torch import native
+    from medsam2_tpu_torch.ops import nms as NMS
+    from medsam2_tpu_torch.postproc import amg_utils as AU
+
+    assert native.build().exists()
+    rng = np.random.default_rng(1)
+    boxes = rng.uniform(0, 200, (300, 4)).astype(np.float32)
+    boxes[:, 2:] = boxes[:, :2] + rng.uniform(5, 40, (300, 2))
+    scores = rng.random(300).astype(np.float32)
+    np.testing.assert_array_equal(NMS.nms(boxes, scores, 0.5), NMS.nms_np(boxes, scores, 0.5))
+    pts = rng.uniform(0, 300, (400, 2)).astype(np.float32)
+    np.testing.assert_array_equal(NMS.point_nms(pts, scores[:1].repeat(400), 9.0),
+                                  NMS.point_nms_np(pts, scores[:1].repeat(400), 9.0))
+    masks = rng.random((3, 40, 50)) > 0.6
+    assert AU.mask_to_rle(masks) == AU.mask_to_rle_np(masks)
+
+
+def _golden_cfg():
+    from medsam2_tpu_torch.configs import sam2_hiera_t
+
+    return sam2_hiera_t(image_size=256, compute_dtype="float32")
+
+
+@pytest.mark.parametrize("switches", ["0", "1"], ids=["switches_off", "switches_on"])
+def test_goldens_on_the_card_match_the_cpu(dev, monkeypatch, switches):
+    """``dump_goldens`` (sam2_hiera_t @256 fp32, TF32 off) on the card,
+    with the encoder switches off and on, against the CPU's plain path."""
+    from medsam2_tpu_torch.checkpoint.goldens import compare_goldens, dump_goldens
+    from medsam2_tpu_torch.core.sam2_model import SAM2Model
+
+    cfg = _golden_cfg()
+    want = dump_goldens(SAM2Model(cfg, seed=0, device="cpu"), seed=1)
+    for name in ("MEDSAM2_FUSED_BLOCK", "MEDSAM2_FUSED_WINDOW", "MEDSAM2_FUSED_MLP"):
+        monkeypatch.setenv(name, switches)
+    A.reset_launch_counts()
+    got = dump_goldens(SAM2Model(cfg, seed=0, device=dev), seed=1)
+    counts = A.launch_counts()
+    diffs = compare_goldens(got, want, atol=TOL_GOLDEN)
+    assert len(diffs) == 9
+    if switches == "1":
+        assert counts["fused_block"] + counts["fused_mlp"] + counts["window_attention"] > 0
+    else:
+        assert counts["fused_block"] == counts["fused_mlp"] == counts["window_attention"] == 0
+
+
+def test_dryrun_two_ranks_over_gloo_on_the_card(dev):
+    """Two ranks on the one card over gloo (NCCL refuses two ranks on one
+    GPU), data x model 2 x 1, against the single process: the dry run's own
+    checks (loss, every update, the streamed logits)."""
+    from medsam2_tpu_torch.parallel import dryrun
+
+    # @512: 1024 tokens a frame, so the memory attention reaches the flash gate
+    out = dryrun.dryrun_distributed(2, model_axis=1, device="cuda",
+                                    cfg=dryrun.default_config(),
+                                    shape=dryrun.DryrunShape(volumes=2, frames=4, objects=1))
+    assert out["mesh"] == {"data": 2, "model": 1}
+    for o in out["ranks"].values():
+        assert o["step_counts"]["flash_attention_bwd_dq"] > 0
+        assert o["stream_counts"]["kv_cached_attention"] > 0

@@ -75,13 +75,13 @@ def test_session_modules_load_neither_jax_nor_pil(module):
     _loads_nothing(module)
 
 
-def _loads_nothing(module):
+def _loads_nothing(module, also=()):
     """Import ``module`` alone in a fresh interpreter; fail if JAX, the JAX
-    package or PIL came with it."""
+    package, PIL or a top-level package in ``also`` came with it."""
     assert module in _modules()
     code = (f"import sys\nimport {module}\n"
             "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
-            "('jax', 'medsam2_tpu', 'PIL'))\nprint(','.join(bad))\n")
+            f"{('jax', 'medsam2_tpu', 'PIL', *also)!r})\nprint(','.join(bad))\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0, res.stderr
@@ -131,3 +131,32 @@ def test_nuclei_train_modules_load_neither_jax_nor_pil(module):
     JAX, the JAX package or PIL (the matcher imports scipy's assignment
     solver when it runs)."""
     _loads_nothing(module)
+
+
+# the modules of the last slice: the host C++, NIfTI volumes, checkpoint
+# export and goldens, FLOP counts, figures, and the mesh with its dry run
+LAST_SLICE_MODULES = ["medsam2_tpu_torch.native", "medsam2_tpu_torch.data.nifti",
+                      "medsam2_tpu_torch.checkpoint.export",
+                      "medsam2_tpu_torch.checkpoint.goldens", "medsam2_tpu_torch.utils.flops",
+                      "medsam2_tpu_torch.utils.visualization",
+                      "medsam2_tpu_torch.parallel.mesh", "medsam2_tpu_torch.parallel.dryrun"]
+
+
+@pytest.mark.parametrize("module", LAST_SLICE_MODULES)
+def test_last_slice_modules_load_neither_jax_nor_pil(module):
+    """Each module of the last slice imports on its own without JAX, the
+    JAX package, PIL or matplotlib (the NIfTI dataset imports PIL when it
+    resizes a volume's slices, the figures import matplotlib when they
+    draw)."""
+    _loads_nothing(module, also=("matplotlib",))
+
+
+def test_native_source_is_the_ports_own():
+    """The port compiles its own copy of the host C++ (never the JAX
+    package's file), with the same five entry points."""
+    import medsam2_tpu_torch.native as native
+
+    assert native.SOURCE.parent == PKG / "native"
+    text = native.SOURCE.read_text()
+    for fn in ("rle_encode", "rle_decode", "greedy_nms", "point_nms", "instance_overlap"):
+        assert re.search(rf"\b{fn}\(", text), fn

@@ -275,7 +275,7 @@ def test_predict_instances_matches_jax(sam_params, port_model, injected, monkeyp
     assert int(tb["valid"].sum()) >= 4
 
 
-def test_validate_nuclei_matches_jax(sam_params, port_model, injected):
+def test_validate_nuclei_matches_jax(sam_params, port_model, injected, tmp_path):
     p, rcfg, prompter = _prompters("resnet18")
     rng = np.random.default_rng(9)
     val = [synthetic_nuclei(rng, size=64, num_cells=6) for _ in range(3)]
@@ -289,6 +289,8 @@ def test_validate_nuclei_matches_jax(sam_params, port_model, injected):
     for k in want:
         assert abs(got[k] - want[k]) <= 1e-6, (k, got[k], want[k])
     _same_bank(tb, jb)
-    with pytest.raises(NotImplementedError, match="A.7"):
-        TCLI.validate_nuclei(argparse.Namespace(val_max_samples=1, vis=True), port_model,
-                             prompter, val, tb, None)
+    # -vis: the agreement map and the instance overlay of each image, as JAX
+    pytest.importorskip("matplotlib")
+    vis_args = argparse.Namespace(val_max_samples=1, vis=True, _sample_dir=str(tmp_path))
+    TCLI.validate_nuclei(vis_args, port_model, prompter, val, tb, None)
+    assert sorted(f.name for f in tmp_path.iterdir()) == ["val0_compare.png", "val0_inst.png"]

@@ -68,6 +68,7 @@ from medsam2_tpu_torch.train import recipe_2d as TR2
 from medsam2_tpu_torch.train import recipe_nuclei as TN
 from tests.test_predictors import TINY
 from tests.test_torch_nuclei_data import _write_monuseg
+from tests.test_torch_video_session import no_persistent_cache_writes  # noqa: F401
 
 torch.set_num_threads(2)
 torch.exp(torch.zeros(1))   # see tests/test_torch_attention.py

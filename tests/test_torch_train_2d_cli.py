@@ -2,8 +2,9 @@
 mirroring ``tests/test_cli.py::test_train_2d_cli_synthetic``: synthetic
 fundus data at ``-image_size 64``, two steps, validation capped by
 ``-val_max_samples``; the REFUGE reader on a directory the test writes; the
-flags of the reference commands; and the options that raise with a
-pointer to ROADMAP (the nuclei workload: ``tests/test_torch_nuclei_train.py``)."""
+flags of the reference commands, ``-distributed`` (ignored, as the JAX 2D
+CLI ignores it) and ``-vis`` (the REFUGE loop draws no figures, as in JAX)
+(the nuclei workload: ``tests/test_torch_nuclei_train.py``)."""
 
 import glob
 import json
@@ -79,10 +80,15 @@ def test_train_2d_reference_flags_and_unported_workloads(tmp_path, monkeypatch):
                                                                                     128)
     sample = t2.SyntheticDataset(parse_args(["-image_size", "64"]), "nuclei")[0]
     assert sample["inst_masks"].shape[1:] == (64, 64)
-    monkeypatch.setattr(t2, "get_config", lambda name, **kw: TINY)
-    for argv in (["-distributed", "data"], ["-vis", "1"]):
-        with pytest.raises(NotImplementedError, match="A.7"):
-            t2.main(argv + ["-dataset", "synthetic", "-device", "cpu"])
+    # -distributed is logged and ignored, -vis draws only validate_nuclei's
+    # figures: the REFUGE loop trains as without them
+    logdir = tmp_path / "flags"
+    model, calls = _run(monkeypatch, BASE + ["-dataset", "synthetic", "-distributed", "data",
+                                             "-vis", "1", "-steps_per_epoch", "1",
+                                             "-logdir", str(logdir)])
+    assert calls == {"step": 1, "val": 2}
+    assert "-distributed data is ignored" in next(logdir.glob("*/Log/*.log")).read_text()
+    assert not list(logdir.glob("**/*.png"))
     if not torch.cuda.is_available():
         # the default device is the card: no silent fall back to the CPU
         with pytest.raises(RuntimeError, match="no CUDA device"):

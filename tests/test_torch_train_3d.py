@@ -38,6 +38,7 @@ from medsam2_tpu_torch.state import memory_bank as TB
 from medsam2_tpu_torch.train import recipe_3d as TR
 from tests.test_predictors import TINY
 from tests.test_train_3d import synth_batch
+from tests.test_torch_video_session import no_persistent_cache_writes  # noqa: F401
 
 torch.set_num_threads(2)
 torch.exp(torch.zeros(1))   # see tests/test_torch_attention.py

@@ -26,7 +26,8 @@ from medsam2_tpu_torch.state import memory_bank as TB
 from tests.test_predictors import TINY, moving_square_video
 from tests.test_torch_video_corrections import (ONE, click, corr, run_script,  # noqa: F401
                                                 use_kcache)
-from tests.test_torch_video_session import _pair, _port_model
+from tests.test_torch_video_session import (_pair, _port_model,  # noqa: F401
+                                            no_persistent_cache_writes)
 
 CFG3 = dataclasses.replace(TINY, num_maskmem=3, memory_temporal_stride_for_eval=1)
 T = 10

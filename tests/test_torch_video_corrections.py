@@ -24,7 +24,7 @@ import pytest
 from medsam2_tpu_torch.api import video_predictor as TV
 from tests.test_predictors import TINY, moving_square_video
 from tests.test_torch_video_session import (_pair, _port_model, _propagate,  # noqa: F401
-                                            model, params)
+                                            model, no_persistent_cache_writes, params)
 
 ONE = np.array([1])
 # the memory readouts, chosen as the JAX package chooses them:

@@ -18,6 +18,7 @@ from medsam2_tpu_torch.checkpoint.convert import (load_reference_state_dict,
 from medsam2_tpu_torch.core.sam2_model import SAM2Model
 from medsam2_tpu_torch.state import memory_bank as mb
 from tests.test_predictors import TINY, moving_square_video
+from tests.test_torch_video_session import no_persistent_cache_writes  # noqa: F401
 
 torch.set_num_threads(2)
 TOL = dict(atol=1e-3, rtol=1e-3)
@@ -94,18 +95,24 @@ def test_two_objects_second_cond_frame_match_jax(models):
 
 
 def test_out_of_scope_paths_raise(models):
-    """What the port still leaves out raises NotImplementedError with a
-    pointer to ROADMAP.md: ``propagate_volumes_batched`` over a mesh.
-    Everything else of the session runs (the parity tests of
-    ``tests/test_torch_video_session.py``, ``test_torch_video_corrections.py``
-    and ``test_torch_video_clear.py``)."""
+    """Nothing of the session is left out of the port any more:
+    ``propagate_volumes_batched`` over a mesh (``parallel.mesh``) runs, and
+    at one process (a 1 x 1 mesh) it returns what it returns without one
+    (two ranks: ``tests/test_torch_distributed.py``). The rest of the
+    session: the parity tests of ``tests/test_torch_video_session.py``,
+    ``test_torch_video_corrections.py`` and ``test_torch_video_clear.py``."""
+    from medsam2_tpu_torch.parallel.mesh import make_mesh
+
     _, model = models
     video, _ = moving_square_video(T=6)
     spec = mb.BankSpec.from_config(TINY, max_cond_frames=1)
     videos = np.stack([video, video])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        propagate_volumes_batched(model, spec, videos, np.full((2, 1, 1, 2), 20.0, np.float32),
-                                  np.ones((2, 1, 1), np.int32), mesh=object())
+    args = (model, spec, videos, np.full((2, 1, 1, 2), 20.0, np.float32),
+            np.ones((2, 1, 1), np.int32))
+    want = propagate_volumes_batched(*args)
+    got = propagate_volumes_batched(*args, mesh=make_mesh(model_axis=1))
+    assert got.shape == want.shape == (2, 6, 1, 1, 16, 16)
+    assert torch.equal(got, want)
 
 
 def test_mask_prompts_match_jax(models):

@@ -15,7 +15,7 @@ import pytest
 from medsam2_tpu.core.sam2_model import sam2_init
 from tests.test_predictors import TINY, moving_square_video
 from tests.test_torch_video_session import (_pair, _port_model, _propagate, _session,  # noqa: F401
-                                            model, params)
+                                            model, no_persistent_cache_writes, params)
 
 def test_kcache_and_uncached_match_jax(params, model):
     """``tests/test_predictors.py:298``: ``use_kcache=False`` (read order

@@ -5,19 +5,28 @@ over a wrapping ring, the eval stride, segmented edge cases, resumed and
 bidirectional sessions, the eval predictor (hole filling, non-overlap) and
 sessions from a JPEG directory (async, offloaded). Low-res logits agree to
 atol 1e-3 / rtol 1e-3, the tolerance of
-``tests/test_torch_video_predictor.py``. The three memory readouts are in
+``tests/test_torch_video_predictor.py``.
+
+The weights are the port's seeded init, read into a JAX tree by the JAX
+package's own reference-checkpoint converter (``convert_state_dict``): no
+JAX init compiles in a worker. Under the driver's ``--dist load`` the tests
+of this file spread over workers, and each worker that takes one builds the
+module fixtures (this file's and those of the files that import them); the
+eager JAX ``sam2_init`` they ran before cost ~30 s of op-by-op compiles per
+worker and module. The three memory readouts are in
 ``tests/test_torch_video_readouts.py``, batched volumes in
 ``tests/test_torch_batched_volumes.py``; both use this file's helpers."""
 
 import dataclasses
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from medsam2_tpu.api import video_predictor as JV
-from medsam2_tpu.core.sam2_model import sam2_init
+from medsam2_tpu.checkpoint.convert import convert_state_dict
 from medsam2_tpu_torch.api import video_predictor as TV
 from medsam2_tpu_torch.checkpoint.convert import (load_reference_state_dict,
                                                   state_dict_from_jax)
@@ -31,6 +40,22 @@ PT = np.array([[16.0, 28.0]])
 ONE = np.array([1])
 
 
+@pytest.fixture(scope="module", autouse=True)
+def no_persistent_cache_writes():
+    """Keep the module's JAX compiles out of the persistent compilation
+    cache. ``tests/conftest.py`` writes every compile that takes 30 s or
+    more; under the driver's load a mid-size compile of the JAX predictor's
+    steps (or train step) passes 30 s, and XLA:CPU aborts the worker while
+    it serialises the executable (the traceback ends in
+    ``compilation_cache.put_executable_and_time``). Files that compile such
+    programs import this fixture."""
+    key = "jax_persistent_cache_min_compile_time_secs"
+    before = getattr(jax.config, key)
+    jax.config.update(key, float("inf"))
+    yield
+    jax.config.update(key, before)
+
+
 def _port_model(params, cfg):
     model = SAM2Model(cfg, seed=1, device="cpu")
     load_reference_state_dict(
@@ -39,13 +64,15 @@ def _port_model(params, cfg):
 
 
 @pytest.fixture(scope="module")
-def params():
-    return sam2_init(jax.random.PRNGKey(0), TINY)
+def model():
+    return SAM2Model(TINY, seed=0, device="cpu")
 
 
 @pytest.fixture(scope="module")
-def model(params):
-    return _port_model(params, TINY)
+def params(model):
+    """The port model's weights as JAX parameters."""
+    sd = {k: v.numpy() for k, v in model.state_dict().items()}
+    return jax.tree_util.tree_map(jnp.asarray, convert_state_dict(sd, TINY))
 
 
 _JAX_PREDICTORS = {}
