@@ -1,0 +1,1 @@
+"""Plain PyTorch reference of the benchmark; imports nothing of the program."""
