@@ -58,6 +58,7 @@ from medsam2_tpu_torch.core.sam2_model import (SAM2Model, apply_non_overlapping_
                                                compute_dtype, kcache_shape, use_multimask)
 from medsam2_tpu_torch.ops.connected_components import fill_holes_in_mask_scores
 from medsam2_tpu_torch.state import memory_bank as mb
+from medsam2_tpu_torch.utils import tracing
 from medsam2_tpu_torch.utils.transforms import IMAGENET_MEAN, IMAGENET_STD, preprocess_video
 
 
@@ -347,8 +348,8 @@ class SAM2VideoPredictor:
         dev = self.device
         return _prompt_step(
             self.model, self._session_images(state), bank, frame_idx,
-            torch.from_numpy(coords).to(dev), torch.from_numpy(labels).to(dev),
-            torch.from_numpy(mask_inputs).to(dev), ~has_pts, spec=spec,
+            tracing.upload(coords, dev), tracing.upload(labels, dev),
+            tracing.upload(mask_inputs, dev), ~has_pts, spec=spec,
             multimask_output=use_multimask(self.cfg, True, max_pts),
             is_eval=state["is_eval"], num_frames=state["num_frames"], write_cond=write_cond)
 
@@ -362,9 +363,8 @@ class SAM2VideoPredictor:
             state, frame_idx)
         dev = self.device
         prev_low, prev_ptr = self._last_output(state, frame_idx)
-        return dict(coords=torch.from_numpy(coords).to(dev),
-                    labels=torch.from_numpy(labels).to(dev),
-                    mask_inputs=torch.from_numpy(mask_inputs).to(dev), use_mask=has_mask,
+        return dict(coords=tracing.upload(coords, dev), labels=tracing.upload(labels, dev),
+                    mask_inputs=tracing.upload(mask_inputs, dev), use_mask=has_mask,
                     corrected=has_pts, prev_low=prev_low, prev_ptr=prev_ptr,
                     multimask_output=use_multimask(self.cfg, False, max_pts))
 
@@ -620,55 +620,56 @@ def propagate_volumes_batched(model: SAM2Model, spec: mb.BankSpec, videos, promp
                                           mesh.data_shard(prompt_labels), num_objects,
                                           prompt_frames, fold)
         return mesh.all_gather_data(local)
-    if fold is None:
-        fold = os.environ.get("MEDSAM2_FOLD", "1") == "1"
-    cfg = model.cfg
-    dev = model.device
-    videos = torch.as_tensor(videos).to(dev)
-    coords = torch.as_tensor(prompt_coords, dtype=torch.float32).to(dev)
-    labels = torch.as_tensor(prompt_labels, dtype=torch.int32).to(dev)
-    if coords.ndim == 4:          # one prompt frame: [V, O, P, 2]
-        coords, labels = coords[:, None], labels[:, None]
-    prompt_frames = tuple(prompt_frames)
-    if coords.shape[1] != len(prompt_frames):
-        raise ValueError(f"prompt_coords has {coords.shape[1]} prompt-frame sets but "
-                         f"prompt_frames={prompt_frames!r}")
-    if spec.max_cond_frames < len(prompt_frames):
-        raise ValueError(f"spec.max_cond_frames={spec.max_cond_frames} cannot hold "
-                         f"{len(prompt_frames)} conditioning frames")
-    V, T = videos.shape[:2]
-    O = num_objects
-    S = cfg.image_size
-    pos_kcache = model.make_pos_kcache(spec) if kcache_shape(cfg)[0] > 0 else None
-    trunk_pe = _trunk_pos_embed(model, videos)
+    with tracing.span("propagate", new_call=True):
+        if fold is None:
+            fold = os.environ.get("MEDSAM2_FOLD", "1") == "1"
+        cfg = model.cfg
+        dev = model.device
+        videos = torch.as_tensor(videos).to(dev)
+        coords = torch.as_tensor(prompt_coords, dtype=torch.float32).to(dev)
+        labels = torch.as_tensor(prompt_labels, dtype=torch.int32).to(dev)
+        if coords.ndim == 4:          # one prompt frame: [V, O, P, 2]
+            coords, labels = coords[:, None], labels[:, None]
+        prompt_frames = tuple(prompt_frames)
+        if coords.shape[1] != len(prompt_frames):
+            raise ValueError(f"prompt_coords has {coords.shape[1]} prompt-frame sets but "
+                             f"prompt_frames={prompt_frames!r}")
+        if spec.max_cond_frames < len(prompt_frames):
+            raise ValueError(f"spec.max_cond_frames={spec.max_cond_frames} cannot hold "
+                             f"{len(prompt_frames)} conditioning frames")
+        V, T = videos.shape[:2]
+        O = num_objects
+        S = cfg.image_size
+        pos_kcache = model.make_pos_kcache(spec) if kcache_shape(cfg)[0] > 0 else None
+        trunk_pe = _trunk_pos_embed(model, videos)
 
-    def stream(images, c, l, rows: int, kv_storage: bool):
-        """Prompt frames, then every other frame in order, for one bank of
-        ``rows`` rows; c [F, rows, P, 2], l [F, rows, P]."""
-        bank = mb.init_bank(spec, rows, dev, kcache_shape=kcache_shape(cfg),
-                            kcache_dtype=compute_dtype(cfg))
-        stored = {}
-        for i, f in enumerate(prompt_frames):
-            out, bank = _prompt_step(
-                model, images, bank, f, c[i], l[i], torch.zeros(rows, S, S, 1, device=dev),
-                np.zeros((rows,), bool), spec=spec, multimask_output=False, is_eval=True,
-                num_frames=T)
-            stored[f] = (out["pred_masks"].float(), out["obj_ptr"].float())
-        masks, _ = _run_segments(model, images, bank, list(range(T)), stored, spec=spec,
-                                 pos_kcache=pos_kcache, trunk_pe=trunk_pe, num_frames=T,
-                                 is_eval=True, track_in_reverse=False,
-                                 kv_storage=kv_storage)
-        return masks                                          # [T, rows, 1, h4, h4]
+        def stream(images, c, l, rows: int, kv_storage: bool):
+            """Prompt frames, then every other frame in order, for one bank of
+            ``rows`` rows; c [F, rows, P, 2], l [F, rows, P]."""
+            bank = mb.init_bank(spec, rows, dev, kcache_shape=kcache_shape(cfg),
+                                kcache_dtype=compute_dtype(cfg))
+            stored = {}
+            for i, f in enumerate(prompt_frames):
+                out, bank = _prompt_step(
+                    model, images, bank, f, c[i], l[i], torch.zeros(rows, S, S, 1, device=dev),
+                    np.zeros((rows,), bool), spec=spec, multimask_output=False, is_eval=True,
+                    num_frames=T)
+                stored[f] = (out["pred_masks"].float(), out["obj_ptr"].float())
+            masks, _ = _run_segments(model, images, bank, list(range(T)), stored, spec=spec,
+                                     pos_kcache=pos_kcache, trunk_pe=trunk_pe, num_frames=T,
+                                     is_eval=True, track_in_reverse=False,
+                                     kv_storage=kv_storage)
+            return masks                                          # [T, rows, 1, h4, h4]
 
-    if fold:
-        B = V * O
-        masks = stream(videos, coords.transpose(0, 1).reshape(len(prompt_frames), B, -1, 2),
-                       labels.transpose(0, 1).reshape(len(prompt_frames), B, -1), B,
-                       kv_storage=pos_kcache is not None and _kv_storage_enabled())
-        h4 = masks.shape[-1]
-        return masks.reshape(T, V, O, 1, h4, h4).transpose(0, 1)
-    return torch.stack([stream(videos[v], coords[v], labels[v], O, kv_storage=False)
-                        for v in range(V)])
+        if fold:
+            B = V * O
+            masks = stream(videos, coords.transpose(0, 1).reshape(len(prompt_frames), B, -1, 2),
+                           labels.transpose(0, 1).reshape(len(prompt_frames), B, -1), B,
+                           kv_storage=pos_kcache is not None and _kv_storage_enabled())
+            h4 = masks.shape[-1]
+            return masks.reshape(T, V, O, 1, h4, h4).transpose(0, 1)
+        return torch.stack([stream(videos[v], coords[v], labels[v], O, kv_storage=False)
+                            for v in range(V)])
 
 
 def _select_frame(images, frame_idx: int):
@@ -689,9 +690,10 @@ def _encode_frame(model: SAM2Model, frame, trunk_pos_embed=None):
     """frame [n, S, S, 3] -> (feats, pos) lists, highest-res first (a frozen
     trunk runs without autograd, :meth:`SAM2Model.forward_image`). A frame
     held on the host moves to the card here."""
-    out = model.forward_image(frame.to(model.device, compute_dtype(model.cfg)),
-                              trunk_pos_embed=trunk_pos_embed)
-    return model.prepare_backbone_features(out)
+    with tracing.span("image_encoder"):
+        out = model.forward_image(frame.to(model.device, compute_dtype(model.cfg)),
+                                  trunk_pos_embed=trunk_pos_embed)
+        return model.prepare_backbone_features(out)
 
 
 def _expand(xs, B: int):
@@ -721,48 +723,50 @@ def _prompt_step(model: SAM2Model, images, bank, frame_idx: int, coords, labels,
     grad is enabled (the 3D recipe's prompt frames); the bank is then a new
     dict. Returns (outputs with ``pred_masks``, ``pred_masks_high_res``,
     ``obj_ptr``, ``object_score_logits``, ``maskmem_features``; bank)."""
-    cfg = model.cfg
-    B = coords.shape[0]
-    feats, pos = _encode_frame(model, _select_frame(images, frame_idx))
-    feats, pos = _expand(feats, B), _expand(pos, B)
-    high_res = feats[:-1] if len(feats) > 1 else None
-    pix = feats[-1]
-    results = []
-    if not use_mask.all():
-        Bp, h, w, C = pix.shape
-        pix_mem = (pix.reshape(Bp, h * w, C) + model.no_mem_embed.to(pix.dtype)).reshape(
-            Bp, h, w, C)
-        results.append(model.forward_sam_heads(
-            pix_mem, point_inputs={"point_coords": coords, "point_labels": labels},
-            high_res_features=high_res, multimask_output=multimask_output,
-            eval_dynamic_multimask=is_eval))
-    if use_mask.any():
-        results.append(model.use_mask_as_output(pix, high_res, mask_inputs))
-    if len(results) == 1:
-        sam = results[0]
-        low_res, high_res_masks, obj_ptr = sam.low_res_masks, sam.high_res_masks, sam.obj_ptr
-        obj_score = sam.object_score_logits
-    else:
-        point_out, mask_out = results
-        sel = torch.from_numpy(use_mask).to(pix.device)
+    with tracing.span("prompt_step", frame=frame_idx):
+        cfg = model.cfg
+        B = coords.shape[0]
+        feats, pos = _encode_frame(model, _select_frame(images, frame_idx))
+        feats, pos = _expand(feats, B), _expand(pos, B)
+        high_res = feats[:-1] if len(feats) > 1 else None
+        pix = feats[-1]
+        results = []
+        if not use_mask.all():
+            Bp, h, w, C = pix.shape
+            pix_mem = (pix.reshape(Bp, h * w, C) + model.no_mem_embed.to(pix.dtype)).reshape(
+                Bp, h, w, C)
+            results.append(model.forward_sam_heads(
+                pix_mem, point_inputs={"point_coords": coords, "point_labels": labels},
+                high_res_features=high_res, multimask_output=multimask_output,
+                eval_dynamic_multimask=is_eval))
+        if use_mask.any():
+            results.append(model.use_mask_as_output(pix, high_res, mask_inputs))
+        if len(results) == 1:
+            sam = results[0]
+            low_res, high_res_masks, obj_ptr = sam.low_res_masks, sam.high_res_masks, sam.obj_ptr
+            obj_score = sam.object_score_logits
+        else:
+            point_out, mask_out = results
+            sel = tracing.upload(use_mask, pix.device)
 
-        def pick(a, b):
-            return torch.where(sel.reshape((B,) + (1,) * (a.ndim - 1)), b, a)
+            def pick(a, b):
+                return torch.where(sel.reshape((B,) + (1,) * (a.ndim - 1)), b, a)
 
-        low_res = pick(point_out.low_res_masks, mask_out.low_res_masks)
-        high_res_masks = pick(point_out.high_res_masks, mask_out.high_res_masks)
-        obj_ptr = pick(point_out.obj_ptr, mask_out.obj_ptr)
-        obj_score = pick(point_out.object_score_logits, mask_out.object_score_logits)
-    maskmem, _ = model.encode_new_memory(
-        feats[-1], high_res_masks,
-        is_mask_from_pts=torch.from_numpy(~use_mask).to(pix.device), binarize=is_eval,
-        apply_non_overlap=(cfg.non_overlap_masks_for_mem_enc and is_eval))
-    kcache = (model.memory_kcache(maskmem, bank["kcache"].dtype)
-              if "kcache" in bank else None)
-    bank = mb.write_bank(spec, bank, frame_idx, maskmem, obj_ptr, is_cond=write_cond,
-                         kcache=kcache)
-    return {"pred_masks": low_res, "pred_masks_high_res": high_res_masks, "obj_ptr": obj_ptr,
-            "object_score_logits": obj_score, "maskmem_features": maskmem}, bank
+            low_res = pick(point_out.low_res_masks, mask_out.low_res_masks)
+            high_res_masks = pick(point_out.high_res_masks, mask_out.high_res_masks)
+            obj_ptr = pick(point_out.obj_ptr, mask_out.obj_ptr)
+            obj_score = pick(point_out.object_score_logits, mask_out.object_score_logits)
+        from_pts = tracing.upload(~use_mask, pix.device)
+        with tracing.span("memory_encoder"):
+            maskmem, _ = model.encode_new_memory(
+                feats[-1], high_res_masks, is_mask_from_pts=from_pts, binarize=is_eval,
+                apply_non_overlap=(cfg.non_overlap_masks_for_mem_enc and is_eval))
+            kcache = (model.memory_kcache(maskmem, bank["kcache"].dtype)
+                      if "kcache" in bank else None)
+        bank = mb.write_bank(spec, bank, frame_idx, maskmem, obj_ptr, is_cond=write_cond,
+                             kcache=kcache)
+        return {"pred_masks": low_res, "pred_masks_high_res": high_res_masks, "obj_ptr": obj_ptr,
+                "object_score_logits": obj_score, "maskmem_features": maskmem}, bank
 
 
 def _correction_step(model: SAM2Model, images, bank, frame_idx: int, *, coords, labels,
@@ -793,7 +797,7 @@ def _correction_step(model: SAM2Model, images, bank, frame_idx: int, *, coords, 
     obj_ptr = prev_ptr
 
     def pick(sel: np.ndarray, new, old):
-        m = torch.from_numpy(sel).to(dev).reshape((B,) + (1,) * (new.ndim - 1))
+        m = tracing.upload(sel, dev).reshape((B,) + (1,) * (new.ndim - 1))
         return torch.where(m, new.to(old.dtype), old)       # old: fp32, as JAX promotes
 
     for sel, path in ((corrected, "points"), (use_mask, "mask")):
@@ -814,11 +818,12 @@ def _correction_step(model: SAM2Model, images, bank, frame_idx: int, *, coords, 
         low_res = pick(sel, sam.low_res_masks, low_res)
         high_res_masks = pick(sel, sam.high_res_masks, high_res_masks)
         obj_ptr = pick(sel, sam.obj_ptr, obj_ptr)
-    maskmem, _ = model.encode_new_memory(
-        feats[-1], high_res_masks, is_mask_from_pts=True, binarize=is_eval,
-        apply_non_overlap=(cfg.non_overlap_masks_for_mem_enc and is_eval))
-    kcache = (model.memory_kcache(maskmem, bank["kcache"].dtype)
-              if "kcache" in bank else None)
+    with tracing.span("memory_encoder"):
+        maskmem, _ = model.encode_new_memory(
+            feats[-1], high_res_masks, is_mask_from_pts=True, binarize=is_eval,
+            apply_non_overlap=(cfg.non_overlap_masks_for_mem_enc and is_eval))
+        kcache = (model.memory_kcache(maskmem, bank["kcache"].dtype)
+                  if "kcache" in bank else None)
     bank = mb.write_bank(spec, bank, frame_idx, maskmem, obj_ptr, is_cond=False,
                          kcache=kcache)
     return {"pred_masks": low_res, "obj_ptr": obj_ptr}, bank
@@ -838,11 +843,12 @@ def _reencode_memory(model: SAM2Model, images, bank, frame_idx: int, prev_low, p
     feats = _expand(feats, prev_low.shape[0])
     prev_high = layers.interpolate(prev_low.float().permute(0, 2, 3, 1), (S, S),
                                    method="bilinear").permute(0, 3, 1, 2)
-    maskmem, _ = model.encode_new_memory(
-        feats[-1], prev_high, is_mask_from_pts=mask_from_pts, binarize=is_eval,
-        apply_non_overlap=(cfg.non_overlap_masks_for_mem_enc and is_eval))
-    kcache = (model.memory_kcache(maskmem, bank["kcache"].dtype)
-              if "kcache" in bank else None)
+    with tracing.span("memory_encoder"):
+        maskmem, _ = model.encode_new_memory(
+            feats[-1], prev_high, is_mask_from_pts=mask_from_pts, binarize=is_eval,
+            apply_non_overlap=(cfg.non_overlap_masks_for_mem_enc and is_eval))
+        kcache = (model.memory_kcache(maskmem, bank["kcache"].dtype)
+                  if "kcache" in bank else None)
     return mb.write_bank(spec, bank, frame_idx, maskmem, prev_ptr, is_cond=False,
                          kcache=kcache)
 
@@ -858,15 +864,16 @@ def _track_run(model: SAM2Model, images, bank, frames: List[int], *, spec: mb.Ba
     multimask = use_multimask(model.cfg, False, 0)
     masks, ptrs = [], []
     for f in frames:
-        feats, pos = _encode_frame(model, _select_frame(images, f), trunk_pos_embed=trunk_pe)
-        out, bank = model.track_step(
-            spec, bank, f, is_init_cond_frame=False,
-            current_vision_feats=_expand(feats, B), current_vision_pos=_expand(pos, B),
-            multimask_output=multimask, run_mem_encoder=True, is_cond_frame=False,
-            num_frames=num_frames, is_eval=is_eval, pos_kcache=pos_kcache,
-            track_in_reverse=track_in_reverse, kv_storage=kv_storage)
-        masks.append(out["pred_masks"].float())
-        ptrs.append(out["obj_ptr"].float())
+        with tracing.span("track_step", frame=f):
+            feats, pos = _encode_frame(model, _select_frame(images, f), trunk_pos_embed=trunk_pe)
+            out, bank = model.track_step(
+                spec, bank, f, is_init_cond_frame=False,
+                current_vision_feats=_expand(feats, B), current_vision_pos=_expand(pos, B),
+                multimask_output=multimask, run_mem_encoder=True, is_cond_frame=False,
+                num_frames=num_frames, is_eval=is_eval, pos_kcache=pos_kcache,
+                track_in_reverse=track_in_reverse, kv_storage=kv_storage)
+            masks.append(out["pred_masks"].float())
+            ptrs.append(out["obj_ptr"].float())
     return torch.stack(masks, dim=0), torch.stack(ptrs, dim=0)
 
 

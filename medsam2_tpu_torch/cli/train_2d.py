@@ -51,8 +51,8 @@ from medsam2_tpu_torch.metrics.instance import (get_dice_1, get_fast_aji, get_fa
 from medsam2_tpu_torch.metrics.segmentation import eval_seg
 from medsam2_tpu_torch.prompter.dpa_p2pnet import Prompter, PrompterConfig
 from medsam2_tpu_torch.train import recipe_2d, recipe_nuclei
-from medsam2_tpu_torch.utils.logging_utils import (MetricLogger, ScalarWriter, create_logger,
-                                                   set_log_dir)
+from medsam2_tpu_torch.utils.logging_utils import (MetricLogger, Profiler, ScalarWriter,
+                                                   create_logger, set_log_dir)
 from medsam2_tpu_torch.utils.visualization import vis_compare_point, vis_inst_image
 
 
@@ -170,8 +170,11 @@ def train_refuge(args, cfg, logger, paths) -> SAM2Model:
     gen = torch.Generator(device=model.device).manual_seed(args.seed)
     ml = MetricLogger()
     writer = ScalarWriter(paths["log_path"])
+    profiler = Profiler(paths["log_path"]) if args.profile else None
     any_written = False
     best_dice = 0.0
+    if profiler:
+        profiler.start()
     for epoch in range(args.epochs):
         t0 = time.time()
         for i, batch in enumerate(device_prefetch(iter(loader), model.device)):
@@ -181,6 +184,8 @@ def train_refuge(args, cfg, logger, paths) -> SAM2Model:
             any_written = True
             scalars = {k: float(v) for k, v in metrics.items()}
             ml.update(**scalars)
+            if profiler:
+                profiler.step()
             if i % args.print_freq == 0:
                 logger.info(f"epoch {epoch} step {i}: {ml}")
         logger.info(f"epoch {epoch} in {time.time() - t0:.1f}s: {ml}")
@@ -192,6 +197,8 @@ def train_refuge(args, cfg, logger, paths) -> SAM2Model:
             if dice > best_dice:
                 best_dice = dice
                 save_checkpoint(paths["ckpt_path"], model, {"adamw": opt}, epoch)
+    if profiler:
+        profiler.close()
     writer.close()
     return model
 
@@ -228,8 +235,11 @@ def train_nuclei(args, cfg, logger, paths):
     gens = [torch.Generator(device=model.device).manual_seed(args.seed + i) for i in range(4)]
     ml = MetricLogger()
     writer = ScalarWriter(paths["log_path"])
+    profiler = Profiler(paths["log_path"]) if args.profile else None
     any_written = False
     best = {"dice1": 0.0, "aji": 0.0}
+    if profiler:
+        profiler.start()
     for epoch in range(args.epochs):
         t0 = time.time()
         for i, batch in enumerate(device_prefetch(iter(loader), model.device)):
@@ -238,6 +248,8 @@ def train_nuclei(args, cfg, logger, paths):
             bank, metrics = step(batch, bank, any_written, *gens[:3])
             any_written = True
             ml.update(**{k: float(v) for k, v in metrics.items()})
+            if profiler:
+                profiler.step()
             if i % args.print_freq == 0:
                 logger.info(f"epoch {epoch} step {i}: {ml}")
         logger.info(f"epoch {epoch} in {time.time() - t0:.1f}s: {ml}")
@@ -254,6 +266,8 @@ def train_nuclei(args, cfg, logger, paths):
                     best[key] = scores[key]
                     save_checkpoint(paths["ckpt_path"], model, {"adamw": opt}, epoch,
                                     prompter=prompter, name=name)
+    if profiler:
+        profiler.close()
     writer.close()
     return model, prompter
 

@@ -223,6 +223,8 @@ def main(argv=None):
     # its own, the ranks of a model group the same
     gen = torch.Generator(device=model.device).manual_seed(
         args.seed + (mesh.data_index if mesh is not None else 0))
+    if profiler:
+        profiler.start()
     for epoch in range(start_epoch, args.epochs):
         t0 = time.time()
         for i, batch in enumerate(device_prefetch(iter(train_loader), model.device,

@@ -18,6 +18,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from medsam2_tpu_torch.utils import tracing
+
 
 def sine_pos_embed_grid(h: int, w: int, num_pos_feats: int) -> np.ndarray:
     """[H, W, C] ``PositionEmbeddingSine`` (temperature 1e4, normalised, scale
@@ -87,8 +89,8 @@ class PositionEmbeddingRandom(nn.Module):
 
     def points(self, coords, image_size: Tuple[int, int]):
         """Unnormalised pixel coords [..., 2] in (x, y) order."""
-        scale = torch.tensor([1.0 / image_size[1], 1.0 / image_size[0]],
-                             dtype=torch.float32, device=coords.device)
+        scale = tracing.upload(np.array([1.0 / image_size[1], 1.0 / image_size[0]], np.float32),
+                               coords.device)
         return self.encode(coords * scale)
 
 

@@ -31,6 +31,7 @@ from medsam2_tpu_torch.core.memory import (MemoryAttention, MemoryEncoder,
 from medsam2_tpu_torch.core.pos_enc import get_1d_sine_pe, sine_pos_embed
 from medsam2_tpu_torch.core.prompt_encoder import PromptEncoder
 from medsam2_tpu_torch.state import memory_bank as mb
+from medsam2_tpu_torch.utils import tracing
 
 NO_OBJ_SCORE = -1024.0
 
@@ -150,15 +151,16 @@ class SAM2Model(nn.Module):
         ``torch.no_grad`` (the recipe's ``remat="enc_saved"``: nothing of the
         trunk is kept for the backward); the skip projections belong to the
         mask decoder and keep their graph."""
-        with torch.set_grad_enabled(torch.is_grad_enabled() and self.encoder_trains()):
-            out = self.image_encoder(img_batch, trunk_pos_embed=trunk_pos_embed)
-        if self.cfg.use_high_res_features_in_sam:
-            dec = self.sam_mask_decoder
-            fpn = list(out["backbone_fpn"])
-            fpn[0] = dec.conv_s0(fpn[0])
-            fpn[1] = dec.conv_s1(fpn[1])
-            out["backbone_fpn"] = fpn
-        return out
+        with tracing.span("image_encoder"):
+            with torch.set_grad_enabled(torch.is_grad_enabled() and self.encoder_trains()):
+                out = self.image_encoder(img_batch, trunk_pos_embed=trunk_pos_embed)
+            if self.cfg.use_high_res_features_in_sam:
+                dec = self.sam_mask_decoder
+                fpn = list(out["backbone_fpn"])
+                fpn[0] = dec.conv_s0(fpn[0])
+                fpn[1] = dec.conv_s1(fpn[1])
+                out["backbone_fpn"] = fpn
+            return out
 
     def prepare_backbone_features(self, backbone_out: Dict):
         """(features, position encodings) of the last ``num_feature_levels``
@@ -175,62 +177,63 @@ class SAM2Model(nn.Module):
                           multimask_output: bool = False,
                           eval_dynamic_multimask: bool = False) -> SamHeadOutputs:
         """``SAM2Base._forward_sam_heads`` (``sam2_base.py:252-410``)."""
-        cfg = self.cfg
-        B = backbone_features.shape[0]
-        dev = backbone_features.device
-        if point_inputs is not None:
-            coords = point_inputs["point_coords"]
-            labels = point_inputs["point_labels"]
-        else:
-            coords = torch.zeros(B, 1, 2, device=dev)
-            labels = -torch.ones(B, 1, dtype=torch.int32, device=dev)
-        sam_mask_prompt = None
-        if mask_inputs is not None:
-            ms = cfg.sam_image_embedding_size * 4
-            sam_mask_prompt = mask_inputs.float()
-            if mask_inputs.shape[1] != ms:
-                sam_mask_prompt = layers.interpolate(sam_mask_prompt, (ms, ms),
-                                                     method="bilinear", antialias=True)
-        pe = self.sam_prompt_encoder
-        sparse, dense = pe((coords, labels), masks=sam_mask_prompt)
-        low_res_multimasks, ious, sam_tokens, obj_logits = self.sam_mask_decoder(
-            backbone_features, pe.get_dense_pe(), sparse, dense,
-            multimask_output=multimask_output, high_res_features=high_res_features,
-            dynamic_multimask_via_stability=eval_dynamic_multimask)
-        if cfg.pred_obj_scores:
-            appearing = obj_logits > 0
-            low_res_multimasks = torch.where(appearing[:, :, None, None], low_res_multimasks,
-                                             torch.full_like(low_res_multimasks, NO_OBJ_SCORE))
-        low_res_multimasks = low_res_multimasks.float()
-
-        sam_token = sam_tokens[:, 0]
-        if multimask_output:
-            best = ious.argmax(dim=-1)
-            bidx = torch.arange(B, device=dev)
-            low_res_masks = low_res_multimasks[bidx, best][:, None]
-            if sam_tokens.shape[1] > 1:
-                sam_token = sam_tokens[bidx, best]
-        else:
-            low_res_masks = low_res_multimasks
-        # the resize is per mask, so upsampling only the selected mask is exact
-        high_res_masks = layers.interpolate(
-            low_res_masks.permute(0, 2, 3, 1), (cfg.image_size, cfg.image_size),
-            method="bilinear").permute(0, 3, 1, 2)
-
-        if cfg.use_obj_ptrs_in_encoder:
-            obj_ptr = self.obj_ptr_proj(sam_token)
-        else:
-            obj_ptr = sam_token
-        if cfg.pred_obj_scores:
-            if cfg.soft_no_obj_ptr:
-                lam = torch.sigmoid(obj_logits)
+        with tracing.span("sam_heads"):
+            cfg = self.cfg
+            B = backbone_features.shape[0]
+            dev = backbone_features.device
+            if point_inputs is not None:
+                coords = point_inputs["point_coords"]
+                labels = point_inputs["point_labels"]
             else:
-                lam = (obj_logits > 0).to(obj_ptr.dtype)
-            if cfg.fixed_no_obj_ptr:
-                obj_ptr = lam * obj_ptr
-            obj_ptr = obj_ptr + (1.0 - lam) * self.no_obj_ptr.to(obj_ptr.dtype)
-        return SamHeadOutputs(low_res_multimasks, ious, low_res_masks, high_res_masks,
-                              obj_ptr, obj_logits)
+                coords = torch.zeros(B, 1, 2, device=dev)
+                labels = -torch.ones(B, 1, dtype=torch.int32, device=dev)
+            sam_mask_prompt = None
+            if mask_inputs is not None:
+                ms = cfg.sam_image_embedding_size * 4
+                sam_mask_prompt = mask_inputs.float()
+                if mask_inputs.shape[1] != ms:
+                    sam_mask_prompt = layers.interpolate(sam_mask_prompt, (ms, ms),
+                                                         method="bilinear", antialias=True)
+            pe = self.sam_prompt_encoder
+            sparse, dense = pe((coords, labels), masks=sam_mask_prompt)
+            low_res_multimasks, ious, sam_tokens, obj_logits = self.sam_mask_decoder(
+                backbone_features, pe.get_dense_pe(), sparse, dense,
+                multimask_output=multimask_output, high_res_features=high_res_features,
+                dynamic_multimask_via_stability=eval_dynamic_multimask)
+            if cfg.pred_obj_scores:
+                appearing = obj_logits > 0
+                low_res_multimasks = torch.where(appearing[:, :, None, None], low_res_multimasks,
+                                                 torch.full_like(low_res_multimasks, NO_OBJ_SCORE))
+            low_res_multimasks = low_res_multimasks.float()
+
+            sam_token = sam_tokens[:, 0]
+            if multimask_output:
+                best = ious.argmax(dim=-1)
+                bidx = torch.arange(B, device=dev)
+                low_res_masks = low_res_multimasks[bidx, best][:, None]
+                if sam_tokens.shape[1] > 1:
+                    sam_token = sam_tokens[bidx, best]
+            else:
+                low_res_masks = low_res_multimasks
+            # the resize is per mask, so upsampling only the selected mask is exact
+            high_res_masks = layers.interpolate(
+                low_res_masks.permute(0, 2, 3, 1), (cfg.image_size, cfg.image_size),
+                method="bilinear").permute(0, 3, 1, 2)
+
+            if cfg.use_obj_ptrs_in_encoder:
+                obj_ptr = self.obj_ptr_proj(sam_token)
+            else:
+                obj_ptr = sam_token
+            if cfg.pred_obj_scores:
+                if cfg.soft_no_obj_ptr:
+                    lam = torch.sigmoid(obj_logits)
+                else:
+                    lam = (obj_logits > 0).to(obj_ptr.dtype)
+                if cfg.fixed_no_obj_ptr:
+                    obj_ptr = lam * obj_ptr
+                obj_ptr = obj_ptr + (1.0 - lam) * self.no_obj_ptr.to(obj_ptr.dtype)
+            return SamHeadOutputs(low_res_multimasks, ious, low_res_masks, high_res_masks,
+                                  obj_ptr, obj_logits)
 
     def use_mask_as_output(self, backbone_features, high_res_features,
                            mask_inputs) -> SamHeadOutputs:
@@ -271,26 +274,29 @@ class SAM2Model(nn.Module):
         pix_feat [B, h, w, C]; pred_masks_high_res [B, 1, H, W] logits;
         ``is_mask_from_pts`` a bool or a per-object [B] bool tensor.
         Returns (maskmem_features [B, h*w, D], pos [h*w, D])."""
-        cfg = self.cfg
-        masks = pred_masks_high_res
-        if apply_non_overlap:
-            masks = apply_non_overlapping_constraints(masks)
-        masks = masks.permute(0, 2, 3, 1)
-        if binarize and cfg.binarize_mask_from_pts_for_mem_enc:
-            binarized = (masks > 0).float()
-            sig = torch.sigmoid(masks)
-            if isinstance(is_mask_from_pts, bool):
-                mask_for_mem = binarized if is_mask_from_pts else sig
+        with tracing.span("memory_encoder"):
+            cfg = self.cfg
+            masks = pred_masks_high_res
+            if apply_non_overlap:
+                masks = apply_non_overlapping_constraints(masks)
+            masks = masks.permute(0, 2, 3, 1)
+            if binarize and cfg.binarize_mask_from_pts_for_mem_enc:
+                binarized = (masks > 0).float()
+                sig = torch.sigmoid(masks)
+                if isinstance(is_mask_from_pts, bool):
+                    mask_for_mem = binarized if is_mask_from_pts else sig
+                else:
+                    sel = torch.as_tensor(is_mask_from_pts,
+                                          device=masks.device).reshape(-1, 1, 1, 1)
+                    mask_for_mem = torch.where(sel, binarized, sig)
             else:
-                sel = torch.as_tensor(is_mask_from_pts, device=masks.device).reshape(-1, 1, 1, 1)
-                mask_for_mem = torch.where(sel, binarized, sig)
-        else:
-            mask_for_mem = torch.sigmoid(masks)
-        mask_for_mem = mask_for_mem * cfg.sigmoid_scale_for_mem_enc + cfg.sigmoid_bias_for_mem_enc
-        dt = compute_dtype(cfg)
-        feats, pos = self.memory_encoder(pix_feat.to(dt), mask_for_mem.to(dt))
-        B, h, w, D = feats.shape
-        return feats.reshape(B, h * w, D), pos.reshape(h * w, D)
+                mask_for_mem = torch.sigmoid(masks)
+            mask_for_mem = (mask_for_mem * cfg.sigmoid_scale_for_mem_enc
+                            + cfg.sigmoid_bias_for_mem_enc)
+            dt = compute_dtype(cfg)
+            feats, pos = self.memory_encoder(pix_feat.to(dt), mask_for_mem.to(dt))
+            B, h, w, D = feats.shape
+            return feats.reshape(B, h * w, D), pos.reshape(h * w, D)
 
     def make_pos_kcache(self, spec: mb.BankSpec):
         """Session-static positional half of the roped-key cache [Fa, L, P, C];
@@ -305,9 +311,10 @@ class SAM2Model(nn.Module):
 
     def memory_kcache(self, maskmem_features, dtype):
         """This frame's half of the roped-key cache [B, L, P, C]."""
-        mem_h = self.cfg.sam_image_embedding_size
-        return precompute_memory_kcache(self.memory_attention, maskmem_features,
-                                        (mem_h, mem_h), dtype=dtype)
+        with tracing.span("memory_encoder"):
+            mem_h = self.cfg.sam_image_embedding_size
+            return precompute_memory_kcache(self.memory_attention, maskmem_features,
+                                            (mem_h, mem_h), dtype=dtype)
 
     def _obj_ptr_pos(self, spec: mb.BankSpec, ptr_tdiff, num_frames: int, dtype):
         """Temporal sine encoding of the pointer distances, normalised by the
@@ -403,30 +410,31 @@ class SAM2Model(nn.Module):
         order over the cache; otherwise in read order over raw memory tokens.
         ``generator`` turns on the memory-attention dropout. Returns
         [B, h, w, C]."""
-        cfg = self.cfg
-        B, h, w, C = current_vision_feats.shape
-        curr = current_vision_feats.reshape(B, h * w, C)
-        if cfg.num_maskmem == 0:
-            return current_vision_feats
-        curr_pos = current_vision_pos.reshape(B, h * w, C).to(curr.dtype)
-        if is_init_cond_frame:
-            if cfg.directly_add_no_mem_embed:
-                return (curr + self.no_mem_embed.to(curr.dtype)).reshape(B, h, w, C)
-            tokens = self.no_mem_embed.to(curr.dtype).expand(B, 1, C)
-            pos = self.no_mem_pos_enc.to(curr.dtype).expand(B, 1, C)
-            out = self.memory_attention(curr, curr_pos, (w, h), memory=tokens,
-                                        memory_pos=pos, num_obj_ptr_tokens=0,
-                                        generator=generator)
+        with tracing.span("memory_attention"):
+            cfg = self.cfg
+            B, h, w, C = current_vision_feats.shape
+            curr = current_vision_feats.reshape(B, h * w, C)
+            if cfg.num_maskmem == 0:
+                return current_vision_feats
+            curr_pos = current_vision_pos.reshape(B, h * w, C).to(curr.dtype)
+            if is_init_cond_frame:
+                if cfg.directly_add_no_mem_embed:
+                    return (curr + self.no_mem_embed.to(curr.dtype)).reshape(B, h, w, C)
+                tokens = self.no_mem_embed.to(curr.dtype).expand(B, 1, C)
+                pos = self.no_mem_pos_enc.to(curr.dtype).expand(B, 1, C)
+                out = self.memory_attention(curr, curr_pos, (w, h), memory=tokens,
+                                            memory_pos=pos, num_obj_ptr_tokens=0,
+                                            generator=generator)
+                return out.reshape(B, h, w, C)
+            if kv_storage and pos_kcache is not None and "kcache" in bank:
+                out = self._memory_conditioned_features_storage(
+                    spec, bank, frame_idx, curr, curr_pos, (w, h), num_frames, is_eval,
+                    pos_kcache, track_in_reverse, generator)
+            else:
+                out = self._memory_conditioned_features_read(
+                    spec, bank, frame_idx, curr, curr_pos, (w, h), num_frames, is_eval,
+                    track_in_reverse, pos_kcache, generator)
             return out.reshape(B, h, w, C)
-        if kv_storage and pos_kcache is not None and "kcache" in bank:
-            out = self._memory_conditioned_features_storage(
-                spec, bank, frame_idx, curr, curr_pos, (w, h), num_frames, is_eval,
-                pos_kcache, track_in_reverse, generator)
-        else:
-            out = self._memory_conditioned_features_read(
-                spec, bank, frame_idx, curr, curr_pos, (w, h), num_frames, is_eval,
-                track_in_reverse, pos_kcache, generator)
-        return out.reshape(B, h, w, C)
 
     # ------------------------------------------------------------------
     # track_step
@@ -465,12 +473,13 @@ class SAM2Model(nn.Module):
                "obj_ptr": sam.obj_ptr, "ious": sam.ious,
                "object_score_logits": sam.object_score_logits}
         if run_mem_encoder and cfg.num_maskmem > 0:
-            feats, _ = self.encode_new_memory(
-                current_vision_feats[-1], sam.high_res_masks,
-                is_mask_from_pts=(point_inputs is not None), binarize=is_eval,
-                apply_non_overlap=(cfg.non_overlap_masks_for_mem_enc and is_eval))
-            kcache = (self.memory_kcache(feats, bank["kcache"].dtype)
-                      if "kcache" in bank else None)
+            with tracing.span("memory_encoder"):
+                feats, _ = self.encode_new_memory(
+                    current_vision_feats[-1], sam.high_res_masks,
+                    is_mask_from_pts=(point_inputs is not None), binarize=is_eval,
+                    apply_non_overlap=(cfg.non_overlap_masks_for_mem_enc and is_eval))
+                kcache = (self.memory_kcache(feats, bank["kcache"].dtype)
+                          if "kcache" in bank else None)
             bank = mb.write_bank(spec, bank, frame_idx, feats, sam.obj_ptr,
                                  is_cond=is_cond_frame, kcache=kcache)
         return out, bank

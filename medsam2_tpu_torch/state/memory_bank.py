@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from medsam2_tpu_torch.configs import SAM2Config
+from medsam2_tpu_torch.utils import tracing
 
 
 @dataclasses.dataclass(frozen=True)
@@ -121,59 +122,60 @@ def write_bank(spec: BankSpec, bank, frame_idx: int, maskmem_feats, obj_ptr,
     kcache [B, L, P, d_model], required iff the bank carries one. In place
     for inference; out of place (a new dict) when grad is enabled and the
     write or the bank requires grad."""
-    if ("kcache" in bank) != (kcache is not None):
-        raise ValueError("bank kcache presence and write kcache argument disagree")
-    frame_idx = int(frame_idx)
-    inplace = not (torch.is_grad_enabled() and any(
-        t is not None and t.requires_grad
-        for t in (maskmem_feats, obj_ptr, kcache, *bank.values())))
-    if not inplace:
-        bank = dict(bank)
+    with tracing.span("bank.write"):
+        if ("kcache" in bank) != (kcache is not None):
+            raise ValueError("bank kcache presence and write kcache argument disagree")
+        frame_idx = int(frame_idx)
+        inplace = not (torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (maskmem_feats, obj_ptr, kcache, *bank.values())))
+        if not inplace:
+            bank = dict(bank)
 
-    def put(key, slot, value):
-        """bank[key][:, slot] = value; ``slot`` a host int or a [1] index
-        tensor on the device."""
-        t = bank[key]
-        value = value.to(t.dtype)
-        if inplace and isinstance(slot, int):
-            t[:, slot] = value
-        elif inplace:
-            t.index_copy_(1, slot, value[:, None])
-        else:
-            idx = slot if torch.is_tensor(slot) else torch.tensor([slot], device=t.device)
-            bank[key] = t.index_copy(1, idx, value[:, None])
+        def put(key, slot, value):
+            """bank[key][:, slot] = value; ``slot`` a host int or a [1] index
+            tensor on the device."""
+            t = bank[key]
+            value = value.to(t.dtype)
+            if inplace and isinstance(slot, int):
+                t[:, slot] = value
+            elif inplace:
+                t.index_copy_(1, slot, value[:, None])
+            else:
+                idx = slot if torch.is_tensor(slot) else torch.tensor([slot], device=t.device)
+                bank[key] = t.index_copy(1, idx, value[:, None])
 
-    dev = bank["cond_feats"].device
-    B = bank["cond_feats"].shape[0]
-    frame = torch.full((B,), frame_idx, dtype=torch.int32, device=dev)
-    if is_cond:
-        # re-prompting a stored frame overwrites its slot; else the first
-        # empty slot; else evict the slot farthest from the new frame
-        stored = bank["cond_frame_idx"][0].long()
-        big = torch.iinfo(torch.int32).max
-        key = torch.where(stored == frame_idx, big,
-                          torch.where(stored < 0, big - 1, (stored - frame_idx).abs()))
-        slot = key.argmax().reshape(1)
-        put("cond_feats", slot, maskmem_feats)
-        put("cond_frame_idx", slot, frame)
-        put("cond_obj_ptr", slot, obj_ptr)
-        if kcache is not None:
-            put("kcache", slot, kcache)
-        count = bank["cond_count"]
-        if inplace:
-            count.add_(1).clamp_(max=spec.max_cond_frames)
+        dev = bank["cond_feats"].device
+        B = bank["cond_feats"].shape[0]
+        frame = torch.full((B,), frame_idx, dtype=torch.int32, device=dev)
+        if is_cond:
+            # re-prompting a stored frame overwrites its slot; else the first
+            # empty slot; else evict the slot farthest from the new frame
+            stored = bank["cond_frame_idx"][0].long()
+            big = torch.iinfo(torch.int32).max
+            key = torch.where(stored == frame_idx, big,
+                              torch.where(stored < 0, big - 1, (stored - frame_idx).abs()))
+            slot = key.argmax().reshape(1)
+            put("cond_feats", slot, maskmem_feats)
+            put("cond_frame_idx", slot, frame)
+            put("cond_obj_ptr", slot, obj_ptr)
+            if kcache is not None:
+                put("kcache", slot, kcache)
+            count = bank["cond_count"]
+            if inplace:
+                count.add_(1).clamp_(max=spec.max_cond_frames)
+            else:
+                bank["cond_count"] = (count + 1).clamp(max=spec.max_cond_frames)
         else:
-            bank["cond_count"] = (count + 1).clamp(max=spec.max_cond_frames)
-    else:
-        slot = frame_idx % spec.noncond_ring
-        put("noncond_feats", slot, maskmem_feats)
-        if kcache is not None:
-            put("kcache", spec.max_cond_frames + slot, kcache)
-        put("noncond_frame_idx", slot, frame)
-        pslot = frame_idx % spec.ptr_ring
-        put("ptr_ring", pslot, obj_ptr)
-        put("ptr_frame_idx", pslot, frame)
-    return bank
+            slot = frame_idx % spec.noncond_ring
+            put("noncond_feats", slot, maskmem_feats)
+            if kcache is not None:
+                put("kcache", spec.max_cond_frames + slot, kcache)
+            put("noncond_frame_idx", slot, frame)
+            pslot = frame_idx % spec.ptr_ring
+            put("ptr_ring", pslot, obj_ptr)
+            put("ptr_frame_idx", pslot, frame)
+        return bank
 
 
 def clear_noncond_window(bank, center: int, radius: int):
@@ -217,8 +219,7 @@ def _noncond_target_frames(spec: BankSpec, frame_idx: int,
 
 
 def _ring_slots(spec: BankSpec, targets: np.ndarray, device) -> torch.Tensor:
-    return torch.from_numpy(np.remainder(np.clip(targets, 0, None),
-                                         spec.noncond_ring)).to(device)
+    return tracing.upload(np.remainder(np.clip(targets, 0, None), spec.noncond_ring), device)
 
 
 def read_kcache(spec: BankSpec, bank, frame_idx: int, track_in_reverse: bool = False):
@@ -226,11 +227,12 @@ def read_kcache(spec: BankSpec, bank, frame_idx: int, track_in_reverse: bool = F
     stride-r non-cond targets (the slot arithmetic of :func:`read_bank`).
     Returns [B, Fa, L, P, C]; a stale or empty slot carries finite values
     that :func:`read_bank`'s validity mask excludes."""
-    Mc = spec.max_cond_frames
-    slots = _ring_slots(spec, _noncond_target_frames(spec, frame_idx, track_in_reverse),
-                        bank["kcache"].device)
-    nc = bank["kcache"].index_select(1, Mc + slots)
-    return torch.cat([bank["kcache"][:, :Mc], nc], dim=1)
+    with tracing.span("bank.read"):
+        Mc = spec.max_cond_frames
+        slots = _ring_slots(spec, _noncond_target_frames(spec, frame_idx, track_in_reverse),
+                            bank["kcache"].device)
+        nc = bank["kcache"].index_select(1, Mc + slots)
+        return torch.cat([bank["kcache"][:, :Mc], nc], dim=1)
 
 
 def kv_storage_layout(spec: BankSpec, bank, frame_idx: int, track_in_reverse: bool = False):
@@ -238,17 +240,17 @@ def kv_storage_layout(spec: BankSpec, bank, frame_idx: int, track_in_reverse: bo
     attended. Returns (row_of_slot [Mc + R] int32, slot_valid [B, Mc + R]
     bool); a ring slot is valid iff its stored frame is one of the stride-r
     targets."""
-    dev = bank["noncond_frame_idx"].device
-    Mc = spec.max_cond_frames
-    targets = torch.from_numpy(_noncond_target_frames(spec, frame_idx,
-                                                      track_in_reverse)).to(dev)
-    stored = bank["noncond_frame_idx"].long()                               # [B, R]
-    eq = (stored[:, :, None] == targets[None, None, :]) & (targets >= 0)[None, None, :]
-    ring_valid = eq.any(dim=-1)
-    ring_row = Mc + eq[0].int().argmax(dim=-1).int()      # invalid slots: masked
-    cond_valid = bank["cond_frame_idx"] >= 0
-    row_of_slot = torch.cat([torch.arange(Mc, dtype=torch.int32, device=dev), ring_row])
-    return row_of_slot, torch.cat([cond_valid, ring_valid], dim=1)
+    with tracing.span("bank.read"):
+        dev = bank["noncond_frame_idx"].device
+        Mc = spec.max_cond_frames
+        targets = tracing.upload(_noncond_target_frames(spec, frame_idx, track_in_reverse), dev)
+        stored = bank["noncond_frame_idx"].long()                               # [B, R]
+        eq = (stored[:, :, None] == targets[None, None, :]) & (targets >= 0)[None, None, :]
+        ring_valid = eq.any(dim=-1)
+        ring_row = Mc + eq[0].int().argmax(dim=-1).int()      # invalid slots: masked
+        cond_valid = bank["cond_frame_idx"] >= 0
+        row_of_slot = torch.cat([torch.arange(Mc, dtype=torch.int32, device=dev), ring_row])
+        return row_of_slot, torch.cat([cond_valid, ring_valid], dim=1)
 
 
 def pos_kcache_rows(spec: BankSpec, maskmem_tpos_enc, spatial_pos):
@@ -257,8 +259,8 @@ def pos_kcache_rows(spec: BankSpec, maskmem_tpos_enc, spatial_pos):
     non-cond position j takes num_maskmem - j - 2)."""
     D = spec.mem_dim
     cond_tpos = maskmem_tpos_enc[spec.num_maskmem - 1]
-    tpos_idx = spec.num_maskmem - torch.arange(1, spec.num_maskmem) - 1
-    nc_tpos = maskmem_tpos_enc[tpos_idx.to(maskmem_tpos_enc.device)]
+    tpos_idx = spec.num_maskmem - np.arange(1, spec.num_maskmem) - 1
+    nc_tpos = maskmem_tpos_enc[tracing.upload(tpos_idx, maskmem_tpos_enc.device)]
     tpos = torch.cat([cond_tpos[None].expand(spec.max_cond_frames, D), nc_tpos], dim=0)
     return spatial_pos[None, :, :] + tpos[:, None, :]
 
@@ -270,35 +272,36 @@ def read_ptrs(spec: BankSpec, bank, frame_idx: int, track_in_reverse: bool = Fal
     (the frames before the current one, or after it in reverse), split into
     mem_dim tokens. Returns (ptr_tokens [B, Nt, D], ptr_token_valid [B, Nt]
     bool, ptr_tdiff [B, num_ptr_slots])."""
-    B = bank["cond_obj_ptr"].shape[0]
-    D = spec.mem_dim
-    dev = bank["cond_obj_ptr"].device
-    cond_idx = bank["cond_frame_idx"]
-    cond_valid = cond_idx >= 0
-    if obj_ptrs_in_past_only:
-        cond_valid = cond_valid & ((cond_idx >= frame_idx) if track_in_reverse
-                                   else (cond_idx <= frame_idx))
-    eff_max = min(int(num_frames), spec.max_obj_ptrs)
-    t_diff = np.arange(1, spec.max_obj_ptrs, dtype=np.int64)
-    targets = frame_idx + t_diff if track_in_reverse else frame_idx - t_diff
-    in_range = (targets >= 0) & (targets < num_frames) & (t_diff < eff_max)
-    pslots = torch.from_numpy(np.remainder(np.clip(targets, 0, None), spec.ptr_ring)).to(dev)
-    ring_ptrs = bank["ptr_ring"].index_select(1, pslots)
-    ring_stored = bank["ptr_frame_idx"].index_select(1, pslots)
-    ring_valid = ((ring_stored == torch.from_numpy(targets).to(dev)[None])
-                  & torch.from_numpy(in_range).to(dev)[None])
-    # a frame both cond and in the pointer window contributes its cond pointer
-    dup = (ring_stored[:, :, None] == cond_idx[:, None, :]) & cond_valid[:, None, :]
-    ring_valid = ring_valid & ~dup.any(dim=-1)
+    with tracing.span("bank.read"):
+        B = bank["cond_obj_ptr"].shape[0]
+        D = spec.mem_dim
+        dev = bank["cond_obj_ptr"].device
+        cond_idx = bank["cond_frame_idx"]
+        cond_valid = cond_idx >= 0
+        if obj_ptrs_in_past_only:
+            cond_valid = cond_valid & ((cond_idx >= frame_idx) if track_in_reverse
+                                       else (cond_idx <= frame_idx))
+        eff_max = min(int(num_frames), spec.max_obj_ptrs)
+        t_diff = np.arange(1, spec.max_obj_ptrs, dtype=np.int64)
+        targets = frame_idx + t_diff if track_in_reverse else frame_idx - t_diff
+        in_range = (targets >= 0) & (targets < num_frames) & (t_diff < eff_max)
+        pslots = tracing.upload(np.remainder(np.clip(targets, 0, None), spec.ptr_ring), dev)
+        ring_ptrs = bank["ptr_ring"].index_select(1, pslots)
+        ring_stored = bank["ptr_frame_idx"].index_select(1, pslots)
+        ring_valid = ((ring_stored == tracing.upload(targets, dev)[None])
+                      & tracing.upload(in_range, dev)[None])
+        # a frame both cond and in the pointer window contributes its cond pointer
+        dup = (ring_stored[:, :, None] == cond_idx[:, None, :]) & cond_valid[:, None, :]
+        ring_valid = ring_valid & ~dup.any(dim=-1)
 
-    all_ptrs = torch.cat([bank["cond_obj_ptr"], ring_ptrs], dim=1)
-    all_valid = torch.cat([cond_valid, ring_valid], dim=1)
-    all_t = torch.cat([cond_idx, ring_stored], dim=1)
-    ptr_tdiff = torch.where(all_valid, (all_t - frame_idx).abs(), torch.zeros_like(all_t))
-    tok = spec.tokens_per_ptr
-    ptr_tokens = all_ptrs.reshape(B, spec.num_ptr_slots * tok, D)
-    ptr_valid = all_valid.repeat_interleave(tok, dim=1)
-    return ptr_tokens, ptr_valid, ptr_tdiff
+        all_ptrs = torch.cat([bank["cond_obj_ptr"], ring_ptrs], dim=1)
+        all_valid = torch.cat([cond_valid, ring_valid], dim=1)
+        all_t = torch.cat([cond_idx, ring_stored], dim=1)
+        ptr_tdiff = torch.where(all_valid, (all_t - frame_idx).abs(), torch.zeros_like(all_t))
+        tok = spec.tokens_per_ptr
+        ptr_tokens = all_ptrs.reshape(B, spec.num_ptr_slots * tok, D)
+        ptr_valid = all_valid.repeat_interleave(tok, dim=1)
+        return ptr_tokens, ptr_valid, ptr_tdiff
 
 
 def read_bank(spec: BankSpec, bank, frame_idx: int, maskmem_tpos_enc, spatial_pos,
@@ -314,32 +317,33 @@ def read_bank(spec: BankSpec, bank, frame_idx: int, maskmem_tpos_enc, spatial_po
     num_obj_ptr_tokens, ptr_tdiff [B, num_ptr_slots]); T = Fa * P + the
     pointer tokens. The gathers are differentiable: gradients reach the
     memories of earlier frames."""
-    P, D = spec.mem_spatial, spec.mem_dim
-    B = bank["cond_feats"].shape[0]
-    dev = bank["cond_feats"].device
-    Mc = spec.max_cond_frames
-    cond_valid = bank["cond_frame_idx"] >= 0                              # [B, Mc]
-    cond_tpos = maskmem_tpos_enc[spec.num_maskmem - 1]                    # [D]
-    targets_np = _noncond_target_frames(spec, frame_idx, track_in_reverse)  # [F]
-    slots = _ring_slots(spec, targets_np, dev)
-    targets = torch.from_numpy(targets_np).to(dev)
-    nc_feats = bank["noncond_feats"].index_select(1, slots)               # [B, F, P, D]
-    stored = bank["noncond_frame_idx"].index_select(1, slots).long()
-    nc_valid = (stored == targets[None]) & (targets >= 0)[None]
-    # t_pos k takes embedding num_maskmem - k - 1 (sam2_base.py:577-579)
-    tpos_idx = spec.num_maskmem - torch.arange(1, spec.num_maskmem, device=dev) - 1
-    tpos = torch.cat([cond_tpos[None].expand(Mc, D), maskmem_tpos_enc[tpos_idx]], dim=0)
+    with tracing.span("bank.read"):
+        P, D = spec.mem_spatial, spec.mem_dim
+        B = bank["cond_feats"].shape[0]
+        dev = bank["cond_feats"].device
+        Mc = spec.max_cond_frames
+        cond_valid = bank["cond_frame_idx"] >= 0                              # [B, Mc]
+        cond_tpos = maskmem_tpos_enc[spec.num_maskmem - 1]                    # [D]
+        targets_np = _noncond_target_frames(spec, frame_idx, track_in_reverse)  # [F]
+        slots = _ring_slots(spec, targets_np, dev)
+        targets = tracing.upload(targets_np, dev)
+        nc_feats = bank["noncond_feats"].index_select(1, slots)               # [B, F, P, D]
+        stored = bank["noncond_frame_idx"].index_select(1, slots).long()
+        nc_valid = (stored == targets[None]) & (targets >= 0)[None]
+        # t_pos k takes embedding num_maskmem - k - 1 (sam2_base.py:577-579)
+        tpos_idx = spec.num_maskmem - torch.arange(1, spec.num_maskmem, device=dev) - 1
+        tpos = torch.cat([cond_tpos[None].expand(Mc, D), maskmem_tpos_enc[tpos_idx]], dim=0)
 
-    Fa = spec.num_frames_attended
-    memory_sp = torch.cat([bank["cond_feats"], nc_feats], dim=1).reshape(B, Fa * P, D)
-    pos_sp = (spatial_pos[None] + tpos[:, None]).reshape(1, Fa * P, D)
-    pos_sp = pos_sp.expand(B, Fa * P, D).to(memory_sp.dtype)
-    valid_sp = torch.cat([cond_valid, nc_valid], dim=1).repeat_interleave(P, dim=1)
+        Fa = spec.num_frames_attended
+        memory_sp = torch.cat([bank["cond_feats"], nc_feats], dim=1).reshape(B, Fa * P, D)
+        pos_sp = (spatial_pos[None] + tpos[:, None]).reshape(1, Fa * P, D)
+        pos_sp = pos_sp.expand(B, Fa * P, D).to(memory_sp.dtype)
+        valid_sp = torch.cat([cond_valid, nc_valid], dim=1).repeat_interleave(P, dim=1)
 
-    ptr_tokens, ptr_valid, ptr_tdiff = read_ptrs(
-        spec, bank, frame_idx, track_in_reverse=track_in_reverse,
-        obj_ptrs_in_past_only=obj_ptrs_in_past_only, num_frames=num_frames)
-    memory = torch.cat([memory_sp, ptr_tokens.to(memory_sp.dtype)], dim=1)
-    memory_pos = torch.cat([pos_sp, pos_sp.new_zeros(B, spec.num_ptr_tokens, D)], dim=1)
-    valid = torch.cat([valid_sp, ptr_valid], dim=1)
-    return memory, memory_pos, valid, spec.num_ptr_tokens, ptr_tdiff
+        ptr_tokens, ptr_valid, ptr_tdiff = read_ptrs(
+            spec, bank, frame_idx, track_in_reverse=track_in_reverse,
+            obj_ptrs_in_past_only=obj_ptrs_in_past_only, num_frames=num_frames)
+        memory = torch.cat([memory_sp, ptr_tokens.to(memory_sp.dtype)], dim=1)
+        memory_pos = torch.cat([pos_sp, pos_sp.new_zeros(B, spec.num_ptr_tokens, D)], dim=1)
+        valid = torch.cat([valid_sp, ptr_valid], dim=1)
+        return memory, memory_pos, valid, spec.num_ptr_tokens, ptr_tdiff

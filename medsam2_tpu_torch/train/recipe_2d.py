@@ -41,6 +41,7 @@ from medsam2_tpu_torch.core.sam2_model import SAM2Model, compute_dtype
 from medsam2_tpu_torch.state import similarity_bank as sb
 from medsam2_tpu_torch.train.losses import bce_with_logits, dice_loss, iou_between
 from medsam2_tpu_torch.train.recipe_3d import _grads
+from medsam2_tpu_torch.utils import tracing
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,15 +93,17 @@ def encode_and_condition(model: SAM2Model, images, bank, generator, bank_nonempt
     top = feats[-1]
     B, h, w, C = top.shape
     if bank_nonempty:
-        cur_embeds = top.reshape(B, -1).float().detach()
-        memory, _ = sb.read_similarity_bank(bank, cur_embeds, generator, num_samples,
-                                            indices=indices)
-        mem_pos = _bank_memory_pos(model, num_samples, top.dtype)
-        conditioned = model.memory_attention(
-            top.reshape(B, h * w, C), pos[-1].reshape(B, h * w, C).to(top.dtype), q_hw=(w, h),
-            memory=memory.to(top.dtype), memory_pos=mem_pos[None].expand(B, *mem_pos.shape),
-            num_obj_ptr_tokens=0, generator=dropout_generator)
-        top = conditioned.reshape(B, h, w, C)
+        with tracing.span("memory_attention"):
+            cur_embeds = top.reshape(B, -1).float().detach()
+            memory, _ = sb.read_similarity_bank(bank, cur_embeds, generator, num_samples,
+                                                indices=indices)
+            mem_pos = _bank_memory_pos(model, num_samples, top.dtype)
+            conditioned = model.memory_attention(
+                top.reshape(B, h * w, C), pos[-1].reshape(B, h * w, C).to(top.dtype),
+                q_hw=(w, h), memory=memory.to(top.dtype),
+                memory_pos=mem_pos[None].expand(B, *mem_pos.shape), num_obj_ptr_tokens=0,
+                generator=dropout_generator)
+            top = conditioned.reshape(B, h, w, C)
     # the reference mutates vision_feats[-1] in place (``:119``), so the
     # memory encoder downstream sees the conditioned top feature
     return top, list(feats[:-1]), list(feats[:-1]) + [top]
@@ -128,11 +131,12 @@ def forward_2d(model: SAM2Model, rcfg: Recipe2DConfig, images, coords, labels, b
     image_embed, high_res, vision_feats = encode_and_condition(
         model, images, bank, generator, bank_nonempty, num_samples,
         dropout_generator=dropout_generator, indices=indices)
-    sparse, dense = prompt_encode_nograd(model, coords, labels)
-    image_pe = model.sam_prompt_encoder.get_dense_pe()
-    low_res, ious, _, _ = model.sam_mask_decoder(
-        image_embed, image_pe, sparse, dense, multimask_output=multimask_output,
-        high_res_features=high_res, dynamic_multimask_via_stability=is_eval)
+    with tracing.span("sam_heads"):
+        sparse, dense = prompt_encode_nograd(model, coords, labels)
+        image_pe = model.sam_prompt_encoder.get_dense_pe()
+        low_res, ious, _, _ = model.sam_mask_decoder(
+            image_embed, image_pe, sparse, dense, multimask_output=multimask_output,
+            high_res_features=high_res, dynamic_multimask_via_stability=is_eval)
     iou_best = ious.amax(dim=1)
     pred = layers.interpolate(low_res.float().permute(0, 2, 3, 1),
                               (rcfg.out_size, rcfg.out_size), method="bilinear")[..., 0]

@@ -45,6 +45,7 @@ from medsam2_tpu_torch.state import similarity_bank as sb
 from medsam2_tpu_torch.train.recipe_2d import (clip_by_global_norm, encode_and_condition,
                                                prompt_encode_nograd)
 from medsam2_tpu_torch.train.recipe_3d import _grads
+from medsam2_tpu_torch.utils import tracing
 
 BN_MOMENTUM = 0.1   # torch's BatchNorm default, the running-stat update
 
@@ -97,12 +98,13 @@ def forward_nuclei(model: SAM2Model, prompter: Prompter, rcfg: NucleiRecipeConfi
     coords = nearest.reshape(B * M, 1, 2)
     labels = torch.where(gt_valid.reshape(B * M), batch["gt_labels"].reshape(B * M).int(),
                          -1)[:, None]
-    sparse, dense = prompt_encode_nograd(model, coords, labels)
-    image_pe = model.sam_prompt_encoder.get_dense_pe()
-    image_indices = torch.arange(B, device=images.device).repeat_interleave(M)
-    low_res, ious, _, _ = model.sam_mask_decoder(
-        image_embed, image_pe, sparse, dense, multimask_output=False,
-        high_res_features=high_res, image_indices=image_indices)
+    with tracing.span("sam_heads"):
+        sparse, dense = prompt_encode_nograd(model, coords, labels)
+        image_pe = model.sam_prompt_encoder.get_dense_pe()
+        image_indices = torch.arange(B, device=images.device).repeat_interleave(M)
+        low_res, ious, _, _ = model.sam_mask_decoder(
+            image_embed, image_pe, sparse, dense, multimask_output=False,
+            high_res_features=high_res, image_indices=image_indices)
     out = rcfg.out_size
     pred_cells = layers.interpolate(low_res.float().permute(0, 2, 3, 1), (out, out),
                                     method="bilinear")[..., 0].reshape(B, M, out, out)

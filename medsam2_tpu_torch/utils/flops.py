@@ -1,79 +1,14 @@
-"""FLOP counts and MFU for benchmarks (counterpart of
-``medsam2_tpu/utils/flops.py``).
-
-``peak_flops`` maps the local card to its dense bf16 tensor-core peak, so a
-benchmark can report MFU = flops / (seconds * peak); ``compiled_flops``
-counts one call's FLOPs under ``torch.utils.flop_counter.FlopCounterMode``;
-the analytic counts per component of the video-propagation pipeline are
-those of the JAX package, copied as they are. The reference publishes wall
-clock only (``sam2_train/sam2_video_predictor.py:60-62``).
+"""Analytic FLOP counts of the video-propagation pipeline, per component
+(counterpart of ``medsam2_tpu/utils/flops.py``): the JAX package's counts,
+copied as they are. The reference publishes wall clock only
+(``sam2_train/sam2_video_predictor.py:60-62``). Convention: 1 MAC = 2
+FLOPs; elementwise and norm ops are ignored (<1% of total). A counting mode
+such as ``torch.utils.flop_counter.FlopCounterMode`` bills nothing for the
+port's hand-written kernels, which is why the counts are analytic; the
+benchmark's MFU and rooflines use its own frozen copy (``portbench/counts``).
 """
 
 from __future__ import annotations
-
-import os
-from typing import Optional
-
-import torch
-
-# Dense bf16 tensor-core peak FLOP/s by ``torch.cuda.get_device_name``
-# substring, most specific first: NVIDIA's H100 datasheet (SXM 989.4 TF/s
-# dense, PCIe 756 TF/s dense).
-_PEAK_TABLE = (
-    ("h100 pcie", 756e12),
-    ("h100", 989e12),
-)
-
-
-def peak_flops(device=None) -> Optional[float]:
-    """Dense bf16 peak FLOP/s of one card; None if unknown or on the CPU.
-
-    ``BENCH_PEAK_TFLOPS`` (in TFLOP/s) overrides the table, for cards not in
-    it or to account for a capped clock."""
-    env = os.environ.get("BENCH_PEAK_TFLOPS")
-    if env:
-        return float(env) * 1e12
-    device = torch.device("cuda" if device is None else device)
-    if device.type != "cuda" or not torch.cuda.is_available():
-        return None
-    name = torch.cuda.get_device_name(device).lower()
-    for sub, peak in _PEAK_TABLE:
-        if sub in name:
-            return peak
-    return None
-
-
-def compiled_flops(fn, *args, **kwargs) -> float:
-    """FLOPs of one call of ``fn(*args, **kwargs)`` as
-    ``torch.utils.flop_counter.FlopCounterMode`` counts them: the matmuls,
-    convolutions and library attention calls PyTorch dispatches. The
-    port's hand-written kernels are opaque to it and bill zero, as Pallas
-    custom calls do in XLA's cost analysis, which is why the analytic counts
-    below exist."""
-    from torch.utils.flop_counter import FlopCounterMode
-
-    counter = FlopCounterMode(display=False)
-    with counter:
-        fn(*args, **kwargs)
-    return float(counter.get_total_flops())
-
-
-def mfu(flops: Optional[float], seconds: float, device=None) -> Optional[float]:
-    """Model FLOP utilization in [0, 1]; None if flops or peak are unknown."""
-    peak = peak_flops(device)
-    if flops is None or peak is None or seconds <= 0:
-        return None
-    return flops / (seconds * peak)
-
-
-# ---------------------------------------------------------------------------
-# Analytic per-component FLOPs for the video-propagation pipeline.
-#
-# A counting mode bills nothing for the hand-written kernels (see
-# ``compiled_flops``), so the propagation MFU comes from an analytic count,
-# the JAX package's, copied unchanged. Convention: 1 MAC = 2 FLOPs;
-# elementwise/norm ops are ignored (<1% of total).
-# ---------------------------------------------------------------------------
 
 
 def _hiera_flops(cfg) -> float:

@@ -4,6 +4,7 @@ utilities (counterpart of ``medsam2_tpu/utils/logging_utils.py``; rebuilds of
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import logging
 import os
@@ -13,6 +14,8 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+
+from medsam2_tpu_torch.utils import tracing
 
 
 def set_log_dir(root_dir: str, exp_name: str) -> Dict[str, str]:
@@ -137,31 +140,39 @@ class EMA:
 class Profiler:
     """``torch.profiler`` trace of the first ``num_steps`` steps, written as
     a Chrome trace ``trace.json`` under ``logdir`` (CPU and, when present,
-    CUDA activity)."""
+    CUDA activity), with the program's spans
+    (:mod:`medsam2_tpu_torch.utils.tracing`) on while it records, so the
+    trace holds their ``medsam2.<span>`` ranges. :meth:`start` before the
+    first step, :meth:`step` after each; the trace is written after the
+    ``num_steps``-th step, or by :meth:`close` if fewer ran."""
 
     def __init__(self, logdir: str, num_steps: int = 3):
         self.logdir = logdir
         self.num_steps = num_steps
         self._step = 0
         self._prof = None
+        self._open = contextlib.ExitStack()
+
+    def start(self):
+        if self._prof is not None or self.num_steps <= 0:
+            return
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        self._open.enter_context(tracing.collect())
+        self._prof = self._open.enter_context(torch.profiler.profile(activities=acts))
 
     def step(self):
-        if self._step == 0 and self.num_steps > 0:
-            acts = [torch.profiler.ProfilerActivity.CPU]
-            if torch.cuda.is_available():
-                acts.append(torch.profiler.ProfilerActivity.CUDA)
-            self._prof = torch.profiler.profile(activities=acts)
-            self._prof.__enter__()
         self._step += 1
         if self._prof is not None and self._step >= self.num_steps:
             self.close()
 
     def close(self):
         if self._prof is not None:
-            self._prof.__exit__(None, None, None)
+            prof, self._prof = self._prof, None
+            self._open.close()
             os.makedirs(self.logdir, exist_ok=True)
-            self._prof.export_chrome_trace(os.path.join(self.logdir, "trace.json"))
-            self._prof = None
+            prof.export_chrome_trace(os.path.join(self.logdir, "trace.json"))
 
 
 class ScalarWriter:

@@ -1,11 +1,9 @@
 """The port's FLOP counts (``medsam2_tpu_torch/utils/flops.py``) against the
 JAX package's: every analytic count, for every preset of ``configs.py`` at
 two image sizes and two bank sizes, equal as floats (the same arithmetic in
-the same order). ``peak_flops`` reads ``BENCH_PEAK_TFLOPS`` and knows no CPU
-peak; ``compiled_flops`` of a plain ``nn.Linear`` is 2 M N K; ``mfu``."""
+the same order)."""
 
 import pytest
-import torch
 
 from medsam2_tpu import configs as JC
 from medsam2_tpu.state import memory_bank as JB
@@ -36,29 +34,3 @@ def test_analytic_counts_equal_jax(name, size, cond):
         want = JF.propagation_flops(jcfg, jspec, num_objects=objects)
         assert got == want
         assert got["total"] > 0
-
-
-def test_peak_flops_override_and_mfu(monkeypatch):
-    monkeypatch.delenv("BENCH_PEAK_TFLOPS", raising=False)
-    assert TF.peak_flops("cpu") is None
-    assert TF.mfu(1e12, 1.0, "cpu") is None
-    monkeypatch.setenv("BENCH_PEAK_TFLOPS", "500")
-    assert TF.peak_flops() == 500e12
-    assert TF.mfu(250e12, 1.0) == pytest.approx(0.5)
-    assert TF.mfu(None, 1.0) is None
-    assert TF.mfu(1e12, 0.0) is None
-
-
-def test_peak_table_by_card_name(monkeypatch):
-    monkeypatch.delenv("BENCH_PEAK_TFLOPS", raising=False)
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    for name, peak in (("NVIDIA H100 80GB HBM3", 989e12), ("NVIDIA H100 PCIe", 756e12),
-                       ("NVIDIA A100-SXM4-80GB", None)):
-        monkeypatch.setattr(torch.cuda, "get_device_name", lambda device=None, n=name: n)
-        assert TF.peak_flops("cuda") == peak, name
-
-
-def test_compiled_flops_of_a_linear():
-    M, K, N = 12, 16, 24
-    layer = torch.nn.Linear(K, N)
-    assert TF.compiled_flops(layer, torch.zeros(M, K)) == 2.0 * M * N * K
