@@ -2,9 +2,10 @@
 grid, 1D sine encoding of object-pointer distances, random-Fourier prompt
 encoding, axial RoPE tables.
 
-The sine and RoPE tables depend only on static shapes: they are computed once
-in numpy and kept on the device per (shape, device, dtype), as the JAX package
-folds them into its compiled graph as constants. Callers must not modify the
+The sine and RoPE tables and the prompt encoder's point scale depend only on
+static shapes: they are computed once in numpy and kept on the device per
+(shape, device, dtype), as the JAX package folds them into its compiled graph
+as constants. Callers must not modify the
 returned tensors.
 """
 
@@ -17,8 +18,6 @@ from typing import Tuple
 import numpy as np
 import torch
 from torch import nn
-
-from medsam2_tpu_torch.utils import tracing
 
 
 def sine_pos_embed_grid(h: int, w: int, num_pos_feats: int) -> np.ndarray:
@@ -89,9 +88,14 @@ class PositionEmbeddingRandom(nn.Module):
 
     def points(self, coords, image_size: Tuple[int, int]):
         """Unnormalised pixel coords [..., 2] in (x, y) order."""
-        scale = tracing.upload(np.array([1.0 / image_size[1], 1.0 / image_size[0]], np.float32),
-                               coords.device)
-        return self.encode(coords * scale)
+        return self.encode(coords * _point_scale_on(image_size[0], image_size[1], coords.device))
+
+
+@lru_cache(maxsize=32)
+def _point_scale_on(h: int, w: int, device: torch.device):
+    """fp32 ``[1 / w, 1 / h]``, the scale of (x, y) pixel coords, kept on
+    ``device``: uploaded once, not at every call."""
+    return torch.from_numpy(np.array([1.0 / w, 1.0 / h], np.float32)).to(device)
 
 
 @lru_cache(maxsize=32)

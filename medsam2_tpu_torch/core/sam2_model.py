@@ -3,7 +3,8 @@ the part the 3D propagation and 3D training paths reach.
 
 :class:`SAM2Model` holds the reference's submodules under the reference's
 state-dict keys. ``forward_image`` runs the encoder; ``forward_sam_heads`` the
-prompt encoder and mask decoder with occlusion handling; ``track_step`` fuses
+prompt encoder and mask decoder with occlusion handling, replayed as a CUDA
+graph in the tracked form on a card; ``track_step`` fuses
 the current frame with the bank through the memory attention, runs the SAM
 heads and writes the new memory. As in the JAX package, three readouts serve
 inference: storage order over the bank's roped-key cache (the default), read
@@ -16,6 +17,7 @@ marks the 3D recipe's two trainable parameter groups.
 
 from __future__ import annotations
 
+from collections import OrderedDict
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
@@ -50,6 +52,45 @@ class SamHeadOutputs(NamedTuple):
     high_res_masks: torch.Tensor      # [B, 1, H, W]
     obj_ptr: torch.Tensor             # [B, C]
     object_score_logits: torch.Tensor  # [B, 1]
+
+
+HEADS_GRAPHS = 8   # tracked-heads signatures a model keeps (seen once, or captured)
+
+
+def _graphable(model, backbone_features, high_res_features, point_inputs, mask_inputs) -> bool:
+    """Whether a heads call replays a graph: the memory-conditioned tracked
+    form (no points, no mask), with gradients off, its tensors on a card, and
+    a model whose linears are whole (one sliced over a model axis by
+    :func:`medsam2_tpu_torch.parallel.mesh.shard_model` sums them across
+    ranks inside the heads, which a capture cannot hold)."""
+    return (point_inputs is None and mask_inputs is None and not torch.is_grad_enabled()
+            and backbone_features.is_cuda and all(f.is_cuda for f in high_res_features or ())
+            and "_mesh" not in model.__dict__)
+
+
+class _HeadsGraph:
+    """A CUDA graph of :meth:`SAM2Model._sam_heads` in the tracked form,
+    captured on static copies of its inputs (the image embedding, then the
+    skip features). :meth:`replay` copies a call's inputs into them on the
+    current stream, replays, and hands back copies of the outputs, since the
+    next replay overwrites the graph's own."""
+
+    def __init__(self, model: "SAM2Model", inputs, multimask_output: bool,
+                 eval_dynamic_multimask: bool):
+        self.inputs = tuple(torch.empty(x.shape, dtype=x.dtype, device=x.device)
+                            for x in inputs)
+        self.graph = torch.cuda.CUDAGraph()
+        stream = torch.cuda.Stream(inputs[0].device)
+        with torch.cuda.graph(self.graph, stream=stream, capture_error_mode="thread_local"):
+            self.outputs = model._sam_heads(self.inputs[0], None, None,
+                                            list(self.inputs[1:]) or None, multimask_output,
+                                            eval_dynamic_multimask)
+
+    def replay(self, inputs) -> SamHeadOutputs:
+        for s, x in zip(self.inputs, inputs):
+            s.copy_(x)
+        self.graph.replay()
+        return SamHeadOutputs(*(t.clone() for t in self.outputs))
 
 
 def compute_dtype(cfg: SAM2Config) -> torch.dtype:
@@ -119,6 +160,7 @@ class SAM2Model(nn.Module):
         self.requires_grad_(False)
         self.to(device)
         self.eval()
+        self._heads_graphs: "OrderedDict[tuple, Optional[_HeadsGraph]]" = OrderedDict()
 
     @property
     def device(self) -> torch.device:
@@ -176,64 +218,127 @@ class SAM2Model(nn.Module):
                           mask_inputs=None, high_res_features=None,
                           multimask_output: bool = False,
                           eval_dynamic_multimask: bool = False) -> SamHeadOutputs:
-        """``SAM2Base._forward_sam_heads`` (``sam2_base.py:252-410``)."""
+        """``SAM2Base._forward_sam_heads`` (``sam2_base.py:252-410``). The
+        memory-conditioned tracked form (no points, no mask, no gradients,
+        tensors on a card, whole linears: :func:`_graphable`) replays a CUDA
+        graph of :meth:`_sam_heads` (:class:`_HeadsGraph`); every other call
+        runs it eagerly."""
         with tracing.span("sam_heads"):
-            cfg = self.cfg
-            B = backbone_features.shape[0]
-            dev = backbone_features.device
-            if point_inputs is not None:
-                coords = point_inputs["point_coords"]
-                labels = point_inputs["point_labels"]
-            else:
-                coords = torch.zeros(B, 1, 2, device=dev)
-                labels = -torch.ones(B, 1, dtype=torch.int32, device=dev)
-            sam_mask_prompt = None
-            if mask_inputs is not None:
-                ms = cfg.sam_image_embedding_size * 4
-                sam_mask_prompt = mask_inputs.float()
-                if mask_inputs.shape[1] != ms:
-                    sam_mask_prompt = layers.interpolate(sam_mask_prompt, (ms, ms),
-                                                         method="bilinear", antialias=True)
-            pe = self.sam_prompt_encoder
-            sparse, dense = pe((coords, labels), masks=sam_mask_prompt)
-            low_res_multimasks, ious, sam_tokens, obj_logits = self.sam_mask_decoder(
-                backbone_features, pe.get_dense_pe(), sparse, dense,
-                multimask_output=multimask_output, high_res_features=high_res_features,
-                dynamic_multimask_via_stability=eval_dynamic_multimask)
-            if cfg.pred_obj_scores:
-                appearing = obj_logits > 0
-                low_res_multimasks = torch.where(appearing[:, :, None, None], low_res_multimasks,
-                                                 torch.full_like(low_res_multimasks, NO_OBJ_SCORE))
-            low_res_multimasks = low_res_multimasks.float()
+            if _graphable(self, backbone_features, high_res_features, point_inputs,
+                          mask_inputs):
+                return self._heads_graphed(backbone_features, high_res_features,
+                                           multimask_output, eval_dynamic_multimask)
+            return self._sam_heads(backbone_features, point_inputs, mask_inputs,
+                                   high_res_features, multimask_output, eval_dynamic_multimask)
 
-            sam_token = sam_tokens[:, 0]
-            if multimask_output:
-                best = ious.argmax(dim=-1)
-                bidx = torch.arange(B, device=dev)
-                low_res_masks = low_res_multimasks[bidx, best][:, None]
-                if sam_tokens.shape[1] > 1:
-                    sam_token = sam_tokens[bidx, best]
-            else:
-                low_res_masks = low_res_multimasks
-            # the resize is per mask, so upsampling only the selected mask is exact
-            high_res_masks = layers.interpolate(
-                low_res_masks.permute(0, 2, 3, 1), (cfg.image_size, cfg.image_size),
-                method="bilinear").permute(0, 3, 1, 2)
+    def _heads_graphed(self, backbone_features, high_res_features, multimask_output: bool,
+                       eval_dynamic_multimask: bool) -> SamHeadOutputs:
+        """The tracked form's heads by signature: a signature's first call runs
+        eagerly (it warms the library handles and the allocator), its second
+        captures :meth:`_sam_heads` on static inputs, and every call from then
+        on replays the capture. The signature holds the shapes, dtypes and
+        device of the inputs, the two flags, inference mode (the static inputs
+        made under it are inference tensors), and the addresses of the heads'
+        weights: weights loaded in place keep their graph, weights replaced by
+        new tensors get a new one."""
+        hr = tuple(high_res_features) if high_res_features else ()
+        inputs = (backbone_features,) + hr
+        key = (tuple((x.shape, x.dtype) for x in inputs), backbone_features.device,
+               multimask_output, eval_dynamic_multimask, torch.is_inference_mode_enabled(),
+               self._heads_weight_ptrs())
+        cache = self._heads_graphs
+        entry = cache.get(key)
+        if entry is None and key not in cache:
+            cache[key] = None
+            if len(cache) > HEADS_GRAPHS:
+                cache.popitem(last=False)
+            return self._sam_heads(backbone_features, None, None, high_res_features,
+                                   multimask_output, eval_dynamic_multimask)
+        cache.move_to_end(key)
+        with torch.cuda.device(backbone_features.device):
+            if entry is None:
+                entry = cache[key] = _HeadsGraph(self, inputs, multimask_output,
+                                                 eval_dynamic_multimask)
+            with tracing.span("sam_heads.graph"):
+                pass
+            return entry.replay(inputs)
 
-            if cfg.use_obj_ptrs_in_encoder:
-                obj_ptr = self.obj_ptr_proj(sam_token)
+    def _heads_weight_ptrs(self) -> Tuple[int, ...]:
+        """The addresses of every parameter and buffer the SAM heads read,
+        walked through the modules' own dicts: ``parameters()`` costs the host
+        several times as much, at every tracked step."""
+        mods = [self.sam_prompt_encoder, self.sam_mask_decoder]
+        if self.cfg.use_obj_ptrs_in_encoder:
+            mods.append(self.obj_ptr_proj)
+        i = 0
+        while i < len(mods):
+            mods.extend(mods[i]._modules.values())
+            i += 1
+        ts = [t for m in mods for t in m._parameters.values()]
+        ts += [t for m in mods for t in m._buffers.values()]
+        if self.cfg.use_obj_ptrs_in_encoder and self.cfg.pred_obj_scores:
+            ts.append(self.no_obj_ptr)
+        return tuple(map(torch.Tensor.data_ptr, ts))
+
+    def _sam_heads(self, backbone_features, point_inputs, mask_inputs, high_res_features,
+                   multimask_output: bool, eval_dynamic_multimask: bool) -> SamHeadOutputs:
+        """The heads' computation, eager; the graphs capture this function."""
+        cfg = self.cfg
+        B = backbone_features.shape[0]
+        dev = backbone_features.device
+        if point_inputs is not None:
+            coords = point_inputs["point_coords"]
+            labels = point_inputs["point_labels"]
+        else:
+            coords = torch.zeros(B, 1, 2, device=dev)
+            labels = -torch.ones(B, 1, dtype=torch.int32, device=dev)
+        sam_mask_prompt = None
+        if mask_inputs is not None:
+            ms = cfg.sam_image_embedding_size * 4
+            sam_mask_prompt = mask_inputs.float()
+            if mask_inputs.shape[1] != ms:
+                sam_mask_prompt = layers.interpolate(sam_mask_prompt, (ms, ms),
+                                                     method="bilinear", antialias=True)
+        pe = self.sam_prompt_encoder
+        sparse, dense = pe((coords, labels), masks=sam_mask_prompt)
+        low_res_multimasks, ious, sam_tokens, obj_logits = self.sam_mask_decoder(
+            backbone_features, pe.get_dense_pe(), sparse, dense,
+            multimask_output=multimask_output, high_res_features=high_res_features,
+            dynamic_multimask_via_stability=eval_dynamic_multimask)
+        if cfg.pred_obj_scores:
+            appearing = obj_logits > 0
+            low_res_multimasks = torch.where(appearing[:, :, None, None], low_res_multimasks,
+                                             torch.full_like(low_res_multimasks, NO_OBJ_SCORE))
+        low_res_multimasks = low_res_multimasks.float()
+
+        sam_token = sam_tokens[:, 0]
+        if multimask_output:
+            best = ious.argmax(dim=-1)
+            bidx = torch.arange(B, device=dev)
+            low_res_masks = low_res_multimasks[bidx, best][:, None]
+            if sam_tokens.shape[1] > 1:
+                sam_token = sam_tokens[bidx, best]
+        else:
+            low_res_masks = low_res_multimasks
+        # the resize is per mask, so upsampling only the selected mask is exact
+        high_res_masks = layers.interpolate(
+            low_res_masks.permute(0, 2, 3, 1), (cfg.image_size, cfg.image_size),
+            method="bilinear").permute(0, 3, 1, 2)
+
+        if cfg.use_obj_ptrs_in_encoder:
+            obj_ptr = self.obj_ptr_proj(sam_token)
+        else:
+            obj_ptr = sam_token
+        if cfg.pred_obj_scores:
+            if cfg.soft_no_obj_ptr:
+                lam = torch.sigmoid(obj_logits)
             else:
-                obj_ptr = sam_token
-            if cfg.pred_obj_scores:
-                if cfg.soft_no_obj_ptr:
-                    lam = torch.sigmoid(obj_logits)
-                else:
-                    lam = (obj_logits > 0).to(obj_ptr.dtype)
-                if cfg.fixed_no_obj_ptr:
-                    obj_ptr = lam * obj_ptr
-                obj_ptr = obj_ptr + (1.0 - lam) * self.no_obj_ptr.to(obj_ptr.dtype)
-            return SamHeadOutputs(low_res_multimasks, ious, low_res_masks, high_res_masks,
-                                  obj_ptr, obj_logits)
+                lam = (obj_logits > 0).to(obj_ptr.dtype)
+            if cfg.fixed_no_obj_ptr:
+                obj_ptr = lam * obj_ptr
+            obj_ptr = obj_ptr + (1.0 - lam) * self.no_obj_ptr.to(obj_ptr.dtype)
+        return SamHeadOutputs(low_res_multimasks, ious, low_res_masks, high_res_masks,
+                              obj_ptr, obj_logits)
 
     def use_mask_as_output(self, backbone_features, high_res_features,
                            mask_inputs) -> SamHeadOutputs:

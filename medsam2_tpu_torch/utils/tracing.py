@@ -28,7 +28,10 @@ around it and the frame's roped-key cache at its call sites).
 Span names of the 3D propagation path: ``propagate``, ``prompt_step``,
 ``track_step`` (session loop), ``image_encoder``, ``memory_attention``,
 ``sam_heads``, ``memory_encoder``, ``bank.read``, ``bank.write`` and
-``sync``, each host-blocking transfer (:func:`upload`).
+``sync``, each host-blocking transfer (:func:`upload`). ``sam_heads.graph``
+is a count-only marker: opened and closed with nothing inside, once per
+replay of the heads' CUDA graph inside ``sam_heads``, so that it counts the
+replays and the replay's host time stays in ``sam_heads``.
 """
 
 from __future__ import annotations

@@ -131,11 +131,10 @@ def test_spans_form_one_tree_per_call(model, monkeypatch, kv):
                 under_read = Counter(s.name for s in _descendants(spans, read)
                                      if by_id[s.parent].name == "bank.read")
                 assert under_read == {"sync": BANK_UPLOADS[kv]}
-                # and the prompt encoder's point scale, inside the heads
-                assert names["sync"] == BANK_UPLOADS[kv] + 1
+                assert names["sync"] == BANK_UPLOADS[kv]
             else:
                 assert names["memory_attention"] == 0
-                assert names["sync"] == 2
+                assert names["sync"] == 1
     totals = rec.totals()
     assert totals["propagate"]["count"] == 2
     assert sum(t["self_ns"] for t in totals.values()) == sum(r.duration_ns for r in roots)
